@@ -5,22 +5,36 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero):
+Phases (any failure exits non-zero; each prints its wall time):
 
-1. Build the contact-sweep kernel from ``rapier_tpu_torch/csrc`` (nvcc,
-   sm_90a) and print the compiler's register / shared-memory report.
-2. Kernel vs plain version on the card: capture one step's solve inputs from
-   a settled bench-config batch of 256 scenes (K = 256 solver lanes), run the
-   CUDA kernel and the plain PyTorch version on them and hold them to the
-   stated tolerance; time both with CUDA events at the bench shape (4096
-   scenes) and at one scene (the `PhysicsWorld.step` shape).
-3. The main path: the bench scene (4 layers of 5x5 balls, cuboids and
+1. Build the contact-sweep kernels from ``rapier_tpu_torch/csrc`` (one nvcc
+   call, sm_90a) and print the compiler's register / shared-memory report.
+2. Block kernel vs plain version: capture one step's solve inputs from a
+   settled bench-config batch of 256 scenes (K = 256 solver lanes), run
+   `contact_sweep_kernel` and the plain PyTorch version on them and hold them
+   to KERNEL_TOL; the folded kernel, called through its launcher on the same
+   capture, must agree with the block kernel bit for bit.  Time both
+   versions with CUDA events at the bench shape (4096 scenes) and at one
+   scene (the `PhysicsWorld.step` shape).
+3. Folded kernel vs plain version: the same on 256 quadruped scenes after 40
+   steps (seeded noise on the trunk position and the servo targets; K = 128,
+   so the step launches `contact_sweep_folded_kernel`); times at 4096 scenes
+   for the folded wrapper, the folded launch alone, `contact_sweep_kernel` on
+   the same packed inputs and the plain version.
+4. The bench path: the bench scene (4 layers of 5x5 balls, cuboids and
    capsules on a ground cuboid, max_pairs 512, max_solver_pairs 256)
-   replicated to 4096 scenes on the card, settled for 150 steps, then 50
-   timed steps.  Checks zero broad-phase / solver overflow, finite state,
-   exactly one kernel launch per step, bodies resting above the ground, and
-   agreement with the CPU (plain) path on a small batch.
-4. Determinism: 10 steps run twice from one state are bitwise equal.
+   replicated to 4096 scenes, settled for 150 steps, then 50 timed steps.
+   Checks zero broad-phase / solver overflow, finite state, exactly one
+   `contact_sweep_kernel` launch per step and no folded one, bodies resting
+   above the ground.
+5. The robots path: 4096 replicas of `quadruped_world(use_multibody=True)`,
+   240 steps, then 50 timed steps.  Checks finite state, zero overflow,
+   exactly one folded launch per step and no block launch, every scene
+   bitwise equal to scene 0, and the trunk at the reference's height (R5).
+6. The card against the CPU (plain) path: 2 bench scenes and 2 quadruped
+   scenes for 10 steps each.
+7. Determinism: 10 steps run twice from one state are bitwise equal, for a
+   bench batch and a quadruped batch.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -39,8 +53,25 @@ N_SCENES = 4096
 N_CHECK = 256
 SETTLE = 150
 TIMED = 50
+ROBOT_SETTLE = 240
+ROBOT_CHECK_STEPS = 40
 KERNEL_TOL = dict(bodies=1e-4, impulses=1e-3)   # atol, summation order only
 CPU_TOL = dict(pos=1e-4, vel=1e-3)              # atol over 10 contact steps
+# The reference's quadruped falls onto its trunk (ROADMAP R5): trunk centre
+# at the box's half height, 0.050, after 240 steps.  A port that stands here
+# has a parity fault.
+TRUNK_Z = (0.045, 0.055)
+TRUNK = 1                       # body handle of the trunk
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
+# float32 FLOP/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+# Float operations per valid solver lane, counted from csrc/contact_sweep.cu:
+# generation once, then per substep the soft-rhs update and warmstart and per
+# sweep one solve_lane (normal rows, the coupled tangent solve, twist).
+FLOPS_GENERATE = 850
+FLOPS_UPDATE_WARMSTART = 500
+FLOPS_SOLVE = 390
 # solve_from_manifolds arguments that are not lane tensors.
 SCALAR_ARGS = ("dt_sub", "inv_dt_sub", "erp_inv_dt", "cfm_factor",
                "allowed_lin_err", "max_corrective_velocity", "warmstart_coeff")
@@ -68,6 +99,31 @@ def bench_world(device, n_scenes: int):
     world.params = world.params.replace(max_solver_pairs=256)
     scene = from_numpy(world.build(), device)      # one scene, on the card
     return replicate_scene(scene, n_scenes), world.params
+
+
+def quadruped_batch(device, n_scenes: int, seed=None):
+    """`quadruped_world(use_multibody=True)` replicated to `n_scenes` on
+    `device`; with a seed, each scene's trunk position (0.01 m) and servo
+    targets (0.05 rad) get seeded numpy noise."""
+    import numpy as np
+    import torch
+    from rapier_tpu_torch.scenes import quadruped_world, replicate_scene
+    from rapier_tpu_torch.types import from_numpy
+
+    world, robot = quadruped_world(use_multibody=True, device=device)
+    if robot.bodies["trunk"] != TRUNK:
+        _fail(f"unexpected trunk handle {robot.bodies['trunk']}")
+    state = replicate_scene(from_numpy(world.build(), device), n_scenes)
+    if seed is not None:
+        rng = np.random.default_rng(seed)
+        d = torch.from_numpy(rng.normal(0, 0.01, (n_scenes, 3)).astype(np.float32))
+        servo = rng.normal(0, 0.05, (n_scenes, 8)).astype(np.float32)
+        d = d.to(device)
+        state.multibodies.q[:, 0, 0, :3] += d
+        state.bodies.pos[:, TRUNK] += d
+        state.bodies.next_pos[:, TRUNK] += d
+        state.multibodies.motor_target_pos[:, 0, 1:, 3] += torch.from_numpy(servo).to(device)
+    return state, world.params
 
 
 def run(state, params, n_steps: int):
@@ -125,9 +181,58 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_kernel(device, card):
-    """Phase 2: the CUDA kernel against the plain version."""
+def _packed(sb, inp):
+    """The kernels' packed inputs and keyword arguments."""
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+
+    packed = cs._pack(sb, **{k: v for k, v in inp.items()
+                             if k not in SCALAR_ARGS + STATIC_ARGS})
+    kw = dict(scalars=[inp[k] for k in SCALAR_ARGS], **{k: inp[k] for k in STATIC_ARGS})
+    return packed, kw
+
+
+def _bound(packed, out, inp):
+    """The least time the card could take for one call: bytes (each input
+    read once, each output written once) at the HBM rate, or the float
+    operations this call's valid lanes need at the fp32 rate, whichever is
+    larger.  Returns (ms, "bytes" or "operations")."""
+    n_bytes = sum(t.numel() * t.element_size() for t in list(packed) + list(out))
+    sweeps = inp["pgs_iters"] + inp["stab_iters"]
+    per_lane = FLOPS_GENERATE + inp["n_sub"] * (FLOPS_UPDATE_WARMSTART + sweeps * FLOPS_SOLVE)
+    flops = int(inp["valid"].sum()) * per_lane
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _compare(name, sb, inp, sb_k, imp_k):
+    """Hold a kernel's output to the plain version within KERNEL_TOL."""
     import torch
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+
+    sb_p, imp_p = cs.solve_plain(sb, **inp)
+    torch.cuda.synchronize()
+    err_b = max(float((a - b).abs().max()) for a, b in zip(sb_k, sb_p))
+    err_i = float((imp_k - imp_p).abs().max())
+    print(f"{name} vs plain on {sb.v_lin.shape[0]} scenes (K={inp['b1'].shape[-1]}, "
+          f"{int(inp['valid'].sum())} solver lanes): max |d bodies| {err_b:.3e} "
+          f"(tol {KERNEL_TOL['bodies']}), max |d impulses| {err_i:.3e} "
+          f"(tol {KERNEL_TOL['impulses']})")
+    if not (err_b <= KERNEL_TOL["bodies"] and err_i <= KERNEL_TOL["impulses"]):
+        _fail(f"{name} disagrees with the plain version")
+    return max(err_b, err_i)
+
+
+def _bitwise(what, a, b):
+    import torch
+
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        _fail(f"{what}: the folded and block kernels differ")
+    print(f"{what}: folded kernel == contact_sweep_kernel bit for bit")
+
+
+def phase_kernel(device, card):
+    """Phase 2: contact_sweep_kernel against the plain version (bench)."""
     from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
     from rapier_tpu_torch.dynamics.solver.contact_constraints import SolverBodies
 
@@ -139,20 +244,15 @@ def phase_kernel(device, card):
     if k_lanes != 256:
         _fail(f"expected K = 256 solver lanes, got {k_lanes}")
 
+    counts = cs.KERNEL.launches, cs.KERNEL.launches_folded
     sb_k, imp_k = cs.solve_from_manifolds(sb, **inp)
-    sb_p, imp_p = cs.solve_plain(sb, **inp)
-    torch.cuda.synchronize()
-    err_b = max(float((a - b).abs().max()) for a, b in zip(sb_k, sb_p))
-    err_i = float((imp_k - imp_p).abs().max())
-    n_valid = int(inp["valid"].sum())
-    print(f"kernel vs plain on {N_CHECK} settled scenes (K={k_lanes}, "
-          f"{n_valid} solver lanes): max |d bodies| {err_b:.3e} "
-          f"(tol {KERNEL_TOL['bodies']}), max |d impulses| {err_i:.3e} "
-          f"(tol {KERNEL_TOL['impulses']})")
-    if not (err_b <= KERNEL_TOL["bodies"] and err_i <= KERNEL_TOL["impulses"]):
-        _fail("CUDA kernel disagrees with the plain version")
+    if cs.KERNEL.launches != counts[0] + 1:
+        _fail("the bench shape did not launch contact_sweep_kernel")
+    err = _compare("contact_sweep_kernel", sb, inp, sb_k, imp_k)
+    packed, kw = _packed(sb, inp)
+    _bitwise("bench capture (K=256)", cs.KERNEL.launch(*packed, **kw),
+             cs.KERNEL.launch_folded(*packed, **kw))
 
-    launches = cs.KERNEL.launches
     times = {}
     for reps in (N_SCENES // N_CHECK, 0):
         sb_t = SolverBodies(*[_scenes(x, reps) for x in sb])
@@ -161,22 +261,67 @@ def phase_kernel(device, card):
         plain_ms = _time_ms(lambda: cs.solve_plain(sb_t, **inp_t), 3)
         # The launch alone, on inputs packed once: the wrapper's time above
         # also holds the packing into the kernel's layout.
-        packed = cs._pack(sb_t, **{k: v for k, v in inp_t.items()
-                                   if k not in SCALAR_ARGS + STATIC_ARGS})
-        launch_ms = _time_ms(lambda: cs.KERNEL.launch(
-            *packed, scalars=[inp_t[k] for k in SCALAR_ARGS],
-            **{k: inp_t[k] for k in STATIC_ARGS}), 20)
-        times[reps] = (ms, plain_ms)
+        packed, kw = _packed(sb_t, inp_t)
+        launch_ms = _time_ms(lambda: cs.KERNEL.launch(*packed, **kw), 20)
+        # The folded kernel on the same inputs: the evidence for the dispatch
+        # rule (K <= FOLD_MAX_LANES) at a shape the rule sends to the block.
+        folded_ms = _time_ms(lambda: cs.KERNEL.launch_folded(*packed, **kw), 20)
+        bound = _bound(packed, cs.KERNEL.launch(*packed, **kw), inp_t)
+        times[reps] = (launch_ms, plain_ms, bound)
         print(f"contact solve at {sb_t.v_lin.shape[0]} scene(s) x K={k_lanes}: "
-              f"kernel {ms:.3f} ms (launch alone {launch_ms:.3f} ms), "
-              f"plain {plain_ms:.3f} ms ({card})")
-    cs.KERNEL.launches = launches   # comparison launches do not count
-    ms, plain_ms = times[N_SCENES // N_CHECK]
-    return dict(max_abs_err=max(err_b, err_i), ms=ms, plain_ms=plain_ms)
+              f"wrapper {ms:.3f} ms, launch alone {launch_ms:.3f} ms, folded kernel "
+              f"{folded_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound[0]:.3g} ms "
+              f"({bound[1]}) ({card})")
+    # Comparison launches do not count.
+    cs.KERNEL.launches, cs.KERNEL.launches_folded = counts
+    ms, plain_ms, bound = times[N_SCENES // N_CHECK]
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1])
+
+
+def phase_folded_kernel(device, card):
+    """Phase 3: contact_sweep_folded_kernel against the plain version and
+    the block kernel (quadruped, K = 128)."""
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.dynamics.solver.contact_constraints import SolverBodies
+
+    state, params = quadruped_batch(device, N_CHECK, seed=7)
+    state, _ = run(state, params, ROBOT_CHECK_STEPS)
+    inp = capture_solve_inputs(state, params)
+    sb = inp.pop("sb")
+    k_lanes = inp["b1"].shape[-1]
+    if k_lanes > cs.FOLD_MAX_LANES:
+        _fail(f"expected at most {cs.FOLD_MAX_LANES} solver lanes, got {k_lanes}")
+
+    counts = cs.KERNEL.launches, cs.KERNEL.launches_folded
+    sb_k, imp_k = cs.solve_from_manifolds(sb, **inp)
+    if cs.KERNEL.launches_folded != counts[1] + 1:
+        _fail("the quadruped shape did not launch contact_sweep_folded_kernel")
+    err = _compare("contact_sweep_folded_kernel", sb, inp, sb_k, imp_k)
+    packed, kw = _packed(sb, inp)
+    _bitwise(f"quadruped capture (K={k_lanes})", cs.KERNEL.launch(*packed, **kw),
+             cs.KERNEL.launch_folded(*packed, **kw))
+
+    reps = N_SCENES // N_CHECK
+    sb_t = SolverBodies(*[_scenes(x, reps) for x in sb])
+    inp_t = {k: _scenes(v, reps) for k, v in inp.items()}
+    packed, kw = _packed(sb_t, inp_t)
+    ms = _time_ms(lambda: cs.solve_from_manifolds(sb_t, **inp_t), 20)
+    launch_ms = _time_ms(lambda: cs.KERNEL.launch_folded(*packed, **kw), 20)
+    block_ms = _time_ms(lambda: cs.KERNEL.launch(*packed, **kw), 20)
+    plain_ms = _time_ms(lambda: cs.solve_plain(sb_t, **inp_t), 3)
+    bound = _bound(packed, cs.KERNEL.launch_folded(*packed, **kw), inp_t)
+    print(f"quadruped contact solve at {N_SCENES} scenes x K={k_lanes}: folded wrapper "
+          f"{ms:.3f} ms, folded launch alone {launch_ms:.3f} ms, contact_sweep_kernel "
+          f"{block_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound[0]:.3g} ms "
+          f"({bound[1]}) ({card})")
+    cs.KERNEL.launches, cs.KERNEL.launches_folded = counts
+    return dict(max_abs_err=err, ms=launch_ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1])
 
 
 def phase_main_path(device, card):
-    """Phase 3: 4096 bench scenes through the port's step."""
+    """Phase 4: 4096 bench scenes through the port's step."""
     import torch
     from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
 
@@ -186,22 +331,24 @@ def phase_main_path(device, card):
     state, worst = run(state, params, SETTLE)
     torch.cuda.synchronize()
     print(f"settled {N_SCENES} scenes for {SETTLE} steps in {time.time() - t0:.1f} s")
-    cs.KERNEL.launches = 0
+    cs.KERNEL.launches = cs.KERNEL.launches_folded = 0
     t0 = time.time()
     state, worst_t = run(state, params, TIMED)
     torch.cuda.synchronize()
     elapsed = time.time() - t0
-    launches = cs.KERNEL.launches
+    launches, folded = cs.KERNEL.launches, cs.KERNEL.launches_folded
     for k in worst:
         worst[k] = max(worst[k], worst_t[k])
     rate = N_SCENES * TIMED / elapsed
-    print(f"main path: {rate:.1f} env-steps/s ({N_SCENES} scenes x {TIMED} steps "
+    print(f"bench path: {rate:.1f} env-steps/s ({N_SCENES} scenes x {TIMED} steps "
           f"in {elapsed:.3f} s; {card})")
-    print(f"overflow: {worst}; kernel launches in the timed run: {launches}")
+    print(f"overflow: {worst}; launches in the timed run: contact_sweep_kernel "
+          f"{launches}, folded {folded}")
     if worst["broadphase_overflow"] or worst["solver_overflow"]:
         _fail(f"bench config overflows: {worst}")
-    if launches != TIMED:
-        _fail(f"expected {TIMED} contact-sweep launches, counted {launches}")
+    if launches != TIMED or folded != 0:
+        _fail(f"expected {TIMED} contact_sweep_kernel launches and no folded one, "
+              f"counted {launches} and {folded}")
     b = state.bodies
     for name in ("pos", "rot", "linvel", "angvel"):
         if not bool(torch.isfinite(getattr(b, name)).all()):
@@ -217,38 +364,135 @@ def phase_main_path(device, card):
     return launches, rate
 
 
-def phase_cpu_agreement(device):
-    """The card's path against the CPU (plain) path on a small batch."""
+def _finite(state):
     import torch
+
+    for name in ("pos", "rot", "linvel", "angvel"):
+        if not bool(torch.isfinite(getattr(state.bodies, name)).all()):
+            _fail(f"non-finite bodies.{name}")
+    for name in ("q", "qd"):
+        if not bool(torch.isfinite(getattr(state.multibodies, name)).all()):
+            _fail(f"non-finite multibodies.{name}")
+
+
+def phase_robots(device, card):
+    """Phase 5: 4096 quadrupeds through the port's step."""
+    import torch
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+
+    state, params = quadruped_batch(device, N_SCENES)
+    t0 = time.time()
+    state, worst = run(state, params, ROBOT_SETTLE)
+    torch.cuda.synchronize()
+    print(f"ran {N_SCENES} quadrupeds for {ROBOT_SETTLE} steps in {time.time() - t0:.1f} s")
+    cs.KERNEL.launches = cs.KERNEL.launches_folded = 0
+    t0 = time.time()
+    state, worst_t = run(state, params, TIMED)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    launches, folded = cs.KERNEL.launches, cs.KERNEL.launches_folded
+    for k in worst:
+        worst[k] = max(worst[k], worst_t[k])
+    rate = N_SCENES * TIMED / elapsed
+    print(f"robots path: {rate:.1f} env-steps/s ({N_SCENES} quadrupeds x {TIMED} steps "
+          f"in {elapsed:.3f} s; {card})")
+    print(f"overflow: {worst}; launches in the timed run: folded {folded}, "
+          f"contact_sweep_kernel {launches}")
+    if worst["broadphase_overflow"] or worst["solver_overflow"]:
+        _fail(f"quadruped overflows: {worst}")
+    if folded != TIMED or launches != 0:
+        _fail(f"expected {TIMED} folded launches and no contact_sweep_kernel one, "
+              f"counted {folded} and {launches}")
+    _finite(state)
+    for part in ("bodies", "contacts", "multibodies"):
+        p = getattr(state, part)
+        for f in dataclasses.fields(p):
+            x = getattr(p, f.name)
+            if not torch.equal(x, x[:1].expand_as(x)):
+                _fail(f"replicas differ from scene 0 in {part}.{f.name}")
+    _multibody_phase_ms(state, params, 1e3 / rate * N_SCENES, card)
+    z = state.bodies.pos[:, TRUNK, 2]
+    print(f"trunk height after {ROBOT_SETTLE + TIMED} steps: {float(z[0]):.5f} "
+          f"(the reference falls to 0.050, R5); all {N_SCENES} scenes bitwise equal "
+          f"to scene 0")
+    if not TRUNK_Z[0] <= float(z[0]) <= TRUNK_Z[1]:
+        _fail(f"trunk height {float(z[0])} outside the reference's {TRUNK_Z}")
+    return folded, rate
+
+
+def _host_ms(fn, iters: int = 5) -> float:
+    """Host clock around `iters` calls ending in a synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _multibody_phase_ms(state, params, step_ms, card):
+    """The three multibody phases of one robots step, each timed alone on the
+    step's own inputs: how much of the step they are."""
+    from rapier_tpu_torch.dynamics import multibody as mbmod
+    from rapier_tpu_torch.dynamics.solver import velocity_solver as vs
+
+    mb, bodies, dt = state.multibodies, state.bodies, float(params.dt)
+    a_ms = _host_ms(lambda: mbmod.predict_velocities(mb, bodies, params.gravity, dt))
+    mb_a, bodies_a, aux = mbmod.predict_velocities(mb, bodies, params.gravity, dt)
+    sb = vs.make_solver_bodies(bodies_a, bodies_a.enabled, params)
+    b_ms = _host_ms(lambda: mbmod.install_link_mobility(sb, mb_a, aux, bodies_a))
+    c_ms = _host_ms(lambda: mbmod.absorb_contact_impulses(mb_a, bodies_a, sb, aux, dt))
+    print(f"multibody phases alone at {bodies.pos.shape[0]} scenes: A predict_velocities "
+          f"{a_ms:.3f} ms, B install_link_mobility {b_ms:.3f} ms, C "
+          f"absorb_contact_impulses {c_ms:.3f} ms, of a {step_ms:.3f} ms step ({card})")
+
+
+def _cpu_agreement(what, state, params, settle):
     from rapier_tpu_torch.types import tree_map
 
-    state, params = bench_world(device, 2)
-    state, _ = run(state, params, 100)             # bodies in contact
+    state, _ = run(state, params, settle)          # bodies in contact
     cpu = tree_map(lambda x: x.cpu(), state)
     gpu, _ = run(state, params, 10)
     cpu, _ = run(cpu, params, 10)
     dp = float((gpu.bodies.pos.cpu() - cpu.bodies.pos).abs().max())
     dv = float((gpu.bodies.linvel.cpu() - cpu.bodies.linvel).abs().max())
-    print(f"GPU vs CPU path, 2 scenes x 10 contact steps: max |d pos| {dp:.3e} "
+    print(f"GPU vs CPU path, 2 {what} scenes x 10 contact steps: max |d pos| {dp:.3e} "
           f"(tol {CPU_TOL['pos']}), max |d linvel| {dv:.3e} (tol {CPU_TOL['vel']})")
     if not (dp <= CPU_TOL["pos"] and dv <= CPU_TOL["vel"]):
-        _fail("GPU path disagrees with the CPU path")
+        _fail(f"GPU path disagrees with the CPU path ({what})")
 
 
-def phase_determinism(device):
+def phase_cpu_agreement(device):
+    """Phase 6: the card's path against the CPU (plain) path."""
+    _cpu_agreement("bench", *bench_world(device, 2), 100)
+    _cpu_agreement("quadruped", *quadruped_batch(device, 2, seed=3), ROBOT_CHECK_STEPS)
+
+
+def _rerun_equal(what, state, params, parts):
     import torch
     from rapier_tpu_torch.types import tree_map
 
-    state, params = bench_world(device, 64)
-    state, _ = run(state, params, 60)
     a, _ = run(tree_map(lambda x: x.clone(), state), params, 10)
     b, _ = run(tree_map(lambda x: x.clone(), state), params, 10)
-    for part in ("bodies", "contacts"):
+    for part in parts:
         pa, pb = getattr(a, part), getattr(b, part)
         for f in dataclasses.fields(pa):
             if not torch.equal(getattr(pa, f.name), getattr(pb, f.name)):
-                _fail(f"rerun differs in {part}.{f.name}")
-    print("determinism: two 10-step reruns are bitwise equal")
+                _fail(f"{what} rerun differs in {part}.{f.name}")
+    print(f"determinism: two 10-step reruns of the {what} batch are bitwise equal")
+
+
+def phase_determinism(device):
+    """Phase 7: bitwise reruns."""
+    state, params = bench_world(device, 64)
+    state, _ = run(state, params, 60)
+    _rerun_equal("bench", state, params, ("bodies", "contacts"))
+    state, params = quadruped_batch(device, N_CHECK, seed=5)
+    state, _ = run(state, params, ROBOT_CHECK_STEPS)
+    _rerun_equal("quadruped", state, params, ("bodies", "contacts", "multibodies"))
 
 
 def main():
@@ -271,23 +515,33 @@ def main():
 
     t0 = time.time()
     cs.KERNEL.build()
-    print(f"built contact_sweep in {time.time() - t0:.1f} s")
+    print(f"built contact_sweep.cu in {time.time() - t0:.1f} s")
     for line in cs.KERNEL.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(f"  nvcc: {line.strip()}")
 
-    timing = phase_kernel(device, card)
-    launches, _rate = phase_main_path(device, card)
-    phase_cpu_agreement(device)
-    phase_determinism(device)
+    def phase(fn, *args):
+        t = time.time()
+        out = fn(*args)
+        print(f"[{fn.__name__}: {time.time() - t:.1f} s]")
+        return out
 
-    print(json.dumps({"kernels": [{
-        "name": "contact_sweep", "route": "cuda",
-        "source": "rapier_tpu_torch/csrc/contact_sweep.cu",
-        "replaces": "rapier_tpu/dynamics/solver/pallas_sweep.py:517",
-        "launches": launches, "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-    }]}))
+    block = phase(phase_kernel, device, card)
+    folded = phase(phase_folded_kernel, device, card)
+    block["launches"], _ = phase(phase_main_path, device, card)
+    folded["launches"], _ = phase(phase_robots, device, card)
+    phase(phase_cpu_agreement, device)
+    phase(phase_determinism, device)
+
+    source = "rapier_tpu_torch/csrc/contact_sweep.cu"
+    print(json.dumps({"kernels": [
+        {"name": "contact_sweep_kernel", "route": "cuda", "source": source,
+         "replaces": "rapier_tpu/dynamics/solver/pallas_sweep.py:517",
+         "library_ms": None, **block},
+        {"name": "contact_sweep_folded_kernel", "route": "cuda", "source": source,
+         "replaces": "rapier_tpu/dynamics/solver/pallas_sweep.py:339",
+         "library_ms": None, **folded},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,10 @@
 // Contacts-only TGS-soft contact solve for NVIDIA Hopper (sm_90a).
 //
-// Replaces the TPU kernels rapier_tpu/dynamics/solver/pallas_sweep.py
-// `_kernel` (one scene per launch) and `_kernel_fold_gather` (8 scenes per
-// grid step under vmap).  Both compute `solve_from_manifolds`: twist-model
+// Replaces the TPU kernels of rapier_tpu/dynamics/solver/pallas_sweep.py:
+// `_kernel` (:112, one scene per launch) and `_kernel_fold_gather` (:517,
+// 8 scenes per grid step under vmap) with `contact_sweep_kernel`, and
+// `_kernel_folded` (:339, 8 scenes per grid instance) with
+// `contact_sweep_folded_kernel`.  All compute `solve_from_manifolds`: twist-model
 // constraint generation with the warmstart injected, then `n_sub` substeps
 // of velocity increments, the soft-rhs update, the warmstart, `pgs_iters`
 // biased color sweeps, masked pose integration and `stab_iters` unbiased
@@ -38,6 +40,25 @@
 // the scene size: 33 words per body plus the per-color flags must fit the
 // 227 KB a block can use (~1,750 bodies); the wrapper refuses larger scenes.
 // Compiled with -fmad=false so the arithmetic rounds like the plain version.
+//
+// The scene-folded kernel (`_kernel_folded`'s counterpart).  Small scenes
+// (the batched quadruped: K = 128 lanes, 17 body columns, ~9 solved lanes)
+// leave most of a 256-thread block idle behind block-wide barriers, and the
+// block's latency, not its work, sets the time.  The folded kernel packs
+// kFoldScenes = 8 scenes into a block, one warp per scene: each warp owns an
+// aligned shared-memory slice (the same body table, mover flags, endpoint
+// lists and conflict flags), strides its scene's lanes by 32 and separates
+// passes with __syncwarp(), so the scenes of a block never wait on each
+// other and a block costs 8 x ~2.3 KB of shared memory at N1 = 17.  Both
+// kernels run the same per-scene code (`solve_scene`, templated on the
+// thread group), so they agree bit for bit; a scene sweeps its own color
+// count where the TPU kernel swept the batch maximum (the extra colors are
+// empty: the same function).  Its byte bound is ~30 KB a scene; on an H100
+// it is far from it and no faster than the block kernel at 4096 quadruped
+// scenes (PERF.md).  The suspect, not yet measured: every lane of a scene,
+// solved or not (~9 of 128 are), is generated and updated in the global
+// scratch (~90 KB a scene), and with 16 scenes resident per SM the scratch
+// in flight overflows the 50 MB L2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -395,15 +416,30 @@ __device__ __forceinline__ int entry_body(const int* mi, int K, int e) {
   return e < K ? mi[IR_B1 * K + e] : mi[IR_B2 * K + (e - K)];
 }
 
-__global__ void __launch_bounds__(kThreads)
-contact_sweep_kernel(const float* __restrict__ man_f, const int* __restrict__ man_i,
-                     const float* __restrict__ bodies_in, const int* __restrict__ move_in,
-                     const int* __restrict__ ncol_in, float* __restrict__ out_body,
-                     float* __restrict__ out_imp, float* __restrict__ scratch,
-                     int* __restrict__ csr_g, int K, int n1, Params p) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
+// The threads that solve one scene: a whole block, or one warp of a block.
+struct BlockGroup {
+  static constexpr int kSize = kThreads;
+  __device__ static int rank() { return threadIdx.x; }
+  __device__ static void sync() { __syncthreads(); }
+};
+struct WarpGroup {
+  static constexpr int kSize = 32;
+  __device__ static int rank() { return threadIdx.x & 31; }
+  __device__ static void sync() { __syncwarp(); }
+};
+
+constexpr int kFoldScenes = kThreads / WarpGroup::kSize;  // scenes per folded block
+
+// Solve scene `b` with the threads of group G, its tables in `smem`.
+template <class G>
+__device__ __forceinline__ void solve_scene(
+    int b, float* smem, const float* __restrict__ man_f, const int* __restrict__ man_i,
+    const float* __restrict__ bodies_in, const int* __restrict__ move_in,
+    const int* __restrict__ ncol_in, float* __restrict__ out_body,
+    float* __restrict__ out_imp, float* __restrict__ scratch, int* __restrict__ csr_g,
+    int K, int n1, const Params& p) {
+  constexpr int NT = G::kSize;
+  const int tid = G::rank();
   const int n = n1 - 1;  // sentinel column
   Table T{smem, n1};
   int* s_move = reinterpret_cast<int*>(smem + BR_ROWS * n1);
@@ -416,26 +452,26 @@ contact_sweep_kernel(const float* __restrict__ man_f, const int* __restrict__ ma
   int* csr = csr_g + (size_t)b * 2 * K;
   float* sc = scratch + (size_t)b * CF * K;
 
-  for (int i = tid; i < BR_ROWS * n1; i += blockDim.x) smem[i] = bin[i];
-  for (int j = tid; j < n1; j += blockDim.x) s_move[j] = move_in[(size_t)b * n1 + j];
-  for (int c = tid; c < p.max_colors; c += blockDim.x) s_conflict[c] = 0;
+  for (int i = tid; i < BR_ROWS * n1; i += NT) smem[i] = bin[i];
+  for (int j = tid; j < n1; j += NT) s_move[j] = move_in[(size_t)b * n1 + j];
+  for (int c = tid; c < p.max_colors; c += NT) s_conflict[c] = 0;
   const int ncol = ncol_in[b];
 
   // Per-body endpoint lists, in entry order e = lane (endpoint 1) then
   // K + lane (endpoint 2).  Sentinel endpoints are never listed.
-  for (int j = tid; j < n1; j += blockDim.x) {
+  for (int j = tid; j < n1; j += NT) {
     int cnt = 0;
     if (j < n)
       for (int e = 0; e < 2 * K; ++e) cnt += entry_body(mi, K, e) == j;
     s_off[j + 1] = cnt;
   }
-  __syncthreads();
+  G::sync();
   if (tid == 0) {
     s_off[0] = 0;
     for (int j = 0; j < n1; ++j) s_off[j + 1] += s_off[j];
   }
-  __syncthreads();
-  for (int j = tid; j < n; j += blockDim.x) {
+  G::sync();
+  for (int j = tid; j < n; j += NT) {
     int w = s_off[j];
     for (int e = 0; e < 2 * K; ++e)
       if (entry_body(mi, K, e) == j) csr[w++] = e;
@@ -454,15 +490,15 @@ contact_sweep_kernel(const float* __restrict__ man_f, const int* __restrict__ ma
       }
     }
   }
-  __syncthreads();
+  G::sync();
 
-  for (int k = tid; k < K; k += blockDim.x)
+  for (int k = tid; k < K; k += NT)
     generate_lane(Lane{sc + k, K}, mf + k, mi + k, K, T);
 
   // Each body's thread adds the listed deltas of the lanes selected by
   // `color` (all lanes when color < 0) to its velocities.
   auto owner_sum = [&](int color) {
-    for (int j = tid; j < n; j += blockDim.x) {
+    for (int j = tid; j < n; j += NT) {
       V3 dv = mk(0.0f, 0.0f, 0.0f), dw = mk(0.0f, 0.0f, 0.0f);
       for (int a = s_off[j]; a < s_off[j + 1]; ++a) {
         int e = csr[a], lane = e % K, ep = e / K;
@@ -480,9 +516,9 @@ contact_sweep_kernel(const float* __restrict__ man_f, const int* __restrict__ ma
 
   auto sweep = [&](bool use_bias) {
     for (int c = 0; c < ncol; ++c) {
-      __syncthreads();
+      G::sync();
       const bool conflict = s_conflict[c] != 0;
-      for (int k = tid; k < K; k += blockDim.x) {
+      for (int k = tid; k < K; k += NT) {
         int flags = mi[IR_FLAGS * K + k];
         if (!(flags & 1) || mi[IR_COLOR * K + k] != c) continue;
         int i1 = mi[IR_B1 * K + k], i2 = mi[IR_B2 * K + k];
@@ -497,30 +533,30 @@ contact_sweep_kernel(const float* __restrict__ man_f, const int* __restrict__ ma
         }
       }
       if (conflict) {
-        __syncthreads();
+        G::sync();
         owner_sum(c);
       }
     }
   };
 
   for (int s = 0; s < p.n_sub; ++s) {
-    __syncthreads();
-    for (int j = tid; j < n1; j += blockDim.x) {
+    G::sync();
+    for (int j = tid; j < n1; j += NT) {
       T.add(BR_VLIN, j, T.v(BR_DV, j));
       T.add(BR_VANG, j, T.v(BR_DW, j));
     }
-    __syncthreads();
-    for (int k = tid; k < K; k += blockDim.x) {
+    G::sync();
+    for (int k = tid; k < K; k += NT) {
       Lane L{sc + k, K};
       update_lane(L, mi[IR_B1 * K + k], mi[IR_B2 * K + k], T, p);
       warmstart_lane(L, mi[IR_FLAGS * K + k] & 1, mi[IR_FLAGS * K + k]);
     }
-    __syncthreads();
+    G::sync();
     owner_sum(-1);
     for (int it = 0; it < p.pgs_iters; ++it) sweep(true);
-    __syncthreads();
+    G::sync();
     // integrate_poses, masked to movers (pallas_sweep.py:88-99, 221-225).
-    for (int j = tid; j < n1; j += blockDim.x) {
+    for (int j = tid; j < n1; j += NT) {
       if (!s_move[j]) continue;
       V3 v = T.v(BR_VLIN, j), w = T.v(BR_VANG, j);
       T.add(BR_COM, j, v * p.dt_sub);
@@ -540,12 +576,12 @@ contact_sweep_kernel(const float* __restrict__ man_f, const int* __restrict__ ma
     }
     for (int it = 0; it < p.stab_iters; ++it) sweep(false);
   }
-  __syncthreads();
+  G::sync();
 
   float* ob = out_body + (size_t)b * 13 * n1;
-  for (int i = tid; i < 13 * n1; i += blockDim.x) ob[i] = smem[i];
+  for (int i = tid; i < 13 * n1; i += NT) ob[i] = smem[i];
   float* oi = out_imp + (size_t)b * 14 * K;
-  for (int k = tid; k < K; k += blockDim.x) {
+  for (int k = tid; k < K; k += NT) {
     Lane L{sc + k, K};
     for (int q = 0; q < 4; ++q) {
       oi[q * K + k] = L[F_IMP + q];
@@ -560,6 +596,36 @@ contact_sweep_kernel(const float* __restrict__ man_f, const int* __restrict__ ma
   }
 }
 
+// One block per scene.
+__global__ void __launch_bounds__(kThreads)
+contact_sweep_kernel(const float* __restrict__ man_f, const int* __restrict__ man_i,
+                     const float* __restrict__ bodies_in, const int* __restrict__ move_in,
+                     const int* __restrict__ ncol_in, float* __restrict__ out_body,
+                     float* __restrict__ out_imp, float* __restrict__ scratch,
+                     int* __restrict__ csr_g, int K, int n1, Params p) {
+  extern __shared__ float smem[];
+  solve_scene<BlockGroup>(blockIdx.x, smem, man_f, man_i, bodies_in, move_in, ncol_in,
+                          out_body, out_imp, scratch, csr_g, K, n1, p);
+}
+
+// kFoldScenes scenes per block, one warp each, in shared-memory slices of
+// `slice` floats.  A warp without a scene leaves at once: no block-wide
+// barrier follows, so no warp ever waits for another.
+__global__ void __launch_bounds__(kThreads)
+contact_sweep_folded_kernel(const float* __restrict__ man_f, const int* __restrict__ man_i,
+                            const float* __restrict__ bodies_in,
+                            const int* __restrict__ move_in, const int* __restrict__ ncol_in,
+                            float* __restrict__ out_body, float* __restrict__ out_imp,
+                            float* __restrict__ scratch, int* __restrict__ csr_g, int B,
+                            int K, int n1, int slice, Params p) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x / WarpGroup::kSize;
+  const int b = blockIdx.x * kFoldScenes + warp;
+  if (b >= B) return;
+  solve_scene<WarpGroup>(b, smem + (size_t)warp * slice, man_f, man_i, bodies_in, move_in,
+                         ncol_in, out_body, out_imp, scratch, csr_g, K, n1, p);
+}
+
 }  // namespace
 
 extern "C" {
@@ -570,6 +636,16 @@ int contact_sweep_man_rows() { return MR_ROWS; }
 
 size_t contact_sweep_smem_bytes(int n1, int max_colors) {
   return sizeof(float) * (size_t)BR_ROWS * n1 + sizeof(int) * ((size_t)2 * n1 + 1 + max_colors);
+}
+
+// One folded scene's slice in floats, rounded up to 16 bytes.
+static int folded_slice_floats(int n1, int max_colors) {
+  int words = (int)(contact_sweep_smem_bytes(n1, max_colors) / sizeof(float));
+  return (words + 3) / 4 * 4;
+}
+
+size_t contact_sweep_folded_smem_bytes(int n1, int max_colors) {
+  return sizeof(float) * (size_t)kFoldScenes * folded_slice_floats(n1, max_colors);
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
@@ -590,6 +666,29 @@ int contact_sweep_launch(const float* man_f, const int* man_i, const float* bodi
   if (err != cudaSuccess) return (int)err;
   contact_sweep_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       man_f, man_i, bodies_in, move, ncol, out_body, out_imp, scratch, csr, K, n1, p);
+  return (int)cudaGetLastError();
+}
+
+// The scene-folded kernel on `stream`; the same arguments.
+int contact_sweep_folded_launch(const float* man_f, const int* man_i, const float* bodies_in,
+                                const int* move, const int* ncol, float* out_body,
+                                float* out_imp, float* scratch, int* csr, int B, int K,
+                                int n1, int n_sub, int pgs_iters, int stab_iters,
+                                int max_colors, float dt_sub, float inv_dt_sub,
+                                float erp_inv_dt, float cfm_factor, float allowed_lin_err,
+                                float max_corrective_velocity, float warmstart_coeff,
+                                void* stream) {
+  Params p{dt_sub, inv_dt_sub, erp_inv_dt, cfm_factor, allowed_lin_err,
+           max_corrective_velocity, warmstart_coeff, n_sub, pgs_iters, stab_iters,
+           max_colors};
+  size_t smem = contact_sweep_folded_smem_bytes(n1, max_colors);
+  cudaError_t err = cudaFuncSetAttribute(
+      contact_sweep_folded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int grid = (B + kFoldScenes - 1) / kFoldScenes;
+  contact_sweep_folded_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      man_f, man_i, bodies_in, move, ncol, out_body, out_imp, scratch, csr, B, K, n1,
+      folded_slice_floats(n1, max_colors), p);
   return (int)cudaGetLastError();
 }
 

@@ -1,12 +1,16 @@
 """The contacts-only contact solve: generate + the TGS-soft substep loop.
 
 Counterpart of rapier_tpu.dynamics.solver.pallas_sweep.solve_from_manifolds
-(its `_kernel` and `_kernel_fold_gather` TPU kernels).  On a CUDA tensor
-`solve_from_manifolds` launches the hand-written kernel in
-``csrc/contact_sweep.cu`` over a grid of B scenes; on a CPU tensor it runs
-`solve_plain`, the same function written over `contact_constraints`.  There
-is no fallback between the two: a CUDA input either launches the kernel or
-raises.
+(its `_kernel`, `_kernel_fold_gather` and `_kernel_folded` TPU kernels).  On
+a CUDA tensor `solve_from_manifolds` launches a hand-written kernel of
+``csrc/contact_sweep.cu``; on a CPU tensor it runs `solve_plain`, the same
+function written over `contact_constraints`.  There is no fallback between
+the two: a CUDA input either launches a kernel or raises.
+
+Which kernel is a fixed rule on the shape: scenes of at most
+`FOLD_MAX_LANES` solver lanes go to `contact_sweep_folded_kernel` (8 scenes
+per block, one warp each), larger ones to `contact_sweep_kernel` (a block per
+scene).  The two compute the same function bit for bit.
 
 The kernel library is built with nvcc for sm_90a at first use, into
 ``build/rapier_tpu_torch/`` beside the package, and bound with ctypes.
@@ -32,6 +36,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 MAN_ROWS = 32        # packed float manifold rows (ManRow in the source)
 BODY_ROWS = 31       # packed body-table rows (BodyRow in the source)
+FOLD_MAX_LANES = 128  # solver lanes up to which a scene takes the folded kernel
+
+
+# Rows of the reference's packed manifold matrix (pallas_sweep.D_MAN).
+D_MAN = 42
+
+
+def vmem_feasible(p_lanes: int, n1: int) -> bool:
+    """The reference's `pallas_sweep.vmem_feasible` (pallas_sweep.py:973-977):
+    whether its kernel's per-scene working set fits 10 MiB.  The step's solve
+    gate keeps it, so the port solves exactly the scenes the reference's
+    kernel solves."""
+    est = (p_lanes * (2 * n1 + 4 * D_MAN + 700)) * 4
+    return est < 10 * 2**20
 
 
 # ---------------------------------------------------------------------------
@@ -104,11 +122,14 @@ def solve_plain(sb: cc.SolverBodies, *, b1, b2, valid, color, num_colors,
 
 class ContactSweepKernel:
     """ctypes binding of ``csrc/contact_sweep.cu``.  `launches` counts the
-    kernel launches made through `launch`; `build_log` holds nvcc's
-    register and shared-memory report of the last build."""
+    launches of `contact_sweep_kernel` made through `launch`,
+    `launches_folded` those of `contact_sweep_folded_kernel` made through
+    `launch_folded`; `build_log` holds nvcc's register and shared-memory
+    report of the last build."""
 
     def __init__(self):
         self.launches = 0
+        self.launches_folded = 0
         self.build_log = ""
         self._lib = None
 
@@ -137,10 +158,12 @@ class ContactSweepKernel:
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.contact_sweep_launch.argtypes = [p] * 9 + [i] * 7 + [f] * 7 + [p]
-        lib.contact_sweep_launch.restype = ctypes.c_int
-        lib.contact_sweep_smem_bytes.argtypes = [i, i]
-        lib.contact_sweep_smem_bytes.restype = ctypes.c_size_t
+        for name in ("contact_sweep_launch", "contact_sweep_folded_launch"):
+            getattr(lib, name).argtypes = [p] * 9 + [i] * 7 + [f] * 7 + [p]
+            getattr(lib, name).restype = ctypes.c_int
+        for name in ("contact_sweep_smem_bytes", "contact_sweep_folded_smem_bytes"):
+            getattr(lib, name).argtypes = [i, i]
+            getattr(lib, name).restype = ctypes.c_size_t
         for name in ("contact_sweep_scratch_fields", "contact_sweep_body_rows",
                      "contact_sweep_man_rows"):
             getattr(lib, name).argtypes = []
@@ -150,11 +173,29 @@ class ContactSweepKernel:
 
     def launch(self, man_f, man_i, bodies_in, move, ncol, *, n_sub, pgs_iters,
                stab_iters, max_colors, scalars):
-        """Run the kernel on PyTorch's current stream.  Inputs: man_f
-        ``[B, 32, K]`` f32, man_i ``[B, 4, K]`` i32 (b1, b2, color, flags),
-        bodies_in ``[B, 31, N+1]`` f32, move ``[B, N+1]`` i32, ncol ``[B]``
-        i32.  Returns (bodies ``[B, 13, N+1]``, impulse block
-        ``[B, 14, K]``)."""
+        """Run `contact_sweep_kernel` (a block per scene) on PyTorch's current
+        stream.  Inputs: man_f ``[B, 32, K]`` f32, man_i ``[B, 4, K]`` i32
+        (b1, b2, color, flags), bodies_in ``[B, 31, N+1]`` f32, move
+        ``[B, N+1]`` i32, ncol ``[B]`` i32.  Returns (bodies ``[B, 13, N+1]``,
+        impulse block ``[B, 14, K]``)."""
+        out = self._run(False, man_f, man_i, bodies_in, move, ncol, n_sub=n_sub,
+                        pgs_iters=pgs_iters, stab_iters=stab_iters,
+                        max_colors=max_colors, scalars=scalars)
+        self.launches += 1
+        return out
+
+    def launch_folded(self, man_f, man_i, bodies_in, move, ncol, *, n_sub,
+                      pgs_iters, stab_iters, max_colors, scalars):
+        """Run `contact_sweep_folded_kernel` (8 scenes per block, a warp
+        each); the same inputs and outputs as `launch`."""
+        out = self._run(True, man_f, man_i, bodies_in, move, ncol, n_sub=n_sub,
+                        pgs_iters=pgs_iters, stab_iters=stab_iters,
+                        max_colors=max_colors, scalars=scalars)
+        self.launches_folded += 1
+        return out
+
+    def _run(self, folded, man_f, man_i, bodies_in, move, ncol, *, n_sub,
+             pgs_iters, stab_iters, max_colors, scalars):
         bsz, _, k = man_f.shape
         n1 = bodies_in.shape[-1]
         checks = (
@@ -174,11 +215,12 @@ class ContactSweepKernel:
         if (lib.contact_sweep_man_rows(), lib.contact_sweep_body_rows()) != (
                 MAN_ROWS, BODY_ROWS):
             raise RuntimeError("contact_sweep: library layout does not match the wrapper")
-        smem = lib.contact_sweep_smem_bytes(n1, max_colors)
+        smem = (lib.contact_sweep_folded_smem_bytes if folded
+                else lib.contact_sweep_smem_bytes)(n1, max_colors)
         if smem > SMEM_LIMIT:
             raise ValueError(
                 f"contact_sweep: {n1 - 1} bodies need {smem} bytes of shared "
-                f"memory per scene, above the {SMEM_LIMIT} a block can use")
+                f"memory per block, above the {SMEM_LIMIT} a block can use")
         dev = man_f.device
         out_body = torch.empty((bsz, 13, n1), dtype=torch.float32, device=dev)
         out_imp = torch.empty((bsz, 14, k), dtype=torch.float32, device=dev)
@@ -186,7 +228,8 @@ class ContactSweepKernel:
                               dtype=torch.float32, device=dev)
         csr = torch.empty((bsz, 2 * k), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.contact_sweep_launch(
+        fn = lib.contact_sweep_folded_launch if folded else lib.contact_sweep_launch
+        err = fn(
             man_f.data_ptr(), man_i.data_ptr(), bodies_in.data_ptr(),
             move.data_ptr(), ncol.data_ptr(), out_body.data_ptr(),
             out_imp.data_ptr(), scratch.data_ptr(), csr.data_ptr(),
@@ -194,7 +237,6 @@ class ContactSweepKernel:
             *[float(s) for s in scalars], stream)
         if err != 0:
             raise RuntimeError(f"contact_sweep kernel launch failed: CUDA error {err}")
-        self.launches += 1
         return out_body, out_imp
 
 
@@ -235,7 +277,10 @@ def solve_from_manifolds(sb: cc.SolverBodies, *, b1, b2, valid, color,
     of scenes.  Lane inputs are ``[B, ..., K]`` (b1/b2 resolved solver-body
     columns, the sentinel N for static or dominant endpoints); `sb` tables
     ``[B, d, N+1]``.  Returns (sb, impulse block ``[B, 14, K]``: impulse(4),
-    impulse_acc(4), tan(2), tan_acc(2), twist, twist_acc)."""
+    impulse_acc(4), tan(2), tan_acc(2), twist, twist_acc).
+
+    On the card, K <= FOLD_MAX_LANES launches the scene-folded kernel and a
+    larger K the block-per-scene kernel; on the CPU, `solve_plain`."""
     if dyn1 is None:
         dyn1 = torch.zeros_like(valid)
     if dyn2 is None:
@@ -256,7 +301,8 @@ def solve_from_manifolds(sb: cc.SolverBodies, *, b1, b2, valid, color,
             stab_iters=stab_iters, max_colors=max_colors, **lanes)
     if device.type != "cuda":
         raise ValueError(f"contact_sweep: unsupported device {device}")
-    out_body, imp = KERNEL.launch(
+    launch = KERNEL.launch_folded if b1.shape[-1] <= FOLD_MAX_LANES else KERNEL.launch
+    out_body, imp = launch(
         *_pack(sb, **lanes), n_sub=n_sub, pgs_iters=pgs_iters,
         stab_iters=stab_iters, max_colors=max_colors,
         scalars=(dt_sub, inv_dt_sub, erp_inv_dt, cfm_factor, allowed_lin_err,

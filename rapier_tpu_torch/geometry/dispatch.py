@@ -8,7 +8,8 @@ reference's census-derived cap; lanes beyond the cap are dropped and counted
 in `unsupported` exactly as the reference does.
 
 Ported pair kernels: ball-ball, ball-cuboid, ball-capsule, capsule-capsule,
-cuboid-capsule and cuboid-cuboid.  Any other shape type in the scene census
+cuboid-capsule and cuboid-cuboid, and ball, capsule and cuboid against a
+halfspace (always put in slot B).  Any other shape type in the scene census
 raises NotImplementedError.
 """
 
@@ -106,7 +107,12 @@ _PAIR_KERNELS = {
     (ShapeType.CUBOID, ShapeType.CAPSULE): nph.swapped(nph.capsule_cuboid),
     (ShapeType.CUBOID, ShapeType.CUBOID): cuboid_cuboid_cl,
 }
-_PORTED_TYPES = {int(ShapeType.BALL), int(ShapeType.CUBOID), int(ShapeType.CAPSULE)}
+_PORTED_TYPES = {int(ShapeType.BALL), int(ShapeType.CUBOID), int(ShapeType.CAPSULE),
+                 int(ShapeType.HALFSPACE)}
+# Shape types the generic convex-halfspace kernel covers in the port (the
+# reference's _HALFSPACE_CONVEX less ball and capsule, which have analytic
+# kernels, and less the types the port does not carry).
+_HALFSPACE_GENERIC = (ShapeType.CUBOID,)
 _BUCKETED = cuboid_cuboid_cl
 _BUCKET_PAIR_FACTOR = 8
 
@@ -138,6 +144,11 @@ def _census(present):
         names = ", ".join(ShapeType(t).name for t in sorted(missing))
         raise NotImplementedError(f"narrow phase for {names} is not ported")
     return counts
+
+
+def _order_rank(t):
+    """Canonical ordering rank: a halfspace always goes to the B slot."""
+    return torch.where(t == ShapeType.HALFSPACE, 1000, t)
 
 
 def _run_bucketed(kern, mask, cap, args):
@@ -192,6 +203,9 @@ def compute_manifolds(bodies, colliders, c1, c2, pair_valid, prediction,
     width derives from it.  Empty = unknown: every ported kernel runs."""
     counts = _census(present)
 
+    def has(t):
+        return counts is None or int(t) in counts
+
     def pair_possible(ta, tb):
         if counts is None:
             return True
@@ -244,7 +258,7 @@ def compute_manifolds(bodies, colliders, c1, c2, pair_valid, prediction,
         )
 
     T1, T2 = side(s1), side(s2)
-    flip = T1["type"] > T2["type"]
+    flip = _order_rank(T1["type"]) > _order_rank(T2["type"])
     f3 = flip.unsqueeze(1)
     pA = torch.where(f3, T2["pos"], T1["pos"])
     rA = torch.where(f3, T2["rot"], T1["rot"])
@@ -266,6 +280,16 @@ def compute_manifolds(bodies, colliders, c1, c2, pair_valid, prediction,
     matched = torch.zeros((b, p), dtype=torch.bool, device=dev)
     bucket_dropped = torch.zeros((b,), dtype=torch.int32, device=dev)
 
+    def merge(mask, man):
+        nonlocal normal, point, dist, fid, pvalid, matched
+        m2 = mask.unsqueeze(1)
+        normal = torch.where(m2, man.normal, normal)
+        point = torch.where(m2.unsqueeze(1), man.point, point)
+        dist = torch.where(m2, man.dist, dist)
+        fid = torch.where(m2, man.fid, fid)
+        pvalid = torch.where(m2, man.valid, pvalid)
+        matched = matched | mask
+
     for (ta, tb), kern in _PAIR_KERNELS.items():
         if not pair_possible(ta, tb):
             continue
@@ -276,13 +300,24 @@ def compute_manifolds(bodies, colliders, c1, c2, pair_valid, prediction,
             bucket_dropped = bucket_dropped + dropped
         else:
             man = kern(*args)
-        m2 = mask.unsqueeze(1)
-        normal = torch.where(m2, man.normal, normal)
-        point = torch.where(m2.unsqueeze(1), man.point, point)
-        dist = torch.where(m2, man.dist, dist)
-        fid = torch.where(m2, man.fid, fid)
-        pvalid = torch.where(m2, man.valid, pvalid)
-        matched = matched | mask
+        merge(mask, man)
+
+    # Halfspace bucket (reference dispatch.py:485-510): analytic ball and
+    # capsule kernels, the support-sampling kernel for the other convex
+    # types.
+    if has(ShapeType.HALFSPACE):
+        hs_mask = pair_valid & (tB == ShapeType.HALFSPACE)
+        if has(ShapeType.BALL):
+            merge(hs_mask & (tA == ShapeType.BALL), nph.ball_halfspace(*args))
+        if has(ShapeType.CAPSULE):
+            merge(hs_mask & (tA == ShapeType.CAPSULE), nph.capsule_halfspace(*args))
+        hs_generic = [t for t in _HALFSPACE_GENERIC if has(t)]
+        if hs_generic:
+            conv_ok = torch.zeros_like(hs_mask)
+            for t in hs_generic:
+                conv_ok = conv_ok | (tA == t)
+            merge(hs_mask & conv_ok,
+                  nph.convex_halfspace(pA, rA, tA, prmA, pB, rB, prmB))
 
     # Restore the pair orientation: normal points collider1 -> collider2.
     normal = torch.where(f3, -normal, normal)

@@ -1,7 +1,7 @@
 """Host-side (numpy) analytic mass properties per shape.
 
 Counterpart of rapier_tpu.geometry.mass_properties for the shapes the port
-covers (ball, cuboid, capsule).  Runs at scene-build time; the results are
+covers (ball, cuboid, capsule at any endpoints; a halfspace has no mass).  Runs at scene-build time; the results are
 accumulated onto the parent bodies by `combine`.
 """
 
@@ -43,8 +43,11 @@ def _quat_from_two_vectors(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 def shape_mass_properties(shape_type: int, params: np.ndarray,
                           density: float) -> MassProperties:
-    """Analytic mass properties of a ball, cuboid or capsule."""
+    """Analytic mass properties of a ball, cuboid or capsule; a halfspace
+    contributes no mass."""
     st = ShapeType(shape_type)
+    if st == ShapeType.HALFSPACE:
+        return MassProperties(0.0, np.zeros(3), np.zeros(3), _identity_quat())
     if st == ShapeType.BALL:
         r = float(params[0])
         m = density * 4.0 / 3.0 * math.pi * r**3

@@ -18,6 +18,7 @@ import torch
 
 from rapier_tpu_torch.math import quat
 from rapier_tpu_torch.math.quat import cross_cl, dot_cl
+from rapier_tpu_torch.types import ShapeType
 
 MAXP = 4  # contact points per manifold (reference MAX_MANIFOLD_POINTS, 3D)
 
@@ -320,6 +321,96 @@ def capsule_cuboid(pA, rA, prmA, pB, rB, prmB) -> Manifold:
         fids.append(fid_sorted[k].to(torch.int32))
         valids.append(keep)
     return _manifold(n, points, pdists, fids, valids)
+
+
+# ---------------------------------------------------------------------------
+# ball / capsule vs halfspace (analytic), convex vs halfspace (support)
+# ---------------------------------------------------------------------------
+
+
+def _plane_normal(rB, prmB):
+    n_w, _ = _safe_normalize(quat.rotate_cl(rB, prmB[..., 0:3, :]))
+    return n_w
+
+
+def ball_halfspace(pA, rA, prmA, pB, rB, prmB) -> Manifold:
+    rad = _c(prmA, 0)
+    n_w = _plane_normal(rB, prmB)
+    depth = dot_cl(pA - pB, n_w) - rad
+    surf = pA - n_w * rad.unsqueeze(-2)
+    proj = surf - n_w * depth.unsqueeze(-2)
+    return _one_point(-n_w, 0.5 * (surf + proj), depth)
+
+
+def capsule_halfspace(pA, rA, prmA, pB, rB, prmB) -> Manifold:
+    a, b, rad = _capsule_world_segment(pA, rA, prmA)
+    n_w = _plane_normal(rB, prmB)
+    points, dists = [], []
+    for e in (a, b):
+        depth = dot_cl(e - pB, n_w) - rad
+        surf = e - n_w * rad.unsqueeze(-2)
+        proj = surf - n_w * depth.unsqueeze(-2)
+        points.append(0.5 * (surf + proj))
+        dists.append(depth)
+    lane = dists[0]
+    return _manifold(-n_w, points, dists,
+                     [torch.zeros_like(lane, dtype=torch.int32),
+                      torch.ones_like(lane, dtype=torch.int32)],
+                     [torch.ones_like(lane, dtype=torch.bool)] * 2)
+
+
+def convex_halfspace(pA, rA, stA, prmA, pB, rB, prmB) -> Manifold:
+    """Convex shape A vs halfspace B: A's support function sampled along the
+    plane normal tilted towards 4 tangent directions (a resting cuboid gives
+    its 4 bottom corners).  Feature ids hash the quantised local support
+    points, so they stay stable across steps."""
+    from rapier_tpu_torch.geometry.shapes import support_point
+
+    n_w = _plane_normal(rB, prmB)
+    ex = torch.zeros_like(n_w)
+    ex[..., 0, :] = 1.0
+    t1 = cross_cl(n_w, ex)
+    t1_alt = cross_cl(n_w, _unit_y(n_w))
+    t1 = torch.where((_norm(t1) < 1e-6).unsqueeze(-2), t1_alt, t1)
+    t1, _ = _safe_normalize(t1)
+    t2 = cross_cl(n_w, t1)
+    eps = 0.04
+    dirs_w = [-n_w + eps * (t1 + t2), -n_w + eps * (t1 - t2),
+              -n_w + eps * (-t1 + t2), -n_w + eps * (-t1 - t2)]
+
+    is_round = ((stA == ShapeType.ROUND_CUBOID) | (stA == ShapeType.ROUND_CYLINDER)
+                | (stA == ShapeType.ROUND_CONE))
+    zero = torch.zeros_like(_c(prmA, 0))
+    border = torch.where(
+        stA == ShapeType.ROUND_CUBOID, _c(prmA, 3),
+        torch.where(is_round, _c(prmA, 2),
+                    torch.where(stA == ShapeType.CONVEX, _c(prmA, 1), zero)))
+    prm_rows = prmA.transpose(-1, -2)                  # [..., P, 12]
+    sw, sl = [], []
+    for d_w in dirs_w:
+        d_l = quat.inv_rotate_cl(rA, d_w)
+        s_l = support_point(stA, prm_rows, d_l.transpose(-1, -2)).transpose(-1, -2)
+        sw.append(_transform_point(pA, rA, s_l))
+        sl.append(s_l)
+    bv = border.unsqueeze(-2)
+    points, dists, fids, valids = [], [], [], []
+    for k in range(4):
+        depth = dot_cl(sw[k] - pB, n_w) - border
+        qs = torch.round(sl[k] * 1024.0).to(torch.int32)
+        fid = ((_c(qs, 0) * 73856093) ^ (_c(qs, 1) * 19349663)
+               ^ (_c(qs, 2) * 83492791))
+        fid = torch.remainder(torch.abs(fid), 1000003)
+        dup = torch.zeros_like(depth, dtype=torch.bool)
+        for prev in range(k):
+            dup = dup | (_norm(sw[k] - sw[prev]) < 1e-6)
+        keep = ~dup
+        surf_a = sw[k] - n_w * bv
+        proj = surf_a - n_w * depth.unsqueeze(-2)
+        points.append(0.5 * (surf_a + proj))
+        dists.append(torch.where(keep, depth, torch.full_like(depth, 1e10)))
+        fids.append(fid)
+        valids.append(keep)
+    return _manifold(-n_w, points, dists, fids, valids)
 
 
 def swapped(kernel):

@@ -1,6 +1,7 @@
 """Per-shape geometry over the padded parameter table (counterpart of
 rapier_tpu.geometry.shapes; see its docstring for the ``shape_params``
-layouts)."""
+layouts).  A halfspace (``[nx, ny, nz]``, unbounded) gets the AABB
+half-extent `BIG` about its origin, as in the reference."""
 
 from __future__ import annotations
 
@@ -84,3 +85,24 @@ def compute_aabbs(shape_type, shape_params, pos, rot):
     mins = torch.where(is_tri, pos + tri_min, mins)
     maxs = torch.where(is_tri, pos + tri_max, maxs)
     return mins, maxs
+
+
+def support_point(shape_type, shape_params, direction):
+    """Support point of a shape in its local frame for a local `direction`
+    (``[..., 3]``, not necessarily unit), the reference's `support_point`
+    for the shapes the port carries: ball, cuboid and capsule; other types
+    give zeros, as the reference's fallthrough does."""
+    p = shape_params
+    d = direction
+    dn = d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True), min=1e-12)
+    sup_ball = dn * p[..., 0:1]
+    sup_cuboid = torch.sign(d) * p[..., 0:3]
+    a, b, r = p[..., 0:3], p[..., 3:6], p[..., 6:7]
+    pick_b = torch.sum(d * (b - a), dim=-1, keepdim=True) > 0
+    sup_capsule = torch.where(pick_b, b, a) + dn * r
+    st = shape_type[..., None]
+    return torch.where(
+        st == ShapeType.BALL, sup_ball,
+        torch.where(st == ShapeType.CUBOID, sup_cuboid,
+                    torch.where(st == ShapeType.CAPSULE, sup_capsule,
+                                torch.zeros_like(d))))

@@ -1,17 +1,26 @@
-"""The contacts-only PhysicsPipeline step over a batch of scenes
-(counterpart of rapier_tpu.pipeline.physics_pipeline.step).
+"""The PhysicsPipeline step over a batch of scenes (counterpart of
+rapier_tpu.pipeline.physics_pipeline.step).
 
 `step(state, params)` takes a `SceneState` whose every leaf has a leading
-scene axis ``[B, ...]`` and advances all B scenes by ``params.dt``: kinematic
-velocities, AABBs with margins, the all-pairs broad phase, the narrow phase,
-the warmstart join against the contact cache, started/stopped events, wake
-propagation, compaction of the touching lanes to ``max_solver_pairs``,
-coloring, the contact solve (the CUDA kernel on the GPU), writeback,
-sleeping, and the new contact cache with `StepEvents`.
+scene axis ``[B, ...]`` and advances all B scenes by ``params.dt``: multibody
+forward dynamics (phase A), kinematic velocities, AABBs with margins, the
+all-pairs broad phase, the narrow phase, the warmstart join against the
+contact cache, the link-parent contact filter, started/stopped events, wake
+propagation, the link mobility install (phase B), compaction of the touching
+lanes to ``max_solver_pairs``, coloring, the contact solve (a CUDA kernel on
+the GPU), writeback, the multibody impulse absorption with joint integration
+(phase C), sleeping, and the new contact cache with `StepEvents`.
 
-Not ported (NotImplementedError): joints, multibodies, meshes, convex hulls,
-CCD, hooks, FrictionModel.COULOMB, the 2x2 block solver, SAP/GRID broad
-phases.  The solve always follows the reference's Pallas-kernel semantics.
+The contact solve follows the reference's TPU path, the Pallas kernel's
+semantics.  Where the reference's gate for that kernel fails
+(physics_pipeline.py:554-562) the reference solves another way (the masked
+JAX sweep or the blocked solve), which the port does not carry: `step`
+raises NotImplementedError naming that path, and so it does for
+solver_backend="jax".
+
+Not ported (NotImplementedError): impulse joints, multibody dof couplings,
+meshes, convex hulls, CCD, hooks, FrictionModel.COULOMB, the 2x2 block
+solver, SAP/GRID broad phases.
 """
 
 from __future__ import annotations
@@ -22,9 +31,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from rapier_tpu_torch.dynamics import multibody as mbmod
 from rapier_tpu_torch.dynamics.solver import velocity_solver as vs
 from rapier_tpu_torch.dynamics.solver.coloring import color_constraints
-from rapier_tpu_torch.dynamics.solver.contact_sweep import solve_from_manifolds
+from rapier_tpu_torch.dynamics.solver.contact_sweep import (
+    solve_from_manifolds,
+    vmem_feasible,
+)
 from rapier_tpu_torch.geometry import broadphase, shapes
 from rapier_tpu_torch.geometry.dispatch import (
     ManifoldBatch,
@@ -45,6 +58,9 @@ from rapier_tpu_torch.types import (
 from rapier_tpu_torch.utils.compaction import compact_indices, gather_lanes
 
 _f32 = np.float32
+# Lane x body elements above which the reference routes by segment plans and
+# solves large scenes blocked (rapier_tpu/utils/routing.py:33).
+DENSE_ROUTE_ELEMS = 2**24
 
 
 class StepEvents(NamedTuple):
@@ -128,13 +144,36 @@ def _match_previous(prev: Contacts, man: ManifoldBatch):
     return ws_normal, ws_tan, ws_twist, prev_impulse, prev_touching, matched, still
 
 
-def _check_supported(params: SimParams):
-    if params.friction_model == int(FrictionModel.COULOMB):
-        raise NotImplementedError("FrictionModel.COULOMB is not ported")
-    if params.block_solver_2x2:
-        raise NotImplementedError("block_solver_2x2 is not ported")
+def _check_supported(state: SceneState, params: SimParams):
+    """Refuse what the port does not carry, before any work.  The solve
+    gate is the reference's `use_pallas` (physics_pipeline.py:554-562), term
+    by term; where it fails the reference solves another way."""
     if params.enable_ccd:
         raise NotImplementedError("CCD is not ported")
+    n = state.bodies.body_type.shape[-1]
+    p_lanes = state.contacts.max_pairs
+    coulomb = params.friction_model == int(FrictionModel.COULOMB)
+    use_kernel = (
+        # `joints is None`: the port's SceneState carries no impulse joints
+        # (from_numpy refuses a state with them); they join here later.
+        not coulomb
+        and state.bodies.pos.dtype == torch.float32    # not f64
+        and not params.block_solver_2x2
+        and params.solver_backend != "jax"
+        and vmem_feasible(p_lanes, n + 1)
+        # `backend == "pallas" or default_backend() == "tpu"`: the port
+        # follows the reference's TPU semantics, so "auto" takes the kernel.
+    )
+    if not use_kernel:
+        # physics_pipeline.py:664-667: the blocked solve above the dense
+        # routing limit, else the masked JAX sweep (:798-936).
+        blocked = not coulomb and p_lanes * (n + 1) > DENSE_ROUTE_ELEMS
+        path = "blocked solve" if blocked else "masked JAX sweep"
+        raise NotImplementedError(
+            f"the reference solves this scene with the {path}, which is not "
+            f"ported (P={p_lanes}, N={n}, friction_model={params.friction_model}, "
+            f"block_solver_2x2={params.block_solver_2x2}, "
+            f"solver_backend={params.solver_backend!r})")
 
 
 def _fixed_point(flag, step_fn, max_iters: int):
@@ -153,7 +192,7 @@ def _fixed_point(flag, step_fn, max_iters: int):
 def step(state: SceneState, params: SimParams):
     """Advance every scene of the batch by params.dt.  Returns
     (new_state, StepEvents)."""
-    _check_supported(params)
+    _check_supported(state, params)
     bodies = state.bodies
     colliders = state.colliders
     bsz, n = bodies.body_type.shape
@@ -161,7 +200,17 @@ def step(state: SceneState, params: SimParams):
     dt = float(params.dt)
     inv_dt = float(params.inv_dt())
 
-    # 1. Kinematic velocity interpolation (physics_pipeline.rs:412-438).
+    # 0. Multibody phase A (physics_pipeline.py:206-213): forward dynamics
+    #    -> tentative qd; the tentative link velocities J qd land in the
+    #    bodies.  Joint integration and FK follow the contact solve (phase C).
+    multibodies = state.multibodies
+    mb_aux = None
+    if multibodies is not None:
+        multibodies, bodies, mb_aux = mbmod.predict_velocities(
+            multibodies, bodies, params.gravity, dt)
+
+    # 1. Kinematic velocity interpolation (physics_pipeline.rs:412-438);
+    #    multibody links take their velocities from phase A.
     kin_pos = ((bodies.body_type == BodyType.KINEMATIC_POSITION_BASED)
                & ~bodies.mb_link).unsqueeze(-1)
     com_now = bodies.pos + quat.rotate(bodies.rot, bodies.local_com)
@@ -203,6 +252,23 @@ def step(state: SceneState, params: SimParams):
     ws_n, ws_t, ws_tw, prev_imp, prev_touch, _matched, still = _match_previous(
         state.contacts, man)
     started = man.touching & ~prev_touch
+
+    # Pairs of a link and its parent with contacts disabled leave the solve
+    # (physics_pipeline.py:337-369).  The impulse-joint keys join this table
+    # when impulse joints are ported.
+    if multibodies is not None:
+        lb = multibodies.link_body                            # [B, M, L]
+        lp = torch.clamp(multibodies.link_parent, 0, multibodies.l - 1).long()
+        pb = torch.gather(lb, -1, lp)
+        no_c = (multibodies.link_valid & ~multibodies.contacts_enabled
+                & (multibodies.link_parent >= 0) & (lb >= 0) & (pb >= 0) & (pb != lb))
+        jkeys = torch.where(no_c, torch.minimum(lb, pb) * n + torch.maximum(lb, pb),
+                            torch.iinfo(torch.int32).max).reshape(bsz, -1)
+        mb1 = torch.minimum(man.body1, man.body2)
+        mb2 = torch.maximum(man.body1, man.body2)
+        mkey = torch.where(mb1 >= 0, mb1 * n + mb2, -1)
+        blocked = torch.any(mkey.unsqueeze(-1) == jkeys.unsqueeze(-2), dim=-1)
+        man = man._replace(solver_pair=man.solver_pair & ~blocked)
     prev_c = state.contacts
     stopped = prev_c.touching & ~still & (prev_c.pair_key >= 0)
 
@@ -242,6 +308,10 @@ def step(state: SceneState, params: SimParams):
     # 6. Solve.
     active = bodies.enabled & ~sleeping
     sb = vs.make_solver_bodies(bodies, active, params)
+    if multibodies is not None:
+        # Phase B (physics_pipeline.py:506-511): link columns take their
+        # articulated mobility.
+        sb = mbmod.install_link_mobility(sb, multibodies, mb_aux, bodies)
     slp_ext = torch.cat([sleeping, torch.zeros_like(sleeping[:, :1])], dim=1)
 
     def asleep(b):
@@ -300,6 +370,11 @@ def step(state: SceneState, params: SimParams):
         full = torch.cat([default, torch.zeros_like(default[..., :1])], dim=-1)
         imp = full.scatter(-1, tgt, imp)[..., :p_lanes]
     bodies = vs.writeback(bodies, sb, active, params)
+    if multibodies is not None:
+        # Phase C (physics_pipeline.py:939-946): link velocity deltas into
+        # generalized space, joint integration, FK, the links' next poses.
+        multibodies, bodies = mbmod.absorb_contact_impulses(
+            multibodies, bodies, sb, mb_aux, dt)
 
     # 7. Advance to the final positions.
     bodies = dataclasses.replace(bodies, pos=bodies.next_pos,
@@ -349,7 +424,7 @@ def step(state: SceneState, params: SimParams):
     collision_gate = (man.active_events_or & ACTIVE_EVENTS_COLLISION) != 0
     force_gate = (man.active_events_or & ACTIVE_EVENTS_CONTACT_FORCE) != 0
     new_state = SceneState(bodies=bodies, colliders=colliders, contacts=contacts,
-                           step_count=state.step_count + 1)
+                           step_count=state.step_count + 1, multibodies=multibodies)
     zero_b = torch.zeros((bsz,), dtype=torch.int32, device=dev)
     events = StepEvents(
         started_pairs=started & collision_gate,

@@ -38,6 +38,63 @@ def mixed_primitives_world(num_layers: int = 4, grid: int = 4, rad: float = 0.5,
     return w
 
 
+# Quadruped robot (reference scenes.py:125-192): a free-floating trunk with
+# four 2-hinge legs driven by position servos, on a plane; the batched-RL
+# configuration of the bench's robots mode.
+QUADRUPED_MJCF = """
+<mujoco model="quadruped">
+  <compiler angle="radian"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="10 10 0.1" friction="0.9"/>
+    <body name="trunk" pos="0 0 0.45">
+      <joint name="root" type="free"/>
+      <geom name="trunk_geom" type="box" size="0.25 0.15 0.05"
+            density="800"/>
+      <BODY_LEGS/>
+    </body>
+  </worldbody>
+  <actuator>
+    <ACTUATORS/>
+  </actuator>
+</mujoco>
+"""
+
+
+def _quadruped_xml() -> str:
+    legs, acts = [], []
+    for name, sx, sy in (("fl", 1, 1), ("fr", 1, -1), ("rl", -1, 1), ("rr", -1, -1)):
+        x, y = 0.18 * sx, 0.11 * sy
+        legs.append(f"""
+      <body name="{name}_upper" pos="{x} {y} -0.05">
+        <joint name="{name}_hip" type="hinge" axis="0 1 0"
+               limited="true" range="-1.2 1.2"/>
+        <geom type="capsule" fromto="0 0 0  0 0 -0.18" size="0.03"
+              density="1000"/>
+        <body name="{name}_lower" pos="0 0 -0.18">
+          <joint name="{name}_knee" type="hinge" axis="0 1 0"
+                 limited="true" range="-1.6 1.6"/>
+          <geom type="capsule" fromto="0 0 0  0 0 -0.18" size="0.025"
+                density="1000" friction="0.9"/>
+        </body>
+      </body>""")
+        for j in ("hip", "knee"):
+            acts.append(f'<position name="{name}_{j}_servo" joint="{name}_{j}" kp="80"/>')
+    return (QUADRUPED_MJCF
+            .replace("<BODY_LEGS/>", "".join(legs))
+            .replace("<ACTUATORS/>", "\n    ".join(acts)))
+
+
+def quadruped_world(use_multibody: bool = True, **world_kw):
+    """Quadruped standing on a plane, as a reduced-coordinate articulation.
+    Returns (world, MjcfRobotHandles).  The impulse-joint form
+    (use_multibody=False) is not ported."""
+    from rapier_tpu_torch.loaders.mjcf import load_mjcf
+
+    world_kw.setdefault("gravity", (0.0, 0.0, -9.81))
+    w = PhysicsWorld(**world_kw)
+    return w, load_mjcf(_quadruped_xml(), w, use_multibody=use_multibody)
+
+
 def replicate_scene(state, batch: int):
     """Copy one scene state `batch` times along a new leading scene axis.
     Numpy leaves stay numpy (host); tensor leaves are copied on their

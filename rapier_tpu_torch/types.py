@@ -9,7 +9,14 @@ component-leading, lane-last layout (``[3, P]``, ``[4, 3, P]``).
 `from_numpy` / `to_numpy` carry a reference `SceneState` or `SimParams`
 (numpy leaves, e.g. from `rapier_tpu.world.PhysicsWorld.build()`) into the
 port and back by field name, so the two packages exchange state without this
-one importing JAX.
+one importing JAX.  The `multibodies` slot (reduced-coordinate
+articulations, `dynamics.multibody.Multibodies`) crosses the same way.
+
+``Colliders.shape_params`` rows follow the reference's table
+(rapier_tpu.geometry.shapes): BALL ``[r]``, CUBOID ``[hx, hy, hz]``, CAPSULE
+``[ax, ay, az, bx, by, bz, r]`` (segment endpoints in the collider frame),
+HALFSPACE ``[nx, ny, nz]`` (outward unit normal of the plane through the
+collider origin).
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from rapier_tpu_torch.dynamics.multibody import Multibodies
 
 _f32 = np.float32
 
@@ -192,14 +201,16 @@ class Contacts:
 
 @dataclass
 class SceneState:
-    """Full simulation state of the contacts-only slice.  The reference's
-    feature slots (joints, meshes, multibodies, hulls) are not ported:
-    `from_numpy` refuses a reference state that sets them."""
+    """Full simulation state.  `multibodies` holds the reduced-coordinate
+    articulations (None without any); the reference's other feature slots
+    (joints, meshes, hulls) are not ported: `from_numpy` refuses a reference
+    state that sets them."""
 
     bodies: Bodies
     colliders: Colliders
     contacts: Contacts
     step_count: Any = field(default_factory=lambda: np.int32(0))
+    multibodies: Any = None
 
 
 def _f(shape):
@@ -302,6 +313,7 @@ class SimParams:
     sleeping_enabled: bool = True
     shape_types_present: tuple = ()
     block_solver_2x2: bool = False
+    solver_backend: str = "auto"
 
     def replace(self, **kw) -> "SimParams":
         return dataclasses.replace(self, **kw)
@@ -348,7 +360,7 @@ def spring_cfm_factor(natural_frequency, damping_ratio, dt):
 _STATE_TYPES = {
     "bodies": Bodies, "colliders": Colliders, "contacts": Contacts,
 }
-_UNSUPPORTED_SLOTS = ("joints", "meshes", "multibodies", "hulls")
+_UNSUPPORTED_SLOTS = ("joints", "meshes", "hulls")
 
 
 def _leaf_to_tensor(x, device):
@@ -366,10 +378,13 @@ def tree_map(fn, state) -> SceneState:
     for slot in _UNSUPPORTED_SLOTS:
         if getattr(state, slot, None) is not None:
             raise NotImplementedError(f"SceneState.{slot} is not ported")
+    types = dict(_STATE_TYPES)
+    if getattr(state, "multibodies", None) is not None:
+        types["multibodies"] = Multibodies
     parts = {
         name: cls(**{f.name: fn(getattr(getattr(state, name), f.name))
                      for f in dataclasses.fields(cls)})
-        for name, cls in _STATE_TYPES.items()
+        for name, cls in types.items()
     }
     return SceneState(step_count=fn(state.step_count), **parts)
 

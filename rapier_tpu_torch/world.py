@@ -1,10 +1,11 @@
 """Host-side scene construction + a convenience stepping facade.
 
-Counterpart of rapier_tpu.world for the contacts-only slice: the
-`RigidBodyBuilder` / `ColliderBuilder` builders (ball, cuboid, capsule) and
-`PhysicsWorld`.  Building is plain numpy and gives the same `SceneState`
-leaves as the reference's `build()`; `step()` runs the port's batched
-pipeline on a batch of one scene on `device`.
+Counterpart of rapier_tpu.world: the `RigidBodyBuilder` / `ColliderBuilder`
+builders (ball, cuboid, capsule, halfspace), `GenericJointBuilder` for
+reduced-coordinate multibody joints, and `PhysicsWorld`.  Building is plain
+numpy and gives the same `SceneState` leaves as the reference's `build()`;
+`step()` runs the port's batched pipeline on a batch of one scene on
+`device`, the CUDA card unless the caller asks for another device.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+import torch
 
 from rapier_tpu_torch.geometry import mass_properties as mp
 from rapier_tpu_torch.types import (
@@ -152,6 +154,23 @@ class ColliderBuilder:
         return ColliderBuilder(
             ShapeType.CAPSULE, (0.0, -hh, 0.0, 0.0, hh, 0.0, float(radius)))
 
+    @staticmethod
+    def capsule_z(half_height, radius) -> "ColliderBuilder":
+        hh = float(half_height)
+        return ColliderBuilder(
+            ShapeType.CAPSULE, (0.0, 0.0, -hh, 0.0, 0.0, hh, float(radius)))
+
+    @staticmethod
+    def capsule_from_endpoints(a, b, radius) -> "ColliderBuilder":
+        a = tuple(float(x) for x in a)
+        b = tuple(float(x) for x in b)
+        return ColliderBuilder(ShapeType.CAPSULE, a + b + (float(radius),))
+
+    @staticmethod
+    def halfspace(normal) -> "ColliderBuilder":
+        n = np.asarray(normal, dtype=np.float64)
+        return ColliderBuilder(ShapeType.HALFSPACE, tuple(n / np.linalg.norm(n)))
+
     def _set(self, **kw):
         for k, v in kw.items():
             setattr(self, k, v)
@@ -191,6 +210,92 @@ class ColliderBuilder:
         return self._set(contact_skin=float(skin))
 
 
+def _quat_from_x_axis(axis) -> np.ndarray:
+    """Shortest-arc quaternion rotating +X onto `axis` (joint frame setup)."""
+    a = np.asarray(axis, dtype=np.float64)
+    a = a / np.linalg.norm(a)
+    x = np.array([1.0, 0.0, 0.0])
+    c = np.cross(x, a)
+    d = float(np.dot(x, a))
+    if d < -1.0 + 1e-9:
+        return np.array([0.0, 0.0, 1.0, 0.0])  # pi around z
+    q = np.array([c[0], c[1], c[2], 1.0 + d])
+    return q / np.linalg.norm(q)
+
+
+_ALL_AXES = 0b111111
+
+
+@dataclass
+class GenericJointBuilder:
+    """Axis-based joint description (reference GenericJointBuilder) for
+    reduced-coordinate multibody joints.  A free slot of `locked_axes` is a
+    generalized dof: 0 leaves all six free, `revolute` frees ANG_X of a frame
+    whose X axis is the hinge axis."""
+
+    locked_axes: int = 0
+    limit_axes: int = 0
+    motor_axes: int = 0
+    local_anchor1: tuple = (0.0, 0.0, 0.0)
+    local_anchor2: tuple = (0.0, 0.0, 0.0)
+    local_frame_rot1: tuple = _IDQ
+    local_frame_rot2: tuple = _IDQ
+    limit_min: tuple = tuple([-float("inf")] * 6)
+    limit_max: tuple = tuple([float("inf")] * 6)
+    motor_target_pos: tuple = tuple([0.0] * 6)
+    motor_target_vel: tuple = tuple([0.0] * 6)
+    motor_stiffness: tuple = tuple([0.0] * 6)
+    motor_damping: tuple = tuple([0.0] * 6)
+    motor_max_force: tuple = tuple([3.4e38] * 6)
+    contacts_enabled: bool = True
+    # Per-dof passive elements of the articulation.
+    armature: tuple = tuple([0.0] * 6)
+    mb_damping: tuple = tuple([0.0] * 6)
+    mb_spring_stiffness: tuple = tuple([0.0] * 6)
+    mb_spring_ref: tuple = tuple([0.0] * 6)
+
+    @staticmethod
+    def revolute(axis) -> "GenericJointBuilder":
+        q = tuple(_quat_from_x_axis(axis))
+        return GenericJointBuilder(locked_axes=_ALL_AXES & ~(1 << 3),
+                                   local_frame_rot1=q, local_frame_rot2=q)
+
+    def _set_axis(self, field_name, axis, value):
+        cur = list(getattr(self, field_name))
+        cur[axis] = value
+        setattr(self, field_name, tuple(cur))
+        return self
+
+    def with_local_anchor1(self, p):
+        self.local_anchor1 = tuple(p)
+        return self
+
+    def with_local_anchor2(self, p):
+        self.local_anchor2 = tuple(p)
+        return self
+
+    def with_limits(self, axis: int, lo: float, hi: float):
+        self.limit_axes |= 1 << axis
+        self._set_axis("limit_min", axis, float(lo))
+        return self._set_axis("limit_max", axis, float(hi))
+
+    def with_motor_velocity(self, axis: int, target_vel: float, damping: float):
+        self.motor_axes |= 1 << axis
+        self._set_axis("motor_target_vel", axis, float(target_vel))
+        return self._set_axis("motor_damping", axis, float(damping))
+
+    def with_motor_position(self, axis: int, target_pos: float,
+                            stiffness: float, damping: float):
+        self.motor_axes |= 1 << axis
+        self._set_axis("motor_target_pos", axis, float(target_pos))
+        self._set_axis("motor_stiffness", axis, float(stiffness))
+        return self._set_axis("motor_damping", axis, float(damping))
+
+    def with_contacts_enabled(self, enabled: bool):
+        self.contacts_enabled = bool(enabled)
+        return self
+
+
 def _round_up(x: int, m: int) -> int:
     return max(((x + m - 1) // m) * m, m)
 
@@ -203,15 +308,18 @@ class PhysicsWorld:
                  max_pairs: Optional[int] = None,
                  body_capacity: Optional[int] = None,
                  collider_capacity: Optional[int] = None,
-                 device="cpu"):
+                 device="cuda"):
         self._pending_bodies: list[RigidBodyBuilder] = []
         self._pending_colliders: list[tuple[ColliderBuilder, int]] = []
+        # (joint, parent body, child body, kinematic)
+        self._pending_mb_joints: list[tuple] = []
+        self._mb_trees: list[list[int]] = []
         self.params = params if params is not None else SimParams()
         self.params = self.params.replace(gravity=np.asarray(gravity, np.float32))
         self._max_pairs = max_pairs
         self._body_capacity = body_capacity
         self._collider_capacity = collider_capacity
-        self.device = device
+        self.device = torch.device(device)
         self.state: Optional[SceneState] = None   # batch of one, on `device`
         self.last_events = None
 
@@ -234,8 +342,14 @@ class PhysicsWorld:
     def insert_impulse_joint(self, *args, **kw):
         raise NotImplementedError("impulse joints are not ported")
 
-    def insert_multibody_joint(self, *args, **kw):
-        raise NotImplementedError("multibody joints are not ported")
+    def insert_multibody_joint(self, body1: int, body2: int,
+                               joint: GenericJointBuilder,
+                               kinematic: bool = False) -> int:
+        """Attach `body2` to `body1` through a reduced-coordinate multibody
+        joint; build() groups the edges into articulation trees."""
+        assert self.state is None, "world already built"
+        self._pending_mb_joints.append((joint, body1, body2, kinematic))
+        return len(self._pending_mb_joints) - 1
 
     def build(self) -> SceneState:
         """Freeze the pending builders into a `SceneState` with numpy leaves
@@ -337,9 +451,10 @@ class PhysicsWorld:
                     bodies["inv_principal_inertia"][i] = inv_i
                     bodies["principal_frame"][i] = combined.principal_frame
 
+        mb_state = self._build_multibodies(bodies) if self._pending_mb_joints else None
         state = SceneState(
             bodies=Bodies(**bodies), colliders=Colliders(**colliders),
-            contacts=empty_contacts(p_cap))
+            contacts=empty_contacts(p_cap), multibodies=mb_state)
         census = Counter(int(cb.shape_type) for cb, _ in self._pending_colliders)
         self.params = self.params.replace(
             shape_types_present=tuple(sorted(census.items())))
@@ -348,6 +463,99 @@ class PhysicsWorld:
 
         self.state = from_numpy(replicate_scene(state, 1), self.device)
         return state
+
+    def _build_multibodies(self, bodies):
+        """Group the multibody-joint edges into articulation trees (BFS order,
+        parents first) and fill a `Multibodies` table with numpy leaves; the
+        link bodies become kinematic-position-based (FK drives their poses)
+        and enter the contact solve as multibody links."""
+        from rapier_tpu_torch.dynamics.multibody import Multibodies, empty_multibodies
+
+        children: dict[int, list[int]] = {}
+        child_joint: dict[int, tuple] = {}
+        for (jb, b1, b2, kin) in self._pending_mb_joints:
+            assert b2 not in child_joint, f"body {b2} attached to two multibody parents"
+            children.setdefault(b1, []).append(b2)
+            child_joint[b2] = (jb, b1, kin)
+        trees = []
+        for r in sorted(b for b in children if b not in child_joint):
+            order, queue = [r], [r]
+            while queue:
+                for ch in children.get(queue.pop(0), []):
+                    order.append(ch)
+                    queue.append(ch)
+            trees.append(order)
+
+        mb0 = empty_multibodies(len(trees), max(len(t) for t in trees))
+        arr = {k: np.asarray(v).copy() for k, v in vars(mb0).items()}
+        for ti, order in enumerate(trees):
+            body_to_link = {b: i for i, b in enumerate(order)}
+            for li, b in enumerate(order):
+                arr["link_valid"][ti, li] = True
+                arr["link_body"][ti, li] = b
+                bodies["mb_link"][b] = True
+                if li == 0:
+                    if bodies["body_type"][b] == int(BodyType.DYNAMIC):
+                        # Free root: 6 dofs whose coords carry the world pose.
+                        arr["locked_axes"][ti, li] = 0
+                        arr["q"][ti, li, :3] = bodies["pos"][b]
+                        arr["joint_rot"][ti, li] = bodies["rot"][b]
+                    else:
+                        arr["locked_axes"][ti, li] = 0b111111
+                    continue
+                jb, parent_b, kin = child_joint[b]
+                arr["link_parent"][ti, li] = body_to_link[parent_b]
+                arr["locked_axes"][ti, li] = jb.locked_axes
+                arr["kinematic"][ti, li] = kin
+                arr["contacts_enabled"][ti, li] = jb.contacts_enabled
+                arr["local_pos1"][ti, li] = jb.local_anchor1
+                arr["local_rot1"][ti, li] = _as_quat(jb.local_frame_rot1)
+                arr["local_pos2"][ti, li] = jb.local_anchor2
+                arr["local_rot2"][ti, li] = _as_quat(jb.local_frame_rot2)
+                arr["armature"][ti, li] = jb.armature
+                arr["damping"][ti, li] = jb.mb_damping
+                arr["spring_stiffness"][ti, li] = jb.mb_spring_stiffness
+                arr["spring_ref"][ti, li] = jb.mb_spring_ref
+                for a in range(6):
+                    if jb.limit_axes & (1 << a):
+                        arr["limit_min"][ti, li, a] = jb.limit_min[a]
+                        arr["limit_max"][ti, li, a] = jb.limit_max[a]
+                    if jb.motor_axes & (1 << a):
+                        arr["motor_target_pos"][ti, li, a] = jb.motor_target_pos[a]
+                        arr["motor_target_vel"][ti, li, a] = jb.motor_target_vel[a]
+                        arr["motor_stiffness"][ti, li, a] = jb.motor_stiffness[a]
+                        arr["motor_damping"][ti, li, a] = jb.motor_damping[a]
+                        arr["motor_max_force"][ti, li, a] = min(jb.motor_max_force[a],
+                                                                3.4e38)
+                bodies["body_type"][b] = int(BodyType.KINEMATIC_POSITION_BASED)
+            if bodies["body_type"][order[0]] == int(BodyType.DYNAMIC):
+                bodies["body_type"][order[0]] = int(BodyType.KINEMATIC_POSITION_BASED)
+        self._mb_trees = trees
+        return Multibodies(**arr)
+
+    def multibody_link_of(self, body: int) -> tuple:
+        """(tree, link) slot of the articulation link driving `body`."""
+        for ti, order in enumerate(self._mb_trees):
+            if int(body) in order:
+                return ti, order.index(int(body))
+        raise KeyError(f"body {body} is not a multibody link")
+
+    def multibody_q(self, tree: int = 0) -> np.ndarray:
+        """``[L, 6]`` generalized coordinates of articulation `tree`."""
+        return self.state.multibodies.q[0, tree].cpu().numpy()
+
+    def multibody_qd(self, tree: int = 0) -> np.ndarray:
+        """``[L, 6]`` generalized velocities of articulation `tree`."""
+        return self.state.multibodies.qd[0, tree].reshape(-1, 6).cpu().numpy()
+
+    def set_multibody_motor_targets(self, tree: int, link: int, axis: int,
+                                    target_pos=None, target_vel=None):
+        """Retarget one dof's motor (in place on the world's state)."""
+        mb = self.state.multibodies
+        if target_pos is not None:
+            mb.motor_target_pos[0, tree, link, axis] = float(target_pos)
+        if target_vel is not None:
+            mb.motor_target_vel[0, tree, link, axis] = float(target_vel)
 
     def step(self, n: int = 1):
         from rapier_tpu_torch.pipeline.physics_pipeline import step as _step

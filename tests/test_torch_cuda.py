@@ -1,12 +1,14 @@
-"""The CUDA contact-sweep kernel on the card (marker `gpu`; skipped without
+"""The CUDA contact-sweep kernels on the card (marker `gpu`; skipped without
 a CUDA device).  Run on a machine with one card:
 
     python -m pytest tests/test_torch_cuda.py -m gpu -q
 
-The kernel is held against the plain PyTorch version on the same CUDA
+The kernels are held against the plain PyTorch version on the same CUDA
 inputs: body tables to 1e-4 and the impulse block to 1e-3 (atol; the plain
-version's scatter-adds use atomics, so its summation order varies).  This
-file imports no JAX, so it runs where only PyTorch is installed.
+version's scatter-adds use atomics, so its summation order varies).  The
+scene-folded kernel and the block-per-scene kernel run the same per-scene
+code and must agree bit for bit.  This file imports no JAX, so it runs
+where only PyTorch is installed.
 """
 
 import numpy as np
@@ -16,6 +18,9 @@ import torch
 pytestmark = pytest.mark.gpu
 
 TOL = dict(bodies=1e-4, impulses=1e-3)
+SCALAR_ARGS = ("dt_sub", "inv_dt_sub", "erp_inv_dt", "cfm_factor",
+               "allowed_lin_err", "max_corrective_velocity", "warmstart_coeff")
+STATIC_ARGS = ("n_sub", "pgs_iters", "stab_iters", "max_colors")
 
 
 @pytest.fixture(scope="module")
@@ -63,9 +68,9 @@ def _check(inp):
 
     inp = dict(inp)
     sb = inp.pop("sb")
-    launches = cs.KERNEL.launches
+    launches = cs.KERNEL.launches + cs.KERNEL.launches_folded
     sb_k, imp_k = cs.solve_from_manifolds(sb, **inp)
-    assert cs.KERNEL.launches == launches + 1
+    assert cs.KERNEL.launches + cs.KERNEL.launches_folded == launches + 1
     sb_p, imp_p = cs.solve_plain(sb, **inp)
     torch.cuda.synchronize()
     for name, a, b in zip(sb._fields, sb_k, sb_p):
@@ -92,6 +97,45 @@ def test_kernel_overflow_color(solve_inputs):
         inp["color"][s, lanes] = mc - 1
     inp["num_colors"][:] = mc
     _check(inp)
+
+
+def _packed(inp):
+    """The kernels' packed inputs and keyword arguments for `inp`."""
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+
+    inp = dict(inp)
+    sb = inp.pop("sb")
+    packed = cs._pack(sb, **{k: v for k, v in inp.items()
+                             if k not in SCALAR_ARGS + STATIC_ARGS})
+    kw = dict(scalars=[inp[k] for k in SCALAR_ARGS], **{k: inp[k] for k in STATIC_ARGS})
+    return sb, inp, packed, kw
+
+
+def test_folded_kernel_matches_plain(solve_inputs):
+    """The parity shape (K = 128 solver lanes) through the folded launcher."""
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+
+    sb, inp, packed, kw = _packed(solve_inputs)
+    assert inp["b1"].shape[-1] <= cs.FOLD_MAX_LANES
+    folded = cs.KERNEL.launches_folded
+    out_body, imp = cs.KERNEL.launch_folded(*packed, **kw)
+    assert cs.KERNEL.launches_folded == folded + 1
+    sb_p, imp_p = cs.solve_plain(sb, **inp)
+    torch.cuda.synchronize()
+    plain = torch.cat([sb_p.v_lin, sb_p.v_ang, sb_p.com, sb_p.rot], dim=1)
+    assert float((out_body - plain).abs().max()) <= TOL["bodies"]
+    assert float((imp - imp_p).abs().max()) <= TOL["impulses"]
+
+
+def test_folded_kernel_matches_block_kernel_bitwise(solve_inputs):
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+
+    _sb, _inp, packed, kw = _packed(solve_inputs)
+    body_f, imp_f = cs.KERNEL.launch_folded(*packed, **kw)
+    body_b, imp_b = cs.KERNEL.launch(*packed, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(body_f, body_b)
+    assert torch.equal(imp_f, imp_b)
 
 
 def test_kernel_refuses_scenes_beyond_shared_memory(device):

@@ -100,7 +100,7 @@ def test_build_matches_reference_for_bench_scene():
     from rapier_tpu_torch.scenes import mixed_primitives_world as port_world
 
     rw = ref_world(num_layers=4, grid=5, max_pairs=512)
-    pw = port_world(num_layers=4, grid=5, max_pairs=512)
+    pw = port_world(num_layers=4, grid=5, max_pairs=512, device="cpu")
     rs, ps = rw.build(), pw.build()
     assert pw.params.shape_types_present == rw.params.shape_types_present
     for part in ("bodies", "colliders", "contacts"):
@@ -114,7 +114,7 @@ def test_build_matches_reference_for_bench_scene():
 def test_world_step_ball_comes_to_rest():
     from rapier_tpu_torch.world import ColliderBuilder, PhysicsWorld, RigidBodyBuilder
 
-    w = PhysicsWorld()
+    w = PhysicsWorld(device="cpu")
     g = w.insert_body(RigidBodyBuilder.fixed().with_translation((0.0, -1.0, 0.0)))
     w.insert_collider(ColliderBuilder.cuboid(50.0, 1.0, 50.0), g)
     b = w.insert_body(RigidBodyBuilder.dynamic().with_translation((0.0, 2.0, 0.0)))
@@ -124,3 +124,60 @@ def test_world_step_ball_comes_to_rest():
     assert abs(y - 0.5) < 0.01, y
     assert w.body_is_sleeping(b)
     assert int(w.last_events.unsupported_pairs.max()) == 0
+
+
+def test_world_defaults_to_the_card():
+    """An entry point runs on the card unless the caller asks for another
+    device; building the world records the device without touching CUDA."""
+    from rapier_tpu_torch.scenes import mixed_primitives_world, quadruped_world
+    from rapier_tpu_torch.world import PhysicsWorld
+
+    for w in (PhysicsWorld(), mixed_primitives_world(num_layers=1, grid=2),
+              quadruped_world()[0]):
+        assert w.device == torch.device("cuda")
+
+
+def _empty_batch(n_bodies, max_pairs):
+    from rapier_tpu_torch.scenes import replicate_scene
+    from rapier_tpu_torch.types import (
+        SceneState, empty_bodies, empty_colliders, empty_contacts)
+
+    state = SceneState(bodies=empty_bodies(n_bodies), colliders=empty_colliders(8),
+                       contacts=empty_contacts(max_pairs))
+    return from_numpy(replicate_scene(state, 1))
+
+
+def test_step_refuses_a_scene_over_the_kernel_limit():
+    """500 bodies with 2048 pair lanes need ~15 MB of the reference kernel's
+    10 MiB: the reference takes the masked JAX sweep, which is not ported."""
+    from rapier_tpu_torch.dynamics.solver.contact_sweep import vmem_feasible
+    from rapier_tpu_torch.types import SimParams
+
+    assert not vmem_feasible(2048, 501)
+    with pytest.raises(NotImplementedError, match="masked JAX sweep"):
+        port_step(_empty_batch(500, 2048), SimParams())
+
+
+def test_step_refuses_the_jax_backend():
+    with pytest.raises(NotImplementedError, match="masked JAX sweep"):
+        port_step(from_numpy(tp.settled_batch()),
+                  tp.port_params().replace(solver_backend="jax"))
+
+
+def test_step_names_the_blocked_solve_above_the_routing_limit():
+    from rapier_tpu_torch.types import SimParams
+
+    # 131072 lanes x 129 columns is above 2**24; the reference's own vmem
+    # gate fails first and its blocked solve takes the scene.
+    with pytest.raises(NotImplementedError, match="blocked solve"):
+        port_step(_empty_batch(128, 131072), SimParams())
+
+
+def test_parity_shape_takes_the_kernel_path():
+    from rapier_tpu_torch.dynamics.solver.contact_sweep import vmem_feasible
+
+    start = tp.settled_batch()
+    n1 = np.shape(start.bodies.pos)[-2] + 1
+    assert vmem_feasible(np.shape(start.contacts.pair_key)[-1], n1)
+    s, ev = port_step(from_numpy(start), tp.port_params())
+    assert bool(torch.isfinite(s.bodies.pos).all())
