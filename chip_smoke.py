@@ -15,39 +15,57 @@ Phases (any failure exits non-zero; each prints its wall time):
    to KERNEL_TOL; the folded kernel, called through its launcher on the same
    capture, must agree with the block kernel bit for bit.  Time both
    versions with CUDA events at the bench shape (4096 scenes) and at one
-   scene (the `PhysicsWorld.step` shape).
+   scene (the `PhysicsWorld.step` shape).  Prints the kernel's registers,
+   spills, shared memory a block, resident blocks an SM and on-chip lane
+   capacity at this shape, and at each timed shape the valid lanes per scene
+   and how many scenes hold them on chip or in the global scratch (from the
+   packed lane flags and the kernel's capacity; all must be on chip).
 3. Folded kernel vs plain version: the same on 256 quadruped scenes after 40
    steps (seeded noise on the trunk position and the servo targets; K = 128,
    so the step launches `contact_sweep_folded_kernel`); times at 4096 scenes
    for the folded wrapper, the folded launch alone, `contact_sweep_kernel` on
-   the same packed inputs and the plain version.
+   the same packed inputs and the plain version; the same resource and
+   storage lines.
 4. The bench path: the bench scene (4 layers of 5x5 balls, cuboids and
    capsules on a ground cuboid, max_pairs 512, max_solver_pairs 256)
    replicated to 4096 scenes, settled for 150 steps, then 50 timed steps.
    Checks zero broad-phase / solver overflow, finite state, exactly one
-   `contact_sweep_kernel` launch per step and no folded one, bodies resting
-   above the ground.
+   `contact_sweep_kernel` launch per step and no folded one, every scene's
+   lanes on chip at the step after the timed run, bodies resting above the
+   ground.
 5. The robots path: 4096 replicas of `quadruped_world(use_multibody=True)`,
    240 steps, then 50 timed steps.  Checks finite state, zero overflow,
-   exactly one folded launch per step and no block launch, every scene
-   bitwise equal to scene 0, and the trunk at the reference's height (R5).
+   exactly one folded launch per step and no block launch, every scene's
+   lanes on chip at the step after the timed run, every scene bitwise equal
+   to scene 0, and the trunk at the reference's height (R5).
 6. The card against the CPU (plain) path: 2 bench scenes and 2 quadruped
    scenes for 10 steps each.
 7. Determinism: 10 steps run twice from one state are bitwise equal, for a
    bench batch and a quadruped batch.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (with `bound_share`,
+bound over time, and each kernel's resources); the last line is
 ``{"ok": true, "device": {...}}``.
+
+With ``--earlier DIR [DIR ...]`` (each DIR an unpacked checkout of another
+commit, e.g. ``git archive <commit> | tar -x -C build/earlier``) the script
+instead builds those checkouts' contact-sweep kernels beside this one's and
+times them all on the same packed inputs, at the on-chip shapes above and at
+shapes whose scenes keep their lanes in the global scratch (every lane
+valid: 4096 bench scenes, one scene of 2304 lanes, 4096 quadrupeds).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import importlib.util
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 N_SCENES = 4096
 N_CHECK = 256
@@ -72,6 +90,10 @@ FP32_FLOPS = 67e12
 FLOPS_GENERATE = 850
 FLOPS_UPDATE_WARMSTART = 500
 FLOPS_SOLVE = 390
+# Each kernel's launch-alone time at 4096 scenes before the redesign that
+# put the lane state on chip, as PERF.md records it (NVIDIA H100 80GB HBM3,
+# 700.00 W): printed beside this run's time, not measured here.
+RECORDED_EARLIER_MS = {"contact_sweep_kernel": 3.356, "contact_sweep_folded_kernel": 0.938}
 # solve_from_manifolds arguments that are not lane tensors.
 SCALAR_ARGS = ("dt_sub", "inv_dt_sub", "erp_inv_dt", "cfm_factor",
                "allowed_lin_err", "max_corrective_velocity", "warmstart_coeff")
@@ -204,6 +226,53 @@ def _bound(packed, out, inp):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _resources(name, folded, inp, sb, card):
+    """The kernel's registers, spills, shared memory, resident blocks an SM
+    and on-chip lane capacity at this input's shape, from the CUDA runtime."""
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+
+    res = cs.KERNEL.info(folded, inp["b1"].shape[-1], sb.v_lin.shape[-1],
+                         inp["max_colors"])
+    print(f"{name} at K={inp['b1'].shape[-1]}, N+1={sb.v_lin.shape[-1]}: "
+          f"{res['registers']} registers, {res['spill_bytes']} bytes of spills a thread, "
+          f"{res['smem_bytes']} bytes of shared memory a block, {res['blocks_per_sm']} "
+          f"resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
+          f"{res['capacity']} lanes a scene on chip ({card})")
+    return res
+
+
+def _storage(what, folded: bool, packed, kw, must_fit: bool):
+    """Valid lanes per scene of the packed inputs and the storage each scene
+    takes in the folded (or the block) kernel (`packed`, `kw` as `_packed`
+    gives them); fails when `must_fit` and a scene keeps its lanes in the
+    global scratch."""
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+
+    lanes, fits = cs.KERNEL.storage(folded, packed[1], packed[2].shape[-1],
+                                    kw["max_colors"])
+    lanes, on_chip = lanes.cpu().float(), int(fits.sum())
+    out = dict(scenes_on_chip=on_chip, scenes_in_global_scratch=lanes.shape[0] - on_chip,
+               valid_lanes_mean=float(lanes.mean()), valid_lanes_max=int(lanes.max()))
+    print(f"{what}: valid lanes per scene min {int(lanes.min())}, mean "
+          f"{out['valid_lanes_mean']:.2f}, max {out['valid_lanes_max']}; scenes on chip "
+          f"{on_chip}, in the global scratch {out['scenes_in_global_scratch']}")
+    if must_fit and out["scenes_in_global_scratch"]:
+        _fail(f"{what}: {out['scenes_in_global_scratch']} scenes did not fit on chip")
+    return out
+
+
+def _next_step_storage(what, state, params, folded: bool):
+    """`_storage` for the solve of the step after `state` (its inputs
+    captured from one more step, which the launch counts do not see)."""
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+
+    launches = cs.KERNEL.launches, cs.KERNEL.launches_folded
+    inp = capture_solve_inputs(state, params)
+    cs.KERNEL.launches, cs.KERNEL.launches_folded = launches
+    packed, kw = _packed(inp.pop("sb"), inp)
+    return _storage(what, folded, packed, kw, True)
+
+
 def _compare(name, sb, inp, sb_k, imp_k):
     """Hold a kernel's output to the plain version within KERNEL_TOL."""
     import torch
@@ -231,6 +300,17 @@ def _bitwise(what, a, b):
     print(f"{what}: folded kernel == contact_sweep_kernel bit for bit")
 
 
+def _summary(name, ms, bound, res, card):
+    """Print the kernel's time beside its recorded earlier time, its bound and
+    its occupancy; return the kernels line's keys beyond the contract's."""
+    print(f"{name} at {N_SCENES} scenes: {ms:.3f} ms (recorded before the redesign: "
+          f"{RECORDED_EARLIER_MS[name]} ms), bound {bound[0]:.3g} ms ({bound[1]}), "
+          f"{bound[0] / ms:.1%} of the bound; {res['blocks_per_sm']} blocks an SM of "
+          f"{res['registers']} registers a thread and {res['smem_bytes']} bytes of "
+          f"shared memory ({card})")
+    return dict(bound_share=bound[0] / ms, **res)
+
+
 def phase_kernel(device, card):
     """Phase 2: contact_sweep_kernel against the plain version (bench)."""
     from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
@@ -249,9 +329,13 @@ def phase_kernel(device, card):
     if cs.KERNEL.launches != counts[0] + 1:
         _fail("the bench shape did not launch contact_sweep_kernel")
     err = _compare("contact_sweep_kernel", sb, inp, sb_k, imp_k)
+    res = _resources("contact_sweep_kernel", False, inp, sb, card)
     packed, kw = _packed(sb, inp)
+    # The folded kernel holds no bench lane on chip (its capacity at 105
+    # body columns is 0): this also holds the global scratch to the shared one.
     _bitwise("bench capture (K=256)", cs.KERNEL.launch(*packed, **kw),
              cs.KERNEL.launch_folded(*packed, **kw))
+    _storage("folded kernel on the bench capture", True, packed, kw, False)
 
     times = {}
     for reps in (N_SCENES // N_CHECK, 0):
@@ -267,16 +351,19 @@ def phase_kernel(device, card):
         # rule (K <= FOLD_MAX_LANES) at a shape the rule sends to the block.
         folded_ms = _time_ms(lambda: cs.KERNEL.launch_folded(*packed, **kw), 20)
         bound = _bound(packed, cs.KERNEL.launch(*packed, **kw), inp_t)
-        times[reps] = (launch_ms, plain_ms, bound)
+        storage = _storage(f"contact_sweep_kernel at {sb_t.v_lin.shape[0]} scene(s)", False,
+                           packed, kw, True)
+        times[reps] = (launch_ms, plain_ms, bound, storage)
         print(f"contact solve at {sb_t.v_lin.shape[0]} scene(s) x K={k_lanes}: "
               f"wrapper {ms:.3f} ms, launch alone {launch_ms:.3f} ms, folded kernel "
               f"{folded_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound[0]:.3g} ms "
-              f"({bound[1]}) ({card})")
+              f"({bound[1]}), {bound[0] / launch_ms:.1%} of the bound ({card})")
     # Comparison launches do not count.
     cs.KERNEL.launches, cs.KERNEL.launches_folded = counts
-    ms, plain_ms, bound = times[N_SCENES // N_CHECK]
+    ms, plain_ms, bound, storage = times[N_SCENES // N_CHECK]
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
-                bound_by=bound[1])
+                bound_by=bound[1], **_summary("contact_sweep_kernel", ms, bound, res, card),
+                one_scene_ms=times[0][0], **storage)
 
 
 def phase_folded_kernel(device, card):
@@ -298,6 +385,7 @@ def phase_folded_kernel(device, card):
     if cs.KERNEL.launches_folded != counts[1] + 1:
         _fail("the quadruped shape did not launch contact_sweep_folded_kernel")
     err = _compare("contact_sweep_folded_kernel", sb, inp, sb_k, imp_k)
+    res = _resources("contact_sweep_folded_kernel", True, inp, sb, card)
     packed, kw = _packed(sb, inp)
     _bitwise(f"quadruped capture (K={k_lanes})", cs.KERNEL.launch(*packed, **kw),
              cs.KERNEL.launch_folded(*packed, **kw))
@@ -311,13 +399,16 @@ def phase_folded_kernel(device, card):
     block_ms = _time_ms(lambda: cs.KERNEL.launch(*packed, **kw), 20)
     plain_ms = _time_ms(lambda: cs.solve_plain(sb_t, **inp_t), 3)
     bound = _bound(packed, cs.KERNEL.launch_folded(*packed, **kw), inp_t)
+    storage = _storage(f"contact_sweep_folded_kernel at {N_SCENES} scenes", True, packed,
+                       kw, True)
     print(f"quadruped contact solve at {N_SCENES} scenes x K={k_lanes}: folded wrapper "
           f"{ms:.3f} ms, folded launch alone {launch_ms:.3f} ms, contact_sweep_kernel "
           f"{block_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound[0]:.3g} ms "
-          f"({bound[1]}) ({card})")
+          f"({bound[1]}), {bound[0] / launch_ms:.1%} of the bound ({card})")
     cs.KERNEL.launches, cs.KERNEL.launches_folded = counts
     return dict(max_abs_err=err, ms=launch_ms, plain_ms=plain_ms, bound_ms=bound[0],
-                bound_by=bound[1])
+                bound_by=bound[1], **_summary("contact_sweep_folded_kernel", launch_ms,
+                                              bound, res, card), **storage)
 
 
 def phase_main_path(device, card):
@@ -349,6 +440,7 @@ def phase_main_path(device, card):
     if launches != TIMED or folded != 0:
         _fail(f"expected {TIMED} contact_sweep_kernel launches and no folded one, "
               f"counted {launches} and {folded}")
+    _next_step_storage("bench path, the step after the timed run", state, params, False)
     b = state.bodies
     for name in ("pos", "rot", "linvel", "angvel"):
         if not bool(torch.isfinite(getattr(b, name)).all()):
@@ -403,6 +495,7 @@ def phase_robots(device, card):
     if folded != TIMED or launches != 0:
         _fail(f"expected {TIMED} folded launches and no contact_sweep_kernel one, "
               f"counted {folded} and {launches}")
+    _next_step_storage("robots path, the step after the timed run", state, params, True)
     _finite(state)
     for part in ("bodies", "contacts", "multibodies"):
         p = getattr(state, part)
@@ -495,7 +588,121 @@ def phase_determinism(device):
     _rerun_equal("quadruped", state, params, ("bodies", "contacts", "multibodies"))
 
 
+LANE_KEYS = ("b1", "b2", "valid", "color", "normal", "point", "point_active", "dist",
+             "friction", "restitution", "prev_impulse", "ws_n", "ws_t", "ws_tw",
+             "dyn1", "dyn2")
+
+
+def _every_lane_valid(inp, tiles: int = 1):
+    """`inp` with its lane axis tiled `tiles` times and every lane valid: a
+    lane that was not becomes an inert copy of a valid lane of its scene
+    (same bodies and color, no active point, zero warmstart), so a scene
+    solves all its lanes, and the colors the copies join conflict."""
+    import torch
+
+    inp = dict(inp)
+    k = inp["b1"].shape[-1]
+    for key in LANE_KEYS:
+        inp[key] = inp[key].repeat((1,) * (inp[key].dim() - 1) + (tiles,))
+    inp["valid"][..., k:] = False
+    for s in range(inp["b1"].shape[0]):
+        lanes = torch.nonzero(inp["valid"][s]).flatten()
+        idle = torch.nonzero(~inp["valid"][s]).flatten()
+        src = lanes[torch.arange(len(idle), device=lanes.device) % len(lanes)]
+        for key in LANE_KEYS:
+            inp[key][s, ..., idle] = inp[key][s, ..., src]
+        inp["point_active"][s, :, idle] = False
+        for key in ("ws_n", "ws_t", "ws_tw"):
+            inp[key][s, ..., idle] = 0.0
+    inp["valid"][:] = True
+    return inp
+
+
+def _tile(inp, reps: int):
+    """Captured solve inputs (with "sb") tiled as `_scenes` does."""
+    from rapier_tpu_torch.dynamics.solver.contact_constraints import SolverBodies
+
+    out = {k: _scenes(v, reps) for k, v in inp.items() if k != "sb"}
+    out["sb"] = SolverBodies(*[_scenes(x, reps) for x in inp["sb"]])
+    return out
+
+
+def _load_kernel(root):
+    """The contact-sweep wrapper of the checkout at `root`, loaded beside this
+    one's: its own source, build directory and library."""
+    path = os.path.join(os.path.abspath(root), "rapier_tpu_torch", "dynamics", "solver",
+                        "contact_sweep.py")
+    spec = importlib.util.spec_from_file_location(f"contact_sweep_{len(sys.modules)}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.KERNEL
+
+
+def phase_earlier(device, card, roots):
+    """With --earlier: this checkout's kernels and those of the checkouts at
+    `roots`, timed on the same packed inputs, each output held to this
+    checkout's, and this checkout's held to the plain version."""
+    import torch
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+
+    kernels = {"this checkout": cs.KERNEL, **{root: _load_kernel(root) for root in roots}}
+    t0 = time.time()
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        list(pool.map(lambda kern: kern.build(), kernels.values()))
+    print(f"built {len(kernels)} kernel libraries in {time.time() - t0:.1f} s")
+
+    state, params = bench_world(device, N_CHECK)
+    state, _ = run(state, params, SETTLE)
+    bench = capture_solve_inputs(state, params)
+    state, params = quadruped_batch(device, N_CHECK, seed=7)
+    state, _ = run(state, params, ROBOT_CHECK_STEPS)
+    quad = capture_solve_inputs(state, params)
+    reps = N_SCENES // N_CHECK
+    cases = (
+        (f"bench, {N_SCENES} scenes", False, _tile(bench, reps)),
+        (f"bench, {N_SCENES} scenes, every lane valid", False,
+         _tile(_every_lane_valid(bench), reps)),
+        ("one bench scene, every lane valid", False, _every_lane_valid(_tile(bench, 0), 9)),
+        (f"quadruped, {N_SCENES} scenes", True, _tile(quad, reps)),
+        (f"quadruped, {N_SCENES} scenes, every lane valid", True,
+         _tile(_every_lane_valid(quad), reps)),
+    )
+    rows = []
+    for what, folded, inp in cases:
+        inp = dict(inp)
+        sb = inp.pop("sb")
+        packed, kw = _packed(sb, inp)
+        k, n1 = packed[0].shape[-1], packed[2].shape[-1]
+        name = "contact_sweep_folded_kernel" if folded else "contact_sweep_kernel"
+        print(f"{what}: K={k}, N+1={n1}, {name}")
+        storage = _storage("  this checkout", folded, packed, kw, False)
+        ref = None
+        for source, kern in kernels.items():
+            fn = kern.launch_folded if folded else kern.launch
+            out = fn(*packed, **kw)
+            if ref is None:
+                ref = out
+                body = out[0]
+                _compare(f"  {name}", sb, inp,
+                         sb._replace(v_lin=body[:, 0:3], v_ang=body[:, 3:6],
+                                     com=body[:, 6:9], rot=body[:, 9:13]), out[1])
+            ms = _time_ms(lambda: fn(*packed, **kw), 20)
+            torch.cuda.synchronize()
+            diff = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+            same = all(torch.equal(a, b) for a, b in zip(out, ref))
+            print(f"  {source}: {ms:.3f} ms; max |d| from this checkout {diff:.3e}"
+                  f"{' (bit for bit)' if same else ''} ({card})")
+            rows.append(dict(case=what, kernel=name, source=source, ms=ms,
+                             max_abs_diff=diff, bitwise=same, **storage))
+    print(json.dumps({"earlier": rows}))
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--earlier", nargs="+", metavar="DIR",
+                    help="time the kernels of these unpacked checkouts beside this one's "
+                         "and run nothing else")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -525,6 +732,10 @@ def main():
         out = fn(*args)
         print(f"[{fn.__name__}: {time.time() - t:.1f} s]")
         return out
+
+    if args.earlier:
+        phase(phase_earlier, device, card, args.earlier)
+        return
 
     block = phase(phase_kernel, device, card)
     folded = phase(phase_folded_kernel, device, card)

@@ -10,15 +10,31 @@
 // biased color sweeps, masked pose integration and `stab_iters` unbiased
 // sweeps.  The plain PyTorch version is `contact_sweep.solve_plain`.
 //
-// Design.  One thread block per scene; threads stride over the K solver
-// lanes.  The scene's body table (v_lin, v_ang, com, rot, im, ii, dv, dw:
-// 31 floats, plus the mover flag, per body) sits in shared memory, so every
-// gather and scatter of a color pass is a shared-memory access; a pass is
-// "lanes of color c read both endpoints, solve, write their deltas", then
-// __syncthreads().  Each lane's constraint state (~171 floats) lives in a
-// global scratch buffer laid out [field][lane], so neighbouring threads
-// touch neighbouring addresses; a scene's state (~180 KB at K = 256) stays
-// L2-resident while its block runs.
+// Design.  One thread group per scene: a whole block (`contact_sweep_kernel`)
+// or one warp of a block (`contact_sweep_folded_kernel`).  The scene's body
+// table (v_lin, v_ang, com, rot, im, ii, dv, dw: 31 floats, plus the mover
+// flag, per body) sits in shared memory, so every gather and scatter of a
+// color pass is a shared-memory access; a pass is "lanes of color c read
+// both endpoints, solve, write their deltas", then a group barrier.
+//
+// Solved lanes only, their state on chip.  The Pallas kernels keep the
+// constraint rows in VMEM; here the scene first compacts its valid lanes,
+// color-major and in lane order within a color (a stable counting sort in
+// shared memory), so that a color pass runs on consecutive threads, and
+// generation, update, warmstart, the color passes and the per-body endpoint
+// lists run over the compacted lanes only.  Their state (117 floats a lane
+// plus 12 delta floats, a lane's fields together) lives in shared memory.
+// Fields that are functions of the body table are not stored: im1/im2 are the
+// body's `im`, and the ii-weighted torque directions are the body's `ii`
+// (constant over the substeps) times a stored direction, recomputed with the
+// same `ii_mul`, so with the same bits.  A lane that is not valid never
+// enters a pass and its warmstart deltas are zero, so its impulse rows are a
+// closed form of its warmstart inputs, written with the same float
+// operations in the same order.  Each kernel has a fixed on-chip capacity per
+// scene, computed by the launcher from the shapes alone; a scene with more
+// valid lanes keeps them in a global scratch buffer, laid out field-major
+// so that a warp's reads coalesce, through the same code
+// (`solve_lanes<G, false>`).
 //
 // Writes.  In a conflict-free color a lane adds its deltas to its dynamic
 // endpoints directly.  A color in which two lanes share a dynamic body (the
@@ -28,44 +44,47 @@
 // thread sums its endpoints' deltas in lane order (endpoint-1 lanes, then
 // endpoint-2 lanes, the reference's route order) from a per-scene endpoint
 // list.  No float atomics: a run reproduces bit for bit.  The sentinel
-// column N (static and dominant endpoints) is never written.
+// column N (static and dominant endpoints) is never written.  Skipping the
+// zero deltas of unsolved lanes leaves every sum's bits as they were: a sum
+// starts at +0 and so never holds -0.
 //
-// Bounds on an H100.  The work per scene is small and sequential across
-// colors (~8 colors x 2 sweeps x 4 substeps of barrier-separated passes),
-// so the kernel is latency-bound: barriers, shared-memory round trips and
-// the L2 traffic of the lane state, not FLOPs or HBM bandwidth.  At 128
-// registers a thread two blocks are resident per SM (264 on the card), so
-// 4096 scenes run in ~16 waves; a many-scene batch, not a faster block, is
-// what fills the card (PERF.md has the times).  Shared memory bounds
-// the scene size: 33 words per body plus the per-color flags must fit the
-// 227 KB a block can use (~1,750 bodies); the wrapper refuses larger scenes.
+// Bounds on an H100.  The bytes a call must move (packed inputs once,
+// outputs once) take 0.086 ms at the bench shape (4096 scenes x K 256) and
+// 0.035 ms at the quadruped's (4096 x K 128); the valid lanes' float
+// operations take less.  The card did not show the kernel latency-bound, as
+// this note once said: with every lane's state in a global scratch the two
+// kernels took 3.356 and 0.938 ms, and eight times the quadruped scenes in
+// flight bought no time, which is the mark of the scratch traffic (~1.5 MB
+// and ~0.44 MB a scene a step).  With the state on chip they take ~1.6 and
+// ~0.16 ms (PERF.md, NVIDIA H100 80GB HBM3 at 700 W).  What sets the time
+// now is a scene's chain of ~70 (bench) or ~25 (quadruped) barrier-
+// separated passes, each one lane solve deep and issued by one warp, times
+// the waves of scenes: a lone bench scene takes ~0.1 ms, and 4096 of them
+// at two an SM make 15.5 waves.  Shared memory sets the scenes an SM holds:
+// the block kernel keeps 183 lanes of a scene on chip (138 words a lane plus
+// the body table, 115 KB), so two bench scenes share an SM; the folded
+// kernel keeps up to 32 lanes a scene, as many as let two 8-scene blocks
+// share an SM (21 at the quadruped's 17 body columns).  A scene past that
+// capacity pays for the global scratch: 4096 bench scenes with all 256 lanes
+// valid take ~5.8 ms, field-major (a lane-major scratch took ~10.9).  Both
+// compile to no or few spills (`__launch_bounds__` with two blocks an SM).
 // Compiled with -fmad=false so the arithmetic rounds like the plain version.
 //
-// The scene-folded kernel (`_kernel_folded`'s counterpart).  Small scenes
-// (the batched quadruped: K = 128 lanes, 17 body columns, ~9 solved lanes)
-// leave most of a 256-thread block idle behind block-wide barriers, and the
-// block's latency, not its work, sets the time.  The folded kernel packs
-// kFoldScenes = 8 scenes into a block, one warp per scene: each warp owns an
-// aligned shared-memory slice (the same body table, mover flags, endpoint
-// lists and conflict flags), strides its scene's lanes by 32 and separates
-// passes with __syncwarp(), so the scenes of a block never wait on each
-// other and a block costs 8 x ~2.3 KB of shared memory at N1 = 17.  Both
-// kernels run the same per-scene code (`solve_scene`, templated on the
-// thread group), so they agree bit for bit; a scene sweeps its own color
-// count where the TPU kernel swept the batch maximum (the extra colors are
-// empty: the same function).  Its byte bound is ~30 KB a scene; on an H100
-// it is far from it and no faster than the block kernel at 4096 quadruped
-// scenes (PERF.md).  The suspect, not yet measured: every lane of a scene,
-// solved or not (~9 of 128 are), is generated and updated in the global
-// scratch (~90 KB a scene), and with 16 scenes resident per SM the scratch
-// in flight overflows the 50 MB L2.
+// The scene-folded kernel packs kFoldScenes = 8 scenes into a block, one
+// warp per scene: each warp owns an aligned shared-memory slice and
+// separates passes with __syncwarp(), so the scenes of a block never wait on
+// each other.  Both kernels run the same per-scene code (`solve_scene`,
+// templated on the thread group), so they agree bit for bit; a scene sweeps
+// its own color count where the TPU kernel swept the batch maximum (the
+// extra colors are empty: the same function).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kBlockThreads = 128;  // threads of contact_sweep_kernel's block (a scene)
+constexpr int kFoldThreads = 256;   // threads of a folded block (8 scenes)
 
 // Body-table rows (packed input [B, BR_ROWS, N1] and shared memory).
 enum BodyRow {
@@ -81,20 +100,23 @@ enum ManRow {
 // Int manifold rows (packed input [B, 4, K]).
 enum IntRow { IR_B1 = 0, IR_B2 = 1, IR_COLOR = 2, IR_FLAGS = 3 };
 // flags: bit 0 valid, bit 1 dyn1, bit 2 dyn2, bits 3..6 point_active.
-// Constraint fields in the scratch buffer [B, CF, K] (contact_constraints
-// ContactConstraints); vectors are 3 consecutive fields, per-point vectors
-// 4 x 3.
+// Constraint fields of a compacted lane (contact_constraints
+// ContactConstraints without the fields the body table gives); vectors are
+// 3 consecutive fields, per-point vectors 4 x 3.
 enum Field {
-  F_DIR1 = 0, F_TAN1 = 3, F_IM1 = 6, F_IM2 = 9, F_LIMIT = 12,
-  F_TD1 = 13, F_TD2 = 25, F_IITD1 = 37, F_IITD2 = 49, F_R = 61,
-  F_LP1 = 65, F_LP2 = 77, F_DIST0 = 89, F_NVRHS = 93, F_RHS = 97,
-  F_RHSWO = 101, F_IMP = 105, F_IMPACC = 109,
-  F_TTD1 = 113, F_TTD2 = 119, F_TIITD1 = 125, F_TIITD2 = 131, F_TANR = 137,
-  F_TRHS = 140, F_TIMP = 142, F_TIMPACC = 144, F_FC1 = 146, F_FC2 = 149,
-  F_TWII1 = 152, F_TWII2 = 155, F_TWR = 158, F_TWD = 159, F_TWIMP = 163,
-  F_TWIMPACC = 164, F_DELTA = 165,  // 12 delta rows: dv1 dw1 dv2 dw2
-  CF = 177
+  F_DIR1 = 0, F_TAN1 = 3, F_LIMIT = 6, F_TD1 = 7, F_TD2 = 19, F_R = 31,
+  F_LP1 = 35, F_LP2 = 47, F_DIST0 = 59, F_NVRHS = 63, F_RHS = 67, F_RHSWO = 71,
+  F_IMP = 75, F_IMPACC = 79, F_TTD1 = 83, F_TTD2 = 89, F_TANR = 95,
+  F_TRHS = 98, F_TIMP = 100, F_TIMPACC = 102, F_FC1 = 104, F_FC2 = 107,
+  F_TWR = 110, F_TWD = 111, F_TWIMP = 115, F_TWIMPACC = 116,
+  F_DELTA = 117,  // 12 delta rows: dv1 dw1 dv2 dw2
+  LF = 129
 };
+// Int words of a compacted lane: its endpoints, color, flags and lane index
+// (IF is odd, like LF, for the same reason).
+enum InfoRow { I_B1 = 0, I_B2 = 1, I_COLOR = 2, I_FLAGS = 3, I_LANE = 4, IF = 7 };
+// Words a lane occupies: fields, info rows and its two endpoint-list entries.
+constexpr int kLaneWords = LF + IF + 2;
 
 struct V3 { float x, y, z; };
 
@@ -126,26 +148,36 @@ __device__ __forceinline__ V3 ii_mul(const float* ii, V3 v) {
           ii[6] * v.x + ii[7] * v.y + ii[8] * v.z};
 }
 
-// Lane view of the scratch buffer: field f of this lane at base[f * K].
+// A compacted lane's fields: field f at base[f * stride].  On chip a lane's
+// fields lie together and lanes LF (odd) words apart, so a warp reading one
+// field of consecutive lanes touches 32 banks, and every field is an
+// immediate offset from the lane's base.  In the global scratch the fields
+// lie field-major (stride: the scene's lane count), so the same read is one
+// coalesced load.
+template <bool kOnChip>
 struct Lane {
   float* base;
-  int K;
-  __device__ float& operator[](int f) const { return base[(size_t)f * K]; }
+  int stride;
+  __device__ float& operator[](int f) const { return kOnChip ? base[f] : base[f * stride]; }
   __device__ V3 v(int f) const { return mk((*this)[f], (*this)[f + 1], (*this)[f + 2]); }
   __device__ void set(int f, V3 a) const {
     (*this)[f] = a.x; (*this)[f + 1] = a.y; (*this)[f + 2] = a.z;
   }
 };
 
-// Shared body table: row r, body j.
+// Shared body table, a body's BR_ROWS (odd) words together: row r of body j
+// at s[j * BR_ROWS + r].
 struct Table {
   float* s;
-  int n1;
-  __device__ float& at(int r, int j) const { return s[r * n1 + j]; }
+  __device__ float& at(int r, int j) const { return s[j * BR_ROWS + r]; }
   __device__ V3 v(int r, int j) const { return mk(at(r, j), at(r + 1, j), at(r + 2, j)); }
   __device__ Q q(int r, int j) const { return {at(r, j), at(r + 1, j), at(r + 2, j), at(r + 3, j)}; }
   __device__ void add(int r, int j, V3 d) const {
     at(r, j) = at(r, j) + d.x; at(r + 1, j) = at(r + 1, j) + d.y; at(r + 2, j) = at(r + 2, j) + d.z;
+  }
+  // Body j's inverse inertia (constant over the solve).
+  __device__ void ii(int j, float* out) const {
+    for (int e = 0; e < 9; ++e) out[e] = at(BR_II + e, j);
   }
 };
 
@@ -167,17 +199,18 @@ __device__ V3 tangent_direction(V3 dir1, V3 lv1, V3 lv2) {
   return norm < 1e-4f ? fb : tan_n;
 }
 
-// contact_constraints.generate_from + warmstart injection, one lane.
-__device__ void generate_lane(const Lane& L, const float* mf, const int* mi,
-                              int K, const Table& T) {
-  int i1 = mi[IR_B1 * K], i2 = mi[IR_B2 * K];
-  int flags = mi[IR_FLAGS * K];
+// contact_constraints.generate_from + warmstart injection, one lane; `mf`
+// points at the lane's column of the packed float rows.
+template <class LaneT>
+__device__ void generate_lane(const LaneT& L, const float* mf, int K, int i1, int i2,
+                              int flags, const Table& T) {
   V3 v1l = T.v(BR_VLIN, i1), w1 = T.v(BR_VANG, i1), com1 = T.v(BR_COM, i1);
   V3 v2l = T.v(BR_VLIN, i2), w2 = T.v(BR_VANG, i2), com2 = T.v(BR_COM, i2);
   Q rot1 = T.q(BR_ROT, i1), rot2 = T.q(BR_ROT, i2);
   V3 im1 = T.v(BR_IM, i1), im2 = T.v(BR_IM, i2);
   float ii1[9], ii2[9];
-  for (int e = 0; e < 9; ++e) { ii1[e] = T.at(BR_II + e, i1); ii2[e] = T.at(BR_II + e, i2); }
+  T.ii(i1, ii1);
+  T.ii(i2, ii2);
 
   V3 dir1 = -mk(mf[(MR_NORMAL) * K], mf[(MR_NORMAL + 1) * K], mf[(MR_NORMAL + 2) * K]);
   V3 tan1 = tangent_direction(dir1, v1l, v2l);
@@ -203,8 +236,6 @@ __device__ void generate_lane(const Lane& L, const float* mf, const int* mi,
     float proj = dot(vel1 - vel2, dir1);
     L.set(F_TD1 + 3 * k, td1);
     L.set(F_TD2 + 3 * k, td2);
-    L.set(F_IITD1 + 3 * k, iitd1);
-    L.set(F_IITD2 + 3 * k, iitd2);
     L[F_R + k] = 1.0f / fmaxf(denom, 1e-12f);
     L.set(F_LP1 + 3 * k, inv_rotate(rot1, dp1));
     L.set(F_LP2 + 3 * k, inv_rotate(rot2, dp2));
@@ -240,20 +271,14 @@ __device__ void generate_lane(const Lane& L, const float* mf, const int* mi,
     tr[j] = dot(tans[j], imsum * tans[j]) + dot(tiitd1[j], ttd1[j]) + dot(tiitd2[j], ttd2[j]);
     L.set(F_TTD1 + 3 * j, ttd1[j]);
     L.set(F_TTD2 + 3 * j, ttd2[j]);
-    L.set(F_TIITD1 + 3 * j, tiitd1[j]);
-    L.set(F_TIITD2 + 3 * j, tiitd2[j]);
   }
   L[F_TANR] = tr[0];
   L[F_TANR + 1] = tr[1];
   L[F_TANR + 2] = 2.0f * (dot(tiitd1[0], ttd1[1]) + dot(tiitd2[0], ttd2[1]));
   V3 twii1 = ii_mul(ii1, dir1), twii2 = ii_mul(ii2, -dir1);
-  L.set(F_TWII1, twii1);
-  L.set(F_TWII2, twii2);
   L[F_TWR] = 1.0f / fmaxf(dot(twii1, dir1) + dot(twii2, -dir1), 1e-12f);
   L.set(F_DIR1, dir1);
   L.set(F_TAN1, tan1);
-  L.set(F_IM1, im1);
-  L.set(F_IM2, im2);
   L[F_LIMIT] = mf[MR_FRIC * K];
   for (int j = 0; j < 2; ++j) {
     L[F_TRHS + j] = 0.0f;
@@ -265,7 +290,8 @@ __device__ void generate_lane(const Lane& L, const float* mf, const int* mi,
 }
 
 // contact_constraints.update, one lane.
-__device__ void update_lane(const Lane& L, int i1, int i2, const Table& T,
+template <class LaneT>
+__device__ void update_lane(const LaneT& L, int i1, int i2, const Table& T,
                             const Params& p) {
   V3 com1 = T.v(BR_COM, i1), com2 = T.v(BR_COM, i2);
   Q rot1 = T.q(BR_ROT, i1), rot2 = T.q(BR_ROT, i2);
@@ -299,34 +325,38 @@ __device__ void update_lane(const Lane& L, int i1, int i2, const Table& T,
   L[F_TWIMP] = tw * p.warmstart_coeff;
 }
 
-// contact_constraints.warmstart: this lane's velocity deltas for both
-// endpoints, stored in the delta rows.
-__device__ void warmstart_lane(const Lane& L, bool valid, int flags) {
+// contact_constraints.warmstart: this (valid) lane's velocity deltas for
+// both endpoints, stored in the delta rows.
+template <class LaneT>
+__device__ void warmstart_lane(const LaneT& L, int i1, int i2, int flags, const Table& T) {
   float imp[4];
   float imp_sum = 0.0f;
   for (int k = 0; k < 4; ++k) {
-    float act = (valid && ((flags >> (3 + k)) & 1)) ? 1.0f : 0.0f;
+    float act = ((flags >> (3 + k)) & 1) ? 1.0f : 0.0f;
     imp[k] = L[F_IMP + k] * act;
   }
   imp_sum = imp[0] + imp[1] + imp[2] + imp[3];
-  V3 dir1 = L.v(F_DIR1), im1 = L.v(F_IM1), im2 = L.v(F_IM2), tan1 = L.v(F_TAN1);
+  V3 dir1 = L.v(F_DIR1), tan1 = L.v(F_TAN1);
+  V3 im1 = T.v(BR_IM, i1), im2 = T.v(BR_IM, i2);
+  float ii1[9], ii2[9];
+  T.ii(i1, ii1);
+  T.ii(i2, ii2);
   V3 dv1 = dir1 * im1 * imp_sum;
   V3 dv2 = -dir1 * im2 * imp_sum;
   V3 dw1 = mk(0.0f, 0.0f, 0.0f), dw2 = mk(0.0f, 0.0f, 0.0f);
   for (int k = 0; k < 4; ++k) {
-    dw1 = dw1 + L.v(F_IITD1 + 3 * k) * imp[k];
-    dw2 = dw2 + L.v(F_IITD2 + 3 * k) * imp[k];
+    dw1 = dw1 + ii_mul(ii1, L.v(F_TD1 + 3 * k)) * imp[k];
+    dw2 = dw2 + ii_mul(ii2, L.v(F_TD2 + 3 * k)) * imp[k];
   }
-  float vm = valid ? 1.0f : 0.0f;
-  float ti0 = L[F_TIMP] * vm, ti1 = L[F_TIMP + 1] * vm;
+  float ti0 = L[F_TIMP], ti1 = L[F_TIMP + 1];
   V3 tan_lin = tan1 * ti0 + cross(dir1, tan1) * ti1;
   dv1 = dv1 + tan_lin * im1;
   dv2 = dv2 - tan_lin * im2;
-  dw1 = dw1 + L.v(F_TIITD1) * ti0 + L.v(F_TIITD1 + 3) * ti1;
-  dw2 = dw2 + L.v(F_TIITD2) * ti0 + L.v(F_TIITD2 + 3) * ti1;
-  float wi = L[F_TWIMP] * vm;
-  dw1 = dw1 + L.v(F_TWII1) * wi;
-  dw2 = dw2 + L.v(F_TWII2) * wi;
+  dw1 = dw1 + ii_mul(ii1, L.v(F_TTD1)) * ti0 + ii_mul(ii1, L.v(F_TTD1 + 3)) * ti1;
+  dw2 = dw2 + ii_mul(ii2, L.v(F_TTD2)) * ti0 + ii_mul(ii2, L.v(F_TTD2 + 3)) * ti1;
+  float wi = L[F_TWIMP];
+  dw1 = dw1 + ii_mul(ii1, dir1) * wi;
+  dw2 = dw2 + ii_mul(ii2, -dir1) * wi;
   L.set(F_DELTA, dv1);
   L.set(F_DELTA + 3, dw1);
   L.set(F_DELTA + 6, dv2);
@@ -336,7 +366,8 @@ __device__ void warmstart_lane(const Lane& L, bool valid, int flags) {
 // contact_constraints.solve_color for one lane of the color being swept.
 // Returns the velocity deltas of both endpoints through d[4] (dv1 dw1 dv2
 // dw2) and updates the lane's impulses.
-__device__ void solve_lane(const Lane& L, int i1, int i2, int flags,
+template <class LaneT>
+__device__ void solve_lane(const LaneT& L, int i1, int i2, int flags,
                            const Table& T, bool use_bias, float cfm_factor,
                            V3* d) {
   V3 v1 = T.v(BR_VLIN, i1), w1 = T.v(BR_VANG, i1);
@@ -344,7 +375,11 @@ __device__ void solve_lane(const Lane& L, int i1, int i2, int flags,
   const V3 v1_0 = v1, w1_0 = w1, v2_0 = v2, w2_0 = w2;
   const float cfm = use_bias ? cfm_factor : 1.0f;
   const int rhs_f = use_bias ? F_RHS : F_RHSWO;
-  V3 dir1 = L.v(F_DIR1), im1 = L.v(F_IM1), im2 = L.v(F_IM2);
+  V3 dir1 = L.v(F_DIR1);
+  V3 im1 = T.v(BR_IM, i1), im2 = T.v(BR_IM, i2);
+  float ii1[9], ii2[9];
+  T.ii(i1, ii1);
+  T.ii(i2, ii2);
 
   float imp[4], act[4];
   for (int k = 0; k < 4; ++k) {
@@ -356,9 +391,9 @@ __device__ void solve_lane(const Lane& L, int i1, int i2, int flags,
     float dl = (new_imp - imp[k]) * act[k];
     imp[k] = imp[k] + dl;
     v1 = v1 + dir1 * im1 * dl;
-    w1 = w1 + L.v(F_IITD1 + 3 * k) * dl;
+    w1 = w1 + ii_mul(ii1, td1) * dl;
     v2 = v2 - dir1 * im2 * dl;
-    w2 = w2 + L.v(F_IITD2 + 3 * k) * dl;
+    w2 = w2 + ii_mul(ii2, td2) * dl;
   }
   for (int k = 0; k < 4; ++k) L[F_IMP + k] = imp[k];
 
@@ -393,8 +428,8 @@ __device__ void solve_lane(const Lane& L, int i1, int i2, int flags,
   V3 dvt = tan1 * dl0 + t2 * dl1;
   v1 = v1 + dvt * im1;
   v2 = v2 - dvt * im2;
-  w1 = w1 + L.v(F_TIITD1) * dl0 + L.v(F_TIITD1 + 3) * dl1;
-  w2 = w2 + L.v(F_TIITD2) * dl0 + L.v(F_TIITD2 + 3) * dl1;
+  w1 = w1 + ii_mul(ii1, ttd1_0) * dl0 + ii_mul(ii1, ttd1_1) * dl1;
+  w2 = w2 + ii_mul(ii2, ttd2_0) * dl0 + ii_mul(ii2, ttd2_1) * dl1;
 
   // Twist (only with >= 2 points), clamped to the twist limit.
   float npts = act[0] + act[1] + act[2] + act[3];
@@ -403,8 +438,8 @@ __device__ void solve_lane(const Lane& L, int i1, int i2, int flags,
   float new_tw = fminf(fmaxf(tw - L[F_TWR] * dot(dir1, w1 - w2), -twist_limit), twist_limit);
   float dl_tw = (new_tw - tw) * has_twist;
   L[F_TWIMP] = tw + dl_tw;
-  w1 = w1 + L.v(F_TWII1) * dl_tw;
-  w2 = w2 + L.v(F_TWII2) * dl_tw;
+  w1 = w1 + ii_mul(ii1, dir1) * dl_tw;
+  w2 = w2 + ii_mul(ii2, -dir1) * dl_tw;
 
   d[0] = v1 - v1_0;
   d[1] = w1 - w1_0;
@@ -412,13 +447,9 @@ __device__ void solve_lane(const Lane& L, int i1, int i2, int flags,
   d[3] = w2 - w2_0;
 }
 
-__device__ __forceinline__ int entry_body(const int* mi, int K, int e) {
-  return e < K ? mi[IR_B1 * K + e] : mi[IR_B2 * K + (e - K)];
-}
-
 // The threads that solve one scene: a whole block, or one warp of a block.
 struct BlockGroup {
-  static constexpr int kSize = kThreads;
+  static constexpr int kSize = kBlockThreads;
   __device__ static int rank() { return threadIdx.x; }
   __device__ static void sync() { __syncthreads(); }
 };
@@ -428,84 +459,168 @@ struct WarpGroup {
   __device__ static void sync() { __syncwarp(); }
 };
 
-constexpr int kFoldScenes = kThreads / WarpGroup::kSize;  // scenes per folded block
+constexpr int kFoldScenes = kFoldThreads / WarpGroup::kSize;  // scenes per folded block
+// Lanes a folded scene holds on chip at most: one per thread of its warp.
+constexpr int kFoldMaxCapacity = 32;
+// Shared memory of an SM, what each resident block reserves of it, and the
+// most one block may use.
+constexpr int kSmemPerSM = 233472;
+constexpr int kSmemReserved = 1024;
+constexpr int kSmemPerBlockMax = 232448;
 
-// Solve scene `b` with the threads of group G, its tables in `smem`.
-template <class G>
-__device__ __forceinline__ void solve_scene(
-    int b, float* smem, const float* __restrict__ man_f, const int* __restrict__ man_i,
-    const float* __restrict__ bodies_in, const int* __restrict__ move_in,
-    const int* __restrict__ ncol_in, float* __restrict__ out_body,
-    float* __restrict__ out_imp, float* __restrict__ scratch, int* __restrict__ csr_g,
-    int K, int n1, const Params& p) {
+// Color buckets: colors 0 .. max_colors - 1, and one for any other value (a
+// lane no sweep reaches).
+__device__ __forceinline__ int bucket(int color, int max_colors) {
+  return color >= 0 && color < max_colors ? color : max_colors;
+}
+
+// Shared words of one scene before its lanes: body table, mover flags,
+// endpoint-list offsets, conflict flags, bucket starts and counts, and the
+// per-warp bucket counts of the compaction; rounded up to 16 bytes.
+__host__ __device__ inline int scene_fixed_words(int n1, int max_colors, int warps) {
+  const int nb = max_colors + 1;
+  int words = BR_ROWS * n1 + n1 + (n1 + 1) + max_colors + (nb + 1) + nb + warps * nb;
+  return (words + 3) / 4 * 4;
+}
+
+// One scene's inputs and shared tables.
+struct Scene {
+  const float* mf;   // packed float rows [MR_ROWS, K]
+  const int* mi;     // packed int rows [4, K]
+  Table T;
+  int* s_move;
+  int* s_off;        // [n1 + 1] endpoint-list offsets
+  int* s_conflict;   // [max_colors] self-conflicting colors
+  int* s_cstart;     // [nb + 1] first compacted lane of each color bucket
+  int* s_ccnt;       // [nb] lanes placed so far per bucket
+  int* s_wcc;        // [warps, nb] a compaction chunk's bucket counts per warp
+  int K, n1, nv, ncol, nb;
+};
+
+// Everything after the scene's valid lanes are counted: compaction, lists,
+// generation, the substep loop and the valid lanes' outputs.  Room for
+// `lanes` compacted lanes at `store`: their info words, [2 * lanes]
+// endpoint-list entries, then their fields.  kOnChip says whether `store` is
+// the scene's shared memory past its fixed words (a lane's words together:
+// [lanes, IF] and [lanes, LF]) or its slice of the global scratch (field-
+// major: [IF, lanes] and [LF, lanes]); the arithmetic is the same code.
+template <class G, bool kOnChip>
+__device__ __forceinline__ void solve_lanes(const Scene& S, float* store, int lanes,
+                                            float* __restrict__ oi, const Params& p) {
   constexpr int NT = G::kSize;
-  const int tid = G::rank();
+  const int tid = G::rank(), warp = tid >> 5, wl = tid & 31;
+  const int K = S.K, n1 = S.n1, nv = S.nv, nb = S.nb;
   const int n = n1 - 1;  // sentinel column
-  Table T{smem, n1};
-  int* s_move = reinterpret_cast<int*>(smem + BR_ROWS * n1);
-  int* s_off = s_move + n1;            // [n1 + 1] endpoint-list offsets
-  int* s_conflict = s_off + n1 + 1;    // [max_colors] self-conflicting colors
+  const Table& T = S.T;
+  const int* mi = S.mi;
+  int* const info_words = reinterpret_cast<int*>(store);
+  int* const csr = info_words + IF * lanes;
+  float* const state = reinterpret_cast<float*>(csr + 2 * lanes);
+  auto info = [&](int pos, int w) -> int& {
+    return info_words[kOnChip ? pos * IF + w : w * lanes + pos];
+  };
+  auto lane = [&](int pos) {
+    if constexpr (kOnChip)
+      return Lane<true>{state + pos * LF, 1};
+    else
+      return Lane<false>{state + pos, lanes};
+  };
 
-  const float* mf = man_f + (size_t)b * MR_ROWS * K;
-  const int* mi = man_i + (size_t)b * 4 * K;
-  const float* bin = bodies_in + (size_t)b * BR_ROWS * n1;
-  int* csr = csr_g + (size_t)b * 2 * K;
-  float* sc = scratch + (size_t)b * CF * K;
+  // Compaction, color-major: the valid lanes of color bucket c take
+  // positions s_cstart[c] .. s_cstart[c + 1] - 1 in lane order, so a color
+  // pass runs on consecutive threads.  A chunk ranks its lanes within their
+  // bucket by warp (__match_any_sync) and across the warps before.
+  for (int k0 = 0; k0 < K; k0 += NT) {
+    const int k = k0 + tid;
+    const int flags = k < K ? mi[IR_FLAGS * K + k] : 0;
+    const int color = flags & 1 ? mi[IR_COLOR * K + k] : 0;
+    const int c = flags & 1 ? bucket(color, p.max_colors) : -1;
+    const unsigned m = __match_any_sync(0xffffffffu, c);
+    const int wr = __popc(m & ((1u << wl) - 1u));
+    if (c >= 0 && wr == 0) S.s_wcc[warp * nb + c] = __popc(m);
+    G::sync();
+    if (c >= 0) {
+      int pos = S.s_cstart[c] + S.s_ccnt[c] + wr;
+      for (int w = 0; w < warp; ++w) pos += S.s_wcc[w * nb + c];
+      info(pos, I_B1) = mi[IR_B1 * K + k];
+      info(pos, I_B2) = mi[IR_B2 * K + k];
+      info(pos, I_COLOR) = color;
+      info(pos, I_FLAGS) = flags;
+      info(pos, I_LANE) = k;
+    }
+    G::sync();
+    for (int b = tid; b < nb; b += NT) {
+      int placed = 0;
+      for (int w = 0; w < NT / 32; ++w) {
+        placed += S.s_wcc[w * nb + b];
+        S.s_wcc[w * nb + b] = 0;
+      }
+      S.s_ccnt[b] += placed;
+    }
+    G::sync();
+  }
 
-  for (int i = tid; i < BR_ROWS * n1; i += NT) smem[i] = bin[i];
-  for (int j = tid; j < n1; j += NT) s_move[j] = move_in[(size_t)b * n1 + j];
-  for (int c = tid; c < p.max_colors; c += NT) s_conflict[c] = 0;
-  const int ncol = ncol_in[b];
-
-  // Per-body endpoint lists, in entry order e = lane (endpoint 1) then
-  // K + lane (endpoint 2).  Sentinel endpoints are never listed.
+  // Per-body endpoint lists, in the reference's order restricted to valid
+  // lanes: endpoint-1 entries by lane index, then endpoint-2 entries.  An
+  // entry is 2 * position + endpoint; each body's thread gathers its entries
+  // and sorts them by (endpoint, lane).  Sentinel endpoints are never listed.
+  auto entry_key = [&](int e) { return (e & 1) * K + info(e >> 1, I_LANE); };
   for (int j = tid; j < n1; j += NT) {
     int cnt = 0;
     if (j < n)
-      for (int e = 0; e < 2 * K; ++e) cnt += entry_body(mi, K, e) == j;
-    s_off[j + 1] = cnt;
+      for (int pos = 0; pos < nv; ++pos)
+        cnt += (info(pos, I_B1) == j) + (info(pos, I_B2) == j);
+    S.s_off[j + 1] = cnt;
   }
   G::sync();
   if (tid == 0) {
-    s_off[0] = 0;
-    for (int j = 0; j < n1; ++j) s_off[j + 1] += s_off[j];
+    S.s_off[0] = 0;
+    for (int j = 0; j < n1; ++j) S.s_off[j + 1] += S.s_off[j];
   }
   G::sync();
   for (int j = tid; j < n; j += NT) {
-    int w = s_off[j];
-    for (int e = 0; e < 2 * K; ++e)
-      if (entry_body(mi, K, e) == j) csr[w++] = e;
-    // A color is self-conflicting when two valid lanes of it share this
-    // dynamic body.
-    for (int a = s_off[j]; a < s_off[j + 1]; ++a) {
-      int ea = csr[a], la = ea % K;
-      int fa = mi[IR_FLAGS * K + la];
-      if (!(fa & 1) || !((fa >> (1 + ea / K)) & 1)) continue;
-      for (int c2 = a + 1; c2 < s_off[j + 1]; ++c2) {
-        int eb = csr[c2], lb = eb % K;
-        int fb = mi[IR_FLAGS * K + lb];
-        if (!(fb & 1) || !((fb >> (1 + eb / K)) & 1)) continue;
-        int ca = mi[IR_COLOR * K + la];
-        if (ca == mi[IR_COLOR * K + lb] && ca < p.max_colors) s_conflict[ca] = 1;
+    const int lo = S.s_off[j], hi = S.s_off[j + 1];
+    int w = lo;
+    for (int pos = 0; pos < nv; ++pos) {
+      if (info(pos, I_B1) == j) csr[w++] = 2 * pos;
+      if (info(pos, I_B2) == j) csr[w++] = 2 * pos + 1;
+    }
+    for (int a = lo + 1; a < hi; ++a) {
+      const int e = csr[a], key = entry_key(e);
+      int b = a - 1;
+      for (; b >= lo && entry_key(csr[b]) > key; --b) csr[b + 1] = csr[b];
+      csr[b + 1] = e;
+    }
+    // A color is self-conflicting when two lanes of it share this dynamic
+    // body.
+    for (int a = lo; a < hi; ++a) {
+      const int ea = csr[a];
+      if (!((info(ea >> 1, I_FLAGS) >> (1 + (ea & 1))) & 1)) continue;
+      const int ca = info(ea >> 1, I_COLOR);
+      for (int c2 = a + 1; c2 < hi; ++c2) {
+        const int eb = csr[c2];
+        if (!((info(eb >> 1, I_FLAGS) >> (1 + (eb & 1))) & 1)) continue;
+        if (ca == info(eb >> 1, I_COLOR) && ca >= 0 && ca < p.max_colors)
+          S.s_conflict[ca] = 1;
       }
     }
   }
-  G::sync();
 
-  for (int k = tid; k < K; k += NT)
-    generate_lane(Lane{sc + k, K}, mf + k, mi + k, K, T);
+  for (int pos = tid; pos < nv; pos += NT)
+    generate_lane(lane(pos), S.mf + info(pos, I_LANE), K, info(pos, I_B1),
+                  info(pos, I_B2), info(pos, I_FLAGS), T);
 
-  // Each body's thread adds the listed deltas of the lanes selected by
-  // `color` (all lanes when color < 0) to its velocities.
+  // Each body's thread adds the listed deltas of the lanes of `color` (all
+  // lanes when color < 0) to its velocities.
   auto owner_sum = [&](int color) {
+    const int lo = color >= 0 ? S.s_cstart[color] : 0;
+    const int hi = color >= 0 ? S.s_cstart[color + 1] : nv;
     for (int j = tid; j < n; j += NT) {
       V3 dv = mk(0.0f, 0.0f, 0.0f), dw = mk(0.0f, 0.0f, 0.0f);
-      for (int a = s_off[j]; a < s_off[j + 1]; ++a) {
-        int e = csr[a], lane = e % K, ep = e / K;
-        if (color >= 0 && !((mi[IR_FLAGS * K + lane] & 1) &&
-                            mi[IR_COLOR * K + lane] == color))
-          continue;
-        Lane L{sc + lane, K};
+      for (int a = S.s_off[j]; a < S.s_off[j + 1]; ++a) {
+        const int e = csr[a], pos = e >> 1, ep = e & 1;
+        if (pos < lo || pos >= hi) continue;
+        const auto L = lane(pos);
         dv = dv + L.v(F_DELTA + 6 * ep);
         dw = dw + L.v(F_DELTA + 6 * ep + 3);
       }
@@ -515,14 +630,13 @@ __device__ __forceinline__ void solve_scene(
   };
 
   auto sweep = [&](bool use_bias) {
-    for (int c = 0; c < ncol; ++c) {
+    for (int c = 0; c < S.ncol; ++c) {
       G::sync();
-      const bool conflict = s_conflict[c] != 0;
-      for (int k = tid; k < K; k += NT) {
-        int flags = mi[IR_FLAGS * K + k];
-        if (!(flags & 1) || mi[IR_COLOR * K + k] != c) continue;
-        int i1 = mi[IR_B1 * K + k], i2 = mi[IR_B2 * K + k];
-        Lane L{sc + k, K};
+      const bool conflict = S.s_conflict[c] != 0;
+      for (int pos = S.s_cstart[c] + tid; pos < S.s_cstart[c + 1]; pos += NT) {
+        const int flags = info(pos, I_FLAGS);
+        const int i1 = info(pos, I_B1), i2 = info(pos, I_B2);
+        const auto L = lane(pos);
         V3 d[4];
         solve_lane(L, i1, i2, flags, T, use_bias, p.cfm_factor, d);
         if (conflict) {
@@ -546,10 +660,10 @@ __device__ __forceinline__ void solve_scene(
       T.add(BR_VANG, j, T.v(BR_DW, j));
     }
     G::sync();
-    for (int k = tid; k < K; k += NT) {
-      Lane L{sc + k, K};
-      update_lane(L, mi[IR_B1 * K + k], mi[IR_B2 * K + k], T, p);
-      warmstart_lane(L, mi[IR_FLAGS * K + k] & 1, mi[IR_FLAGS * K + k]);
+    for (int pos = tid; pos < nv; pos += NT) {
+      const int i1 = info(pos, I_B1), i2 = info(pos, I_B2);
+      update_lane(lane(pos), i1, i2, T, p);
+      warmstart_lane(lane(pos), i1, i2, info(pos, I_FLAGS), T);
     }
     G::sync();
     owner_sum(-1);
@@ -557,7 +671,7 @@ __device__ __forceinline__ void solve_scene(
     G::sync();
     // integrate_poses, masked to movers (pallas_sweep.py:88-99, 221-225).
     for (int j = tid; j < n1; j += NT) {
-      if (!s_move[j]) continue;
+      if (!S.s_move[j]) continue;
       V3 v = T.v(BR_VLIN, j), w = T.v(BR_VANG, j);
       T.add(BR_COM, j, v * p.dt_sub);
       Q q = T.q(BR_ROT, j);
@@ -576,13 +690,13 @@ __device__ __forceinline__ void solve_scene(
     }
     for (int it = 0; it < p.stab_iters; ++it) sweep(false);
   }
+  // A color pass puts a lane on thread (position - color start), not on the
+  // thread that writes it out.
   G::sync();
 
-  float* ob = out_body + (size_t)b * 13 * n1;
-  for (int i = tid; i < 13 * n1; i += NT) ob[i] = smem[i];
-  float* oi = out_imp + (size_t)b * 14 * K;
-  for (int k = tid; k < K; k += NT) {
-    Lane L{sc + k, K};
+  for (int pos = tid; pos < nv; pos += NT) {
+    const auto L = lane(pos);
+    const int k = info(pos, I_LANE);
     for (int q = 0; q < 4; ++q) {
       oi[q * K + k] = L[F_IMP + q];
       oi[(4 + q) * K + k] = L[F_IMPACC + q];
@@ -596,62 +710,207 @@ __device__ __forceinline__ void solve_scene(
   }
 }
 
-// One block per scene.
-__global__ void __launch_bounds__(kThreads)
+// Solve scene `b` with the threads of group G, its tables in `smem` and room
+// there for `cap` compacted lanes.  `scratch` (may be null when cap >= K)
+// holds a scene's lanes when it has more than `cap` valid ones.
+template <class G>
+__device__ __forceinline__ void solve_scene(
+    int b, float* smem, const float* __restrict__ man_f, const int* __restrict__ man_i,
+    const float* __restrict__ bodies_in, const int* __restrict__ move_in,
+    const int* __restrict__ ncol_in, float* __restrict__ out_body,
+    float* __restrict__ out_imp, float* __restrict__ scratch, int K, int n1, int cap,
+    const Params& p) {
+  constexpr int NT = G::kSize;
+  const int tid = G::rank();
+  const int mc = p.max_colors, nb = mc + 1;
+  Scene S;
+  S.mf = man_f + (size_t)b * MR_ROWS * K;
+  S.mi = man_i + (size_t)b * 4 * K;
+  S.T = Table{smem};
+  S.s_move = reinterpret_cast<int*>(smem + BR_ROWS * n1);
+  S.s_off = S.s_move + n1;
+  S.s_conflict = S.s_off + n1 + 1;
+  S.s_cstart = S.s_conflict + mc;
+  S.s_ccnt = S.s_cstart + nb + 1;
+  S.s_wcc = S.s_ccnt + nb;
+  S.K = K;
+  S.n1 = n1;
+  S.nb = nb;
+  S.ncol = min(ncol_in[b], mc);
+
+  // The body table, transposed to a body's rows together.
+  const float* bin = bodies_in + (size_t)b * BR_ROWS * n1;
+  for (int i = tid; i < BR_ROWS * n1; i += NT) {
+    const int r = i / n1;
+    smem[(i - r * n1) * BR_ROWS + r] = bin[i];
+  }
+  for (int j = tid; j < n1; j += NT) S.s_move[j] = move_in[(size_t)b * n1 + j];
+  for (int c = tid; c < mc; c += NT) S.s_conflict[c] = 0;
+  for (int c = tid; c < nb; c += NT) S.s_ccnt[c] = 0;
+  for (int i = tid; i < (NT / 32) * nb; i += NT) S.s_wcc[i] = 0;
+  G::sync();
+
+  // Count the valid lanes of each color bucket (integer counts: the order
+  // of the atomic adds does not matter), then take the storage that holds
+  // them.
+  for (int k = tid; k < K; k += NT) {
+    const int flags = S.mi[IR_FLAGS * K + k];
+    if (flags & 1) atomicAdd(&S.s_ccnt[bucket(S.mi[IR_COLOR * K + k], mc)], 1);
+  }
+  G::sync();
+  if (tid == 0) {
+    S.s_cstart[0] = 0;
+    for (int c = 0; c < nb; ++c) {
+      S.s_cstart[c + 1] = S.s_cstart[c] + S.s_ccnt[c];
+      S.s_ccnt[c] = 0;
+    }
+  }
+  G::sync();
+  const int nv = S.s_cstart[nb];
+  S.nv = nv;
+  float* oi = out_imp + (size_t)b * 14 * K;
+  if (nv <= cap)
+    solve_lanes<G, true>(S, smem + scene_fixed_words(n1, mc, NT / 32), cap, oi, p);
+  else
+    solve_lanes<G, false>(S, scratch + (size_t)b * kLaneWords * K, K, oi, p);
+
+  // Unsolved lanes: generation sets their impulses from the warmstart, each
+  // substep accumulates and decays them, no pass touches them.
+  for (int k = tid; k < K; k += NT) {
+    const int flags = S.mi[IR_FLAGS * K + k];
+    if (flags & 1) continue;
+    const float* mf = S.mf + k;
+    for (int q = 0; q < 4; ++q) {
+      float imp = mf[(MR_WSN + q) * K] * ((flags >> (3 + q)) & 1 ? 1.0f : 0.0f), acc = 0.0f;
+      for (int s = 0; s < p.n_sub; ++s) { acc = acc + imp; imp = imp * p.warmstart_coeff; }
+      oi[q * K + k] = imp;
+      oi[(4 + q) * K + k] = acc;
+    }
+    for (int q = 0; q < 3; ++q) {
+      // Rows 8-9 / 10-11 are tangent impulse / accumulator, 12 / 13 twist.
+      float imp = q < 2 ? mf[(MR_WST + q) * K] : mf[MR_WSTW * K], acc = 0.0f;
+      for (int s = 0; s < p.n_sub; ++s) { acc = acc + imp; imp = imp * p.warmstart_coeff; }
+      oi[(q < 2 ? 8 + q : 12) * K + k] = imp;
+      oi[(q < 2 ? 10 + q : 13) * K + k] = acc;
+    }
+  }
+  G::sync();
+
+  float* ob = out_body + (size_t)b * 13 * n1;
+  for (int i = tid; i < 13 * n1; i += NT) {
+    const int r = i / n1;
+    ob[i] = smem[(i - r * n1) * BR_ROWS + r];
+  }
+}
+
+// One block per scene; two blocks share an SM.
+__global__ void __launch_bounds__(kBlockThreads, 2)
 contact_sweep_kernel(const float* __restrict__ man_f, const int* __restrict__ man_i,
                      const float* __restrict__ bodies_in, const int* __restrict__ move_in,
                      const int* __restrict__ ncol_in, float* __restrict__ out_body,
-                     float* __restrict__ out_imp, float* __restrict__ scratch,
-                     int* __restrict__ csr_g, int K, int n1, Params p) {
+                     float* __restrict__ out_imp, float* __restrict__ scratch, int K,
+                     int n1, int cap, Params p) {
   extern __shared__ float smem[];
   solve_scene<BlockGroup>(blockIdx.x, smem, man_f, man_i, bodies_in, move_in, ncol_in,
-                          out_body, out_imp, scratch, csr_g, K, n1, p);
+                          out_body, out_imp, scratch, K, n1, cap, p);
 }
 
 // kFoldScenes scenes per block, one warp each, in shared-memory slices of
-// `slice` floats.  A warp without a scene leaves at once: no block-wide
-// barrier follows, so no warp ever waits for another.
-__global__ void __launch_bounds__(kThreads)
+// `slice` floats; two blocks share an SM.  A warp without a scene leaves at
+// once: no block-wide barrier follows, so no warp ever waits for another.
+__global__ void __launch_bounds__(kFoldThreads, 2)
 contact_sweep_folded_kernel(const float* __restrict__ man_f, const int* __restrict__ man_i,
                             const float* __restrict__ bodies_in,
                             const int* __restrict__ move_in, const int* __restrict__ ncol_in,
                             float* __restrict__ out_body, float* __restrict__ out_imp,
-                            float* __restrict__ scratch, int* __restrict__ csr_g, int B,
-                            int K, int n1, int slice, Params p) {
+                            float* __restrict__ scratch, int B, int K, int n1, int cap,
+                            int slice, Params p) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x / WarpGroup::kSize;
   const int b = blockIdx.x * kFoldScenes + warp;
   if (b >= B) return;
   solve_scene<WarpGroup>(b, smem + (size_t)warp * slice, man_f, man_i, bodies_in, move_in,
-                         ncol_in, out_body, out_imp, scratch, csr_g, K, n1, p);
+                         ncol_in, out_body, out_imp, scratch, K, n1, cap, p);
+}
+
+int fixed_words(bool folded, int n1, int max_colors) {
+  return scene_fixed_words(n1, max_colors, folded ? 1 : kBlockThreads / 32);
+}
+
+// Lanes one scene holds on chip, from the shapes alone: as many as let two
+// blocks share an SM (the block kernel takes a whole block's maximum where
+// two do not fit), and a folded scene at most a warp's width.
+int capacity(bool folded, int K, int n1, int max_colors) {
+  const int fixed = fixed_words(folded, n1, max_colors);
+  const int half_sm = (kSmemPerSM / 2 - kSmemReserved) / 4;
+  int words = (folded ? half_sm / kFoldScenes : half_sm) - fixed;
+  if (!folded && words < kLaneWords) words = kSmemPerBlockMax / 4 - fixed;
+  int cap = words > 0 ? words / kLaneWords : 0;
+  if (folded && cap > kFoldMaxCapacity) cap = kFoldMaxCapacity;
+  return cap < K ? cap : K;
+}
+
+// One scene's shared words, rounded up to 16 bytes.
+int scene_words(bool folded, int K, int n1, int max_colors) {
+  int words = fixed_words(folded, n1, max_colors) +
+              kLaneWords * capacity(folded, K, n1, max_colors);
+  return (words + 3) / 4 * 4;
+}
+
+size_t smem_bytes(bool folded, int K, int n1, int max_colors) {
+  return sizeof(float) * (size_t)(folded ? kFoldScenes : 1) *
+         scene_words(folded, K, n1, max_colors);
+}
+
+const void* kernel_fn(bool folded) {
+  return folded ? (const void*)contact_sweep_folded_kernel : (const void*)contact_sweep_kernel;
 }
 
 }  // namespace
 
 extern "C" {
 
-int contact_sweep_scratch_fields() { return CF; }
+int contact_sweep_lane_words() { return kLaneWords; }
 int contact_sweep_body_rows() { return BR_ROWS; }
 int contact_sweep_man_rows() { return MR_ROWS; }
 
-size_t contact_sweep_smem_bytes(int n1, int max_colors) {
-  return sizeof(float) * (size_t)BR_ROWS * n1 + sizeof(int) * ((size_t)2 * n1 + 1 + max_colors);
+int contact_sweep_capacity(int folded, int K, int n1, int max_colors) {
+  return capacity(folded != 0, K, n1, max_colors);
 }
 
-// One folded scene's slice in floats, rounded up to 16 bytes.
-static int folded_slice_floats(int n1, int max_colors) {
-  int words = (int)(contact_sweep_smem_bytes(n1, max_colors) / sizeof(float));
-  return (words + 3) / 4 * 4;
+size_t contact_sweep_smem_bytes(int folded, int K, int n1, int max_colors) {
+  return smem_bytes(folded != 0, K, n1, max_colors);
 }
 
-size_t contact_sweep_folded_smem_bytes(int n1, int max_colors) {
-  return sizeof(float) * (size_t)kFoldScenes * folded_slice_floats(n1, max_colors);
+// The kernel's resources at this shape: out[0] registers a thread, out[1]
+// local (spill) bytes a thread, out[2] dynamic shared bytes a block, out[3]
+// resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+// Returns a CUDA error code (0 on success).
+int contact_sweep_kernel_info(int folded, int K, int n1, int max_colors, int* out) {
+  const void* fn = kernel_fn(folded != 0);
+  size_t smem = smem_bytes(folded != 0, K, n1, max_colors);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, fn, folded ? kFoldThreads : kBlockThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = blocks;
+  return 0;
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
-int contact_sweep_launch(const float* man_f, const int* man_i, const float* bodies_in,
-                         const int* move, const int* ncol, float* out_body,
-                         float* out_imp, float* scratch, int* csr, int B, int K,
+// Launch on `stream`; returns cudaGetLastError() (0 on success).  `scratch`
+// holds [B, contact_sweep_lane_words(), K] words when the capacity is below
+// K, and may be null otherwise.
+int contact_sweep_launch(int folded, const float* man_f, const int* man_i,
+                         const float* bodies_in, const int* move, const int* ncol,
+                         float* out_body, float* out_imp, float* scratch, int B, int K,
                          int n1, int n_sub, int pgs_iters, int stab_iters,
                          int max_colors, float dt_sub, float inv_dt_sub,
                          float erp_inv_dt, float cfm_factor, float allowed_lin_err,
@@ -660,35 +919,22 @@ int contact_sweep_launch(const float* man_f, const int* man_i, const float* bodi
   Params p{dt_sub, inv_dt_sub, erp_inv_dt, cfm_factor, allowed_lin_err,
            max_corrective_velocity, warmstart_coeff, n_sub, pgs_iters, stab_iters,
            max_colors};
-  size_t smem = contact_sweep_smem_bytes(n1, max_colors);
+  const bool fold = folded != 0;
+  const int cap = capacity(fold, K, n1, max_colors);
+  size_t smem = smem_bytes(fold, K, n1, max_colors);
   cudaError_t err = cudaFuncSetAttribute(
-      contact_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel_fn(fold), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  contact_sweep_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      man_f, man_i, bodies_in, move, ncol, out_body, out_imp, scratch, csr, K, n1, p);
-  return (int)cudaGetLastError();
-}
-
-// The scene-folded kernel on `stream`; the same arguments.
-int contact_sweep_folded_launch(const float* man_f, const int* man_i, const float* bodies_in,
-                                const int* move, const int* ncol, float* out_body,
-                                float* out_imp, float* scratch, int* csr, int B, int K,
-                                int n1, int n_sub, int pgs_iters, int stab_iters,
-                                int max_colors, float dt_sub, float inv_dt_sub,
-                                float erp_inv_dt, float cfm_factor, float allowed_lin_err,
-                                float max_corrective_velocity, float warmstart_coeff,
-                                void* stream) {
-  Params p{dt_sub, inv_dt_sub, erp_inv_dt, cfm_factor, allowed_lin_err,
-           max_corrective_velocity, warmstart_coeff, n_sub, pgs_iters, stab_iters,
-           max_colors};
-  size_t smem = contact_sweep_folded_smem_bytes(n1, max_colors);
-  cudaError_t err = cudaFuncSetAttribute(
-      contact_sweep_folded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int grid = (B + kFoldScenes - 1) / kFoldScenes;
-  contact_sweep_folded_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      man_f, man_i, bodies_in, move, ncol, out_body, out_imp, scratch, csr, B, K, n1,
-      folded_slice_floats(n1, max_colors), p);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (fold) {
+    int grid = (B + kFoldScenes - 1) / kFoldScenes;
+    contact_sweep_folded_kernel<<<grid, kFoldThreads, smem, s>>>(
+        man_f, man_i, bodies_in, move, ncol, out_body, out_imp, scratch, B, K, n1, cap,
+        scene_words(true, K, n1, max_colors), p);
+  } else {
+    contact_sweep_kernel<<<B, kBlockThreads, smem, s>>>(
+        man_f, man_i, bodies_in, move, ncol, out_body, out_imp, scratch, K, n1, cap, p);
+  }
   return (int)cudaGetLastError();
 }
 

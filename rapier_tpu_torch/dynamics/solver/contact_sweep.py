@@ -10,7 +10,10 @@ the two: a CUDA input either launches a kernel or raises.
 Which kernel is a fixed rule on the shape: scenes of at most
 `FOLD_MAX_LANES` solver lanes go to `contact_sweep_folded_kernel` (8 scenes
 per block, one warp each), larger ones to `contact_sweep_kernel` (a block per
-scene).  The two compute the same function bit for bit.
+scene).  The two compute the same function bit for bit.  Each solves a
+scene's valid lanes only, with their state in shared memory up to a
+capacity the library computes from the shapes (`ContactSweepKernel.capacity`);
+a scene with more valid lanes keeps them in a global scratch buffer.
 
 The kernel library is built with nvcc for sm_90a at first use, into
 ``build/rapier_tpu_torch/`` beside the package, and bound with ctypes.
@@ -158,18 +161,45 @@ class ContactSweepKernel:
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        for name in ("contact_sweep_launch", "contact_sweep_folded_launch"):
-            getattr(lib, name).argtypes = [p] * 9 + [i] * 7 + [f] * 7 + [p]
-            getattr(lib, name).restype = ctypes.c_int
-        for name in ("contact_sweep_smem_bytes", "contact_sweep_folded_smem_bytes"):
-            getattr(lib, name).argtypes = [i, i]
-            getattr(lib, name).restype = ctypes.c_size_t
-        for name in ("contact_sweep_scratch_fields", "contact_sweep_body_rows",
+        lib.contact_sweep_launch.argtypes = [i] + [p] * 8 + [i] * 7 + [f] * 7 + [p]
+        lib.contact_sweep_launch.restype = ctypes.c_int
+        lib.contact_sweep_capacity.argtypes = [i] * 4
+        lib.contact_sweep_capacity.restype = ctypes.c_int
+        lib.contact_sweep_smem_bytes.argtypes = [i] * 4
+        lib.contact_sweep_smem_bytes.restype = ctypes.c_size_t
+        lib.contact_sweep_kernel_info.argtypes = [i] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        lib.contact_sweep_kernel_info.restype = ctypes.c_int
+        for name in ("contact_sweep_lane_words", "contact_sweep_body_rows",
                      "contact_sweep_man_rows"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
         self._lib = lib
         return lib
+
+    def capacity(self, folded: bool, k: int, n1: int, max_colors: int) -> int:
+        """Valid lanes a scene of K lanes and N+1 body columns holds on chip
+        in the folded (or the block) kernel; a scene with more keeps them in
+        the global scratch."""
+        return self.build().contact_sweep_capacity(int(folded), k, n1, max_colors)
+
+    def storage(self, folded: bool, man_i, n1: int, max_colors: int):
+        """Per scene of the packed int rows `man_i` ``[B, 4, K]``: its valid
+        lanes (flag bit 0), and whether the kernel holds them on chip (at
+        most `capacity` of them) or in the global scratch."""
+        valid = (man_i[:, 3] & 1).sum(-1)
+        return valid, valid <= self.capacity(folded, man_i.shape[-1], n1, max_colors)
+
+    def info(self, folded: bool, k: int, n1: int, max_colors: int) -> dict:
+        """The kernel's resources at this shape, from the CUDA runtime:
+        registers and local (spill) bytes a thread, dynamic shared bytes a
+        block, resident blocks an SM, and the on-chip lane capacity."""
+        out = (ctypes.c_int * 4)()
+        err = self.build().contact_sweep_kernel_info(int(folded), k, n1, max_colors, out)
+        if err != 0:
+            raise RuntimeError(f"contact_sweep: kernel info failed: CUDA error {err}")
+        return dict(registers=out[0], spill_bytes=out[1], smem_bytes=out[2],
+                    blocks_per_sm=out[3],
+                    capacity=self.capacity(folded, k, n1, max_colors))
 
     def launch(self, man_f, man_i, bodies_in, move, ncol, *, n_sub, pgs_iters,
                stab_iters, max_colors, scalars):
@@ -215,8 +245,7 @@ class ContactSweepKernel:
         if (lib.contact_sweep_man_rows(), lib.contact_sweep_body_rows()) != (
                 MAN_ROWS, BODY_ROWS):
             raise RuntimeError("contact_sweep: library layout does not match the wrapper")
-        smem = (lib.contact_sweep_folded_smem_bytes if folded
-                else lib.contact_sweep_smem_bytes)(n1, max_colors)
+        smem = lib.contact_sweep_smem_bytes(int(folded), k, n1, max_colors)
         if smem > SMEM_LIMIT:
             raise ValueError(
                 f"contact_sweep: {n1 - 1} bodies need {smem} bytes of shared "
@@ -224,15 +253,17 @@ class ContactSweepKernel:
         dev = man_f.device
         out_body = torch.empty((bsz, 13, n1), dtype=torch.float32, device=dev)
         out_imp = torch.empty((bsz, 14, k), dtype=torch.float32, device=dev)
-        scratch = torch.empty((bsz, lib.contact_sweep_scratch_fields(), k),
-                              dtype=torch.float32, device=dev)
-        csr = torch.empty((bsz, 2 * k), dtype=torch.int32, device=dev)
+        # The global scratch only where a scene can have more valid lanes
+        # than the kernel holds on chip.
+        scratch = None
+        if lib.contact_sweep_capacity(int(folded), k, n1, max_colors) < k:
+            scratch = torch.empty((bsz, lib.contact_sweep_lane_words(), k),
+                                  dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        fn = lib.contact_sweep_folded_launch if folded else lib.contact_sweep_launch
-        err = fn(
-            man_f.data_ptr(), man_i.data_ptr(), bodies_in.data_ptr(),
+        err = lib.contact_sweep_launch(
+            int(folded), man_f.data_ptr(), man_i.data_ptr(), bodies_in.data_ptr(),
             move.data_ptr(), ncol.data_ptr(), out_body.data_ptr(),
-            out_imp.data_ptr(), scratch.data_ptr(), csr.data_ptr(),
+            out_imp.data_ptr(), None if scratch is None else scratch.data_ptr(),
             bsz, k, n1, n_sub, pgs_iters, stab_iters, max_colors,
             *[float(s) for s in scalars], stream)
         if err != 0:

@@ -110,3 +110,18 @@ def assert_close(actual, desired, atol, what, mask=None):
         a, d = a[mask], d[mask]
     err = float(np.max(np.abs(a - d))) if a.size else 0.0
     assert err <= atol, f"{what}: max |diff| {err:.3e} > {atol}"
+
+
+def unsolved_impulses(ws_n, ws_t, ws_tw, point_active, warmstart_coeff, n_sub):
+    """The impulse block ``[B, 14, K]`` of lanes that no color pass solves,
+    in float32: generation sets their impulses from the warmstart (normal
+    rows masked by the active points), and each substep adds them to the
+    accumulators and decays them by `warmstart_coeff`."""
+    import torch
+
+    imp = [ws_n * point_active.to(ws_n.dtype), ws_t, ws_tw.unsqueeze(1)]
+    acc = [torch.zeros_like(x) for x in imp]
+    for _ in range(n_sub):
+        acc = [a + x for a, x in zip(acc, imp)]
+        imp = [x * warmstart_coeff for x in imp]
+    return torch.cat([imp[0], acc[0], imp[1], acc[1], imp[2], acc[2]], dim=1)

@@ -105,6 +105,60 @@ def test_overflow_color(captured, reference_solve):
     _both(sb, kw, reference_solve)
 
 
+def _torch_args(kw):
+    return {k: (float(v[0]) if k in SCALARS else torch.from_numpy(np.array(v)))
+            for k, v in kw.items()}
+
+
+def _drop_lanes(kw):
+    """The captured inputs with every other valid lane of each scene marked
+    invalid; returns (inputs, the dropped lanes' mask [B, K])."""
+    kw = {k: v.copy() for k, v in kw.items()}
+    dropped = np.zeros_like(kw["valid"])
+    for s in range(tp.B):
+        dropped[s, np.flatnonzero(kw["valid"][s])[::2]] = True
+    kw["valid"] = kw["valid"] & ~dropped
+    assert dropped.any() and kw["valid"].any()
+    return kw, dropped
+
+
+def test_unsolved_lanes_take_the_closed_form(captured):
+    """The impulse rows of a lane that is not valid are a closed form of its
+    warmstart inputs; the kernels write them so, without solving the lane."""
+    sb, kw = captured
+    kw, _ = _drop_lanes(kw)
+    port_sb = SolverBodies(*(torch.from_numpy(np.array(x)) for x in sb))
+    args = _torch_args(kw)
+    _, imp = cs.solve_plain(port_sb, **args, **STATIC)
+    closed = tp.unsolved_impulses(args["ws_n"], args["ws_t"], args["ws_tw"],
+                                  args["point_active"], args["warmstart_coeff"],
+                                  STATIC["n_sub"])
+    invalid = ~args["valid"].unsqueeze(1).expand_as(imp)
+    assert int(invalid.sum()) > 0
+    assert torch.equal(imp[invalid], closed[invalid])
+
+
+def test_unsolved_lane_geometry_changes_nothing(captured):
+    """Changing an invalid lane's normal, points, friction and distances
+    leaves the body tables and the solved lanes' impulses as they were: the
+    kernels may skip such lanes."""
+    sb, kw = captured
+    kw, dropped = _drop_lanes(kw)
+    port_sb = SolverBodies(*(torch.from_numpy(np.array(x)) for x in sb))
+    sb_a, imp_a = cs.solve_plain(port_sb, **_torch_args(kw), **STATIC)
+    rng = np.random.default_rng(11)
+    moved = {k: v.copy() for k, v in kw.items()}
+    for name in ("normal", "point", "friction", "dist"):
+        noise = rng.normal(0.0, 0.5, moved[name].shape).astype(moved[name].dtype)
+        moved[name] = np.where(dropped[(slice(None),) + (None,) * (moved[name].ndim - 2)],
+                               moved[name] + noise, moved[name])
+    assert not np.array_equal(moved["normal"], kw["normal"])
+    sb_b, imp_b = cs.solve_plain(port_sb, **_torch_args(moved), **STATIC)
+    assert all(torch.equal(x, y) for x, y in zip(sb_a, sb_b))
+    valid = torch.from_numpy(kw["valid"]).unsqueeze(1).expand_as(imp_a)
+    assert torch.equal(imp_a[valid], imp_b[valid])
+
+
 def test_cpu_tensors_run_the_plain_version(captured):
     sb, kw = captured
     port_sb = SolverBodies(*(torch.from_numpy(np.array(x)) for x in sb))

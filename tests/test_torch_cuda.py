@@ -138,6 +138,109 @@ def test_folded_kernel_matches_block_kernel_bitwise(solve_inputs):
     assert torch.equal(imp_f, imp_b)
 
 
+LANE_KEYS = ("b1", "b2", "valid", "color", "normal", "point", "point_active", "dist",
+             "friction", "restitution", "prev_impulse", "ws_n", "ws_t", "ws_tw",
+             "dyn1", "dyn2")
+
+
+def _mixed_storage(inp, tiles):
+    """Scenes 0-3 keep their first 4 valid lanes, so they fit on chip;
+    scenes 4-7 have every lane valid, past the folded kernel's capacity (and
+    past the block kernel's when the lane axis is tiled wide enough).  The
+    lane axis is first tiled `tiles` times (the copies invalid); the invalid
+    lanes of scenes 4-7 then become inert copies of their valid lanes (same
+    bodies and color, no active point, zero warmstart), so that the colors
+    they join conflict and the solve stays bounded."""
+    inp = dict(inp)
+    k = inp["b1"].shape[-1]
+    for key in LANE_KEYS:
+        inp[key] = inp[key].repeat((1,) * (inp[key].dim() - 1) + (tiles,))
+    inp["valid"][..., k:] = False
+    for s in range(8):
+        lanes = torch.nonzero(inp["valid"][s]).flatten()
+        assert len(lanes) >= 4
+        if s < 4:
+            inp["valid"][s, lanes[4:]] = False
+            continue
+        idle = torch.nonzero(~inp["valid"][s]).flatten()
+        src = lanes[torch.arange(len(idle), device=lanes.device) % len(lanes)]
+        for key in LANE_KEYS:
+            inp[key][s, ..., idle] = inp[key][s, ..., src]
+        inp["point_active"][s, :, idle] = False
+        for key in ("ws_n", "ws_t", "ws_tw"):
+            inp[key][s, ..., idle] = 0.0
+        inp["valid"][s] = True
+    return inp
+
+
+@pytest.mark.parametrize("tiles", [1, 4])
+def test_on_chip_and_global_lanes_agree(solve_inputs, tiles):
+    """One batch whose scenes take both storages (valid lanes up to the
+    kernel's capacity on chip, more in the global scratch): the kernels agree
+    bit for bit and each holds to the plain version."""
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+
+    sb, inp, packed, kw = _packed(_mixed_storage(solve_inputs, tiles))
+    n1 = sb.v_lin.shape[-1]
+    sb_p, imp_p = cs.solve_plain(sb, **inp)
+    plain = torch.cat([sb_p.v_lin, sb_p.v_ang, sb_p.com, sb_p.rot], dim=1)
+    outs, stored = [], []
+    for folded, fn in ((True, cs.KERNEL.launch_folded), (False, cs.KERNEL.launch)):
+        out_body, imp = fn(*packed, **kw)
+        torch.cuda.synchronize()
+        n_valid, on_chip = cs.KERNEL.storage(folded, packed[1], n1, kw["max_colors"])
+        assert torch.equal(n_valid, inp["valid"].sum(-1))
+        assert float((out_body - plain).abs().max()) <= TOL["bodies"]
+        assert float((imp - imp_p).abs().max()) <= TOL["impulses"]
+        outs.append((out_body, imp))
+        stored.append(on_chip.int().tolist())
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert stored[0] == [1] * 4 + [0] * 4          # folded: both storages
+    assert stored[1] == [1] * 4 + [int(tiles == 1)] * 4  # block: past it once K is wide
+
+
+def test_scene_without_valid_lanes_returns_the_closed_form(solve_inputs):
+    """A scene with no valid lane: both kernels write its impulse block as
+    the closed form of its warmstart inputs, bit for bit."""
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from test_torch_common import unsolved_impulses
+
+    inp = dict(solve_inputs)
+    inp["valid"] = inp["valid"].clone()
+    inp["valid"][0] = False
+    sb, inp, packed, kw = _packed(inp)
+    assert int(cs.KERNEL.storage(False, packed[1], sb.v_lin.shape[-1],
+                                 kw["max_colors"])[0][0]) == 0
+    closed = unsolved_impulses(inp["ws_n"][:1], inp["ws_t"][:1], inp["ws_tw"][:1],
+                               inp["point_active"][:1], inp["warmstart_coeff"],
+                               inp["n_sub"])
+    sb_p, _ = cs.solve_plain(sb, **inp)
+    plain = torch.cat([sb_p.v_lin, sb_p.v_ang, sb_p.com, sb_p.rot], dim=1)
+    for fn in (cs.KERNEL.launch_folded, cs.KERNEL.launch):
+        out_body, imp = fn(*packed, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(imp[:1], closed)
+        assert float((out_body[:1] - plain[:1]).abs().max()) <= TOL["bodies"]
+
+
+def test_replicated_scenes_agree_bitwise(solve_inputs):
+    """256 copies of one scene give 256 equal results in both kernels: no
+    thread reads a lane or body another thread writes without a barrier."""
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+
+    inp = {k: (v[:1].repeat((256,) + (1,) * (v.dim() - 1))
+               if torch.is_tensor(v) and v.dim() > 0 else v)
+           for k, v in solve_inputs.items() if k != "sb"}
+    inp["sb"] = type(solve_inputs["sb"])(
+        *[x[:1].repeat((256,) + (1,) * (x.dim() - 1)) for x in solve_inputs["sb"]])
+    _sb, _inp, packed, kw = _packed(inp)
+    for fn in (cs.KERNEL.launch_folded, cs.KERNEL.launch):
+        for out in fn(*packed, **kw):
+            torch.cuda.synchronize()
+            assert torch.equal(out, out[:1].expand_as(out))
+
+
 def test_kernel_refuses_scenes_beyond_shared_memory(device):
     from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
 
