@@ -38,10 +38,29 @@ Phases (any failure exits non-zero; each prints its wall time):
    exactly one folded launch per step and no block launch, every scene's
    lanes on chip at the step after the timed run, every scene bitwise equal
    to scene 0, and the trunk at the reference's height (R5).
-6. The card against the CPU (plain) path: 2 bench scenes and 2 quadruped
-   scenes for 10 steps each.
-7. Determinism: 10 steps run twice from one state are bitwise equal, for a
-   bench batch and a quadruped batch.
+6. The large single scenes: bench.py's pyramid mode (`pyramid3_world`, the
+   grid broad phase, max_solver_pairs = 8 per box rounded up to 128, one
+   scene) at stacks 16 and 24 (and 31 with ``--pyramid 31``), 150 steps,
+   then 50 timed steps.  Checks the blocked solve's path, zero broad-phase /
+   solver overflow, finite state, and that stacks 16 and 24 have come to
+   rest (the top box within PYRAMID_TOP_TOL of its resting height) and any
+   other stands (not below it); prints steps/s, the top box's distance from
+   rest and its vertical velocity, the lanes the reference's layout would
+   drop (R7), and the
+   per-stage breakdown of a step (host milliseconds between
+   synchronisations, `utils/counters.profile_step`) with its kernel count
+   and device-busy share (`trace_step`, torch.profiler).
+   The bench step's breakdown is printed in phase 4.
+7. The card against the CPU (plain) path: 2 bench scenes and 2 quadruped
+   scenes for 10 steps each; the stack-16 pyramid after 30 steps on the
+   card (mid-landing) and after phase 6's 200 (at rest), 10 steps each
+   stepped on the CPU from the card's state, bodies and contact cache (pair
+   keys, touching flags, impulses) compared.  A free run of the pile
+   amplifies rounding about twofold a step, so beside each it prints the
+   free card-vs-CPU gap and, as its witness, the gap between two free CPU
+   runs whose start differs by 1 ulp in one body's height.
+8. Determinism: 10 steps run twice from one state are bitwise equal, for a
+   bench batch, a quadruped batch and the stack-16 pyramid.
 
 The line before the last is the kernels' JSON record (with `bound_share`,
 bound over time, and each kernel's resources); the last line is
@@ -74,12 +93,24 @@ TIMED = 50
 ROBOT_SETTLE = 240
 ROBOT_CHECK_STEPS = 40
 KERNEL_TOL = dict(bodies=1e-4, impulses=1e-3)   # atol, summation order only
-CPU_TOL = dict(pos=1e-4, vel=1e-3)              # atol over 10 contact steps
+# atol over 10 contact steps; impulses: atol times the largest impulse's
+# magnitude (at least 1), since they scale with the weight a contact bears.
+CPU_TOL = dict(pos=1e-4, vel=1e-3, imp=1e-3)
 # The reference's quadruped falls onto its trunk (ROADMAP R5): trunk centre
 # at the box's half height, 0.050, after 240 steps.  A port that stands here
 # has a parity fault.
 TRUNK_Z = (0.045, 0.055)
 TRUNK = 1                       # body handle of the trunk
+PYRAMID_STACKS = (16, 24)       # bench.py's default stack and pyramid3.rs's
+PYRAMID_CPU_SETTLE = 30
+# A settled pyramid's top box rests at 2 * stack - 1 (boxes 2 high, the
+# ground's top at 0); it starts 0.5 m a level higher.  Stacks 16 and 24 have
+# come to rest by the end of the timed run: their top box must lie within
+# PYRAMID_TOP_TOL of rest.  Stack 31's top level lands at ~17 m/s after ~105
+# steps and may still move then: it must stand (its top box above rest -
+# PYRAMID_TOP_TOL; a lost level would put it a box height lower), and the run
+# prints how far from rest the top box is and how fast it moves.
+PYRAMID_TOP_TOL = 0.1
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -453,7 +484,140 @@ def phase_main_path(device, card):
               f"{float(y.max())}]")
     print(f"settled heights: min {float(y.min()):.4f}, max {float(y.max()):.4f}; "
           f"sleeping {int(b.sleeping.sum())} of {N_SCENES * 100}")
-    return launches, rate
+    stages = _stages(f"bench step, {N_SCENES} scenes", state, params, card)
+    return launches, rate, stages
+
+
+def _stages(what, state, params, card, trace_steps: int = 3):
+    """Print and return the per-stage breakdown of one step from `state`
+    and its profiler trace (kernels a step, device-busy share)."""
+    from rapier_tpu_torch.utils import counters
+
+    t = counters.profile_step(state, params).as_dict()
+    tr = counters.trace_step(state, params, steps=trace_steps)
+    share = "not measured" if tr["device_share"] is None else f"{tr['device_share']:.1%}"
+    device_ms = "not measured" if tr["device_ms"] is None else f"{tr['device_ms']:.3f} ms"
+    print(f"{what}: stages (host ms between synchronisations) " + ", ".join(
+        f"{k[:-3]} {v:.3f}" for k, v in t.items()) + f"; under the profiler a step is "
+        f"{tr['wall_ms']:.3f} ms with {tr['kernels']:.0f} device kernels and copies "
+        f"busy for {device_ms} (device busy {share}) ({card})")
+    for k in tr["top"] or ():
+        print(f"  {k['ms']:.3f} ms a step in {k['count']:.0f} x {k['name']}")
+    return dict(stages_ms=t, **tr)
+
+
+def pyramid_batch(device, stack: int):
+    """bench.py's pyramid configuration (BENCH_MODE=pyramid, bench.py:63-91):
+    `pyramid3_world(stack)` on the grid broad phase with max_solver_pairs = 8
+    touching pairs a box, rounded up to 128, as one scene on `device`.
+    Returns (state, params, boxes)."""
+    from rapier_tpu_torch.scenes import pyramid3_world, replicate_scene
+    from rapier_tpu_torch.types import BroadPhaseKind, from_numpy
+
+    world = pyramid3_world(stack_height=stack, device=device)
+    boxes = sum((stack - i) ** 2 for i in range(stack))
+    world.params = world.params.replace(broad_phase=int(BroadPhaseKind.GRID),
+                                        max_solver_pairs=-((-8 * boxes) // 128) * 128)
+    return replicate_scene(from_numpy(world.build(), device), 1), world.params, boxes
+
+
+def _reference_drops(state, params):
+    """(lanes the reference's blocked layout would drop, touching lanes) on
+    the step after `state`: the port's coloring with the reference's caps,
+    whose Jacobi tail block stops at its cap (ROADMAP R7)."""
+    from rapier_tpu_torch.dynamics.solver import coloring
+    from rapier_tpu_torch.pipeline import physics_pipeline as pp
+
+    captured = {}
+    original = pp.color_constraints_blocked
+
+    def record(*args):
+        captured["args"] = args
+        return original(*args)
+
+    pp.color_constraints_blocked = record
+    try:
+        pp.step(state, params)
+    finally:
+        pp.color_constraints_blocked = original
+    b1, b2, dyn1, dyn2, valid, n, _ = captured["args"]
+    p_lanes, cap = b1.shape[-1], params.max_solver_pairs
+    ref_caps = coloring.block_caps(cap if 0 < cap < p_lanes else p_lanes, params.max_colors)
+    dropped = original(b1, b2, dyn1, dyn2, valid, n, ref_caps)[2]
+    return int(dropped.max()), int(valid.sum())
+
+
+def phase_pyramid(device, card, stacks):
+    """Phase 6: single-scene box pyramids through the port's step.  Returns
+    the rows for the JSON record and, for phases 7 and 8, the stack-16
+    pyramid (with its params) after PYRAMID_CPU_SETTLE steps ("landing") and
+    after the timed run ("settled")."""
+    import torch
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.pipeline.physics_pipeline import solve_path
+    from rapier_tpu_torch.types import tree_map
+
+    rows, checks = [], {}
+    for stack in stacks:
+        state, params, boxes = pyramid_batch(device, stack)
+        path = solve_path(state, params)
+        print(f"pyramid stack {stack}: {boxes} boxes, P={state.contacts.max_pairs} pair "
+              f"lanes, N+1={state.bodies.pos.shape[1] + 1}, max_solver_pairs "
+              f"{params.max_solver_pairs}, solve path {path}")
+        if path != "blocked":
+            _fail(f"stack {stack} takes the {path} path, not the reference's blocked solve")
+        t0 = time.time()
+        state, worst = run(state, params, PYRAMID_CPU_SETTLE)
+        if stack == PYRAMID_STACKS[0]:
+            # Phases 7 and 8 start from this state.
+            checks["landing"] = tree_map(lambda x: x.clone(), state), params
+        state, worst_s = run(state, params, SETTLE - PYRAMID_CPU_SETTLE)
+        torch.cuda.synchronize()
+        settle_s = time.time() - t0
+        for k in worst:
+            worst[k] = max(worst[k], worst_s[k])
+        cs.KERNEL.launches = cs.KERNEL.launches_folded = 0
+        t0 = time.time()
+        state, worst_t = run(state, params, TIMED)
+        torch.cuda.synchronize()
+        elapsed = time.time() - t0
+        launches = cs.KERNEL.launches, cs.KERNEL.launches_folded
+        for k in worst:
+            worst[k] = max(worst[k], worst_t[k])
+        rate = TIMED / elapsed
+        if stack == PYRAMID_STACKS[0]:
+            checks["settled"] = tree_map(lambda x: x.clone(), state), params
+        b = state.bodies
+        for name in ("pos", "rot", "linvel", "angvel"):
+            if not bool(torch.isfinite(getattr(b, name)).all()):
+                _fail(f"stack {stack}: non-finite bodies.{name}")
+        top, rest, start = float(b.pos[0, boxes, 1]), 2 * stack - 1, (stack - 1) * 2.5 + 1.0
+        top_vy = float(b.linvel[0, boxes, 1])
+        at_rest = abs(top - rest) <= PYRAMID_TOP_TOL
+        print(f"pyramid stack {stack}: {rate:.3f} steps/s ({TIMED} steps in {elapsed:.3f} s "
+              f"after {SETTLE} in {settle_s:.1f} s; {card}); overflow {worst}; contact-sweep "
+              f"launches in the timed run {launches[0]} + folded {launches[1]} (this path "
+              f"has none); top box y {top:.4f} ({top - rest:+.4f} from rest at {rest}, "
+              f"{'at rest' if at_rest else 'not at rest'}; started at {start}), vertical "
+              f"velocity {top_vy:.4f} m/s; touching pairs "
+              f"{int(state.contacts.touching.sum())}, sleeping {int(b.sleeping.sum())}")
+        if worst["broadphase_overflow"] or worst["solver_overflow"]:
+            _fail(f"pyramid stack {stack} overflows: {worst}")
+        ref_dropped, lanes = _reference_drops(state, params)
+        print(f"pyramid stack {stack}: the reference's blocked layout would drop {ref_dropped} "
+              f"of the {lanes} solver lanes on the next step; this one drops none (R7)")
+        if stack in PYRAMID_STACKS and not at_rest:
+            _fail(f"pyramid stack {stack}: the top box is at {top}, not at rest ({rest})")
+        if not top > rest - PYRAMID_TOP_TOL:
+            _fail(f"pyramid stack {stack}: the top box is at {top}: the stack does not stand")
+        row = dict(stack=stack, boxes=boxes, steps_per_s=rate, top_y=top, top_vy=top_vy,
+                   top_at_rest=at_rest,
+                   reference_layout_drops=ref_dropped, solver_lanes=lanes, **worst)
+        if stack != stacks[0]:
+            row.update(_stages(f"pyramid stack {stack} step", state, params, card,
+                               trace_steps=2))
+        rows.append(row)
+    return rows, checks
 
 
 def _finite(state):
@@ -552,16 +716,76 @@ def _cpu_agreement(what, state, params, settle):
     cpu, _ = run(cpu, params, 10)
     dp = float((gpu.bodies.pos.cpu() - cpu.bodies.pos).abs().max())
     dv = float((gpu.bodies.linvel.cpu() - cpu.bodies.linvel).abs().max())
-    print(f"GPU vs CPU path, 2 {what} scenes x 10 contact steps: max |d pos| {dp:.3e} "
+    print(f"GPU vs CPU path, {state.bodies.pos.shape[0]} {what} scene(s) x 10 contact "
+          f"steps: max |d pos| {dp:.3e} "
           f"(tol {CPU_TOL['pos']}), max |d linvel| {dv:.3e} (tol {CPU_TOL['vel']})")
     if not (dp <= CPU_TOL["pos"] and dv <= CPU_TOL["vel"]):
         _fail(f"GPU path disagrees with the CPU path ({what})")
 
 
-def phase_cpu_agreement(device):
-    """Phase 6: the card's path against the CPU (plain) path."""
+def _cpu_step_agreement(what, state, params):
+    """The card against the CPU one step at a time along the card's
+    trajectory: each CPU step starts from the card's state, and the step's
+    bodies and contact cache (pair keys, touching flags, and the impulses
+    the next step warmstarts from) must agree.  Printed beside it: the gap
+    between the card and the CPU run freely over the same steps, and a
+    witness of how far the pile itself amplifies rounding, the gap between
+    two free CPU runs whose start differs by 1 ulp in the height of the
+    body moving fastest vertically (1 ulp at these heights is the card's
+    one-step gap in position; a velocity's ulp would be absorbed at rest)."""
+    import torch
+    from rapier_tpu_torch.pipeline.physics_pipeline import step
+    from rapier_tpu_torch.types import tree_map
+
+    def gap(a, b, part, name):
+        return float((getattr(getattr(a, part), name).cpu()
+                      - getattr(getattr(b, part), name)).abs().max())
+
+    imp = ("impulse", "tangent_impulse", "warmstart_impulse",
+           "warmstart_tangent_impulse", "warmstart_twist_impulse")
+    steps = 10
+    gpu, dp, dv, di, scale, flips = state, 0.0, 0.0, 0.0, 1.0, 0
+    free = tree_map(lambda x: x.cpu(), state)
+    nudged = tree_map(lambda x: x.clone(), free)
+    i = int(nudged.bodies.linvel[0, :, 1].abs().argmax())
+    for name in ("pos", "next_pos"):
+        y = getattr(nudged.bodies, name)[..., 1]
+        y[0, i] = torch.nextafter(y[0, i], torch.tensor(float("inf")))
+    for _ in range(steps):
+        nxt, _ = step(gpu, params)
+        cpu, _ = step(tree_map(lambda x: x.cpu(), gpu), params)
+        free, _ = step(free, params)
+        nudged, _ = step(nudged, params)
+        dp = max(dp, gap(nxt, cpu, "bodies", "pos"))
+        dv = max(dv, gap(nxt, cpu, "bodies", "linvel"), gap(nxt, cpu, "bodies", "angvel"))
+        di = max([di] + [gap(nxt, cpu, "contacts", f) for f in imp])
+        scale = max([scale] + [float(getattr(cpu.contacts, f).abs().max()) for f in imp])
+        flips = max(flips, *(int((getattr(nxt.contacts, f).cpu()
+                                  != getattr(cpu.contacts, f)).sum())
+                             for f in ("pair_key", "touching")))
+        gpu = nxt
+    fp, fv = gap(gpu, free, "bodies", "pos"), gap(gpu, free, "bodies", "linvel")
+    wp, wv = gap(nudged, free, "bodies", "pos"), gap(nudged, free, "bodies", "linvel")
+    print(f"GPU vs CPU step, {what}, {steps} steps each from the card's state: max |d pos| "
+          f"{dp:.3e} (tol {CPU_TOL['pos']}), max |d vel| {dv:.3e} (tol {CPU_TOL['vel']}), "
+          f"max |d impulse| {di:.3e} (tol {CPU_TOL['imp']} x {scale:.3f}, the largest "
+          f"impulse), pair keys and touching flags differing in {flips} lanes; run freely "
+          f"from the same start, the card and the CPU part by {fp:.3e} in position and "
+          f"{fv:.3e} in velocity after {steps} steps, and two CPU runs whose start "
+          f"differs by 1 ulp in body {i}'s height by {wp:.3e} and {wv:.3e}")
+    if not (dp <= CPU_TOL["pos"] and dv <= CPU_TOL["vel"]
+            and di <= CPU_TOL["imp"] * scale and flips == 0):
+        _fail(f"GPU step disagrees with the CPU step ({what})")
+
+
+def phase_cpu_agreement(device, pyramid):
+    """Phase 7: the card's path against the CPU (plain) path; `pyramid`
+    holds the stack-16 pyramid after PYRAMID_CPU_SETTLE steps on the card
+    ("landing") and after phase 6's timed run ("settled")."""
     _cpu_agreement("bench", *bench_world(device, 2), 100)
     _cpu_agreement("quadruped", *quadruped_batch(device, 2, seed=3), ROBOT_CHECK_STEPS)
+    for name, steps in (("landing", PYRAMID_CPU_SETTLE), ("settled", SETTLE + TIMED)):
+        _cpu_step_agreement(f"the stack-16 pyramid after {steps} steps", *pyramid[name])
 
 
 def _rerun_equal(what, state, params, parts):
@@ -578,14 +802,15 @@ def _rerun_equal(what, state, params, parts):
     print(f"determinism: two 10-step reruns of the {what} batch are bitwise equal")
 
 
-def phase_determinism(device):
-    """Phase 7: bitwise reruns."""
+def phase_determinism(device, pyramid):
+    """Phase 8: bitwise reruns."""
     state, params = bench_world(device, 64)
     state, _ = run(state, params, 60)
     _rerun_equal("bench", state, params, ("bodies", "contacts"))
     state, params = quadruped_batch(device, N_CHECK, seed=5)
     state, _ = run(state, params, ROBOT_CHECK_STEPS)
     _rerun_equal("quadruped", state, params, ("bodies", "contacts", "multibodies"))
+    _rerun_equal("stack-16 pyramid", *pyramid["landing"], ("bodies", "contacts"))
 
 
 LANE_KEYS = ("b1", "b2", "valid", "color", "normal", "point", "point_active", "dist",
@@ -702,6 +927,9 @@ def main():
     ap.add_argument("--earlier", nargs="+", metavar="DIR",
                     help="time the kernels of these unpacked checkouts beside this one's "
                          "and run nothing else")
+    ap.add_argument("--pyramid", type=int, nargs="*", default=[], metavar="STACK",
+                    help="also run the pyramid phase at these stack heights (e.g. 31, "
+                         "BASELINE.json's 10,416-box pyramid)")
     args = ap.parse_args()
     try:
         import torch
@@ -739,11 +967,14 @@ def main():
 
     block = phase(phase_kernel, device, card)
     folded = phase(phase_folded_kernel, device, card)
-    block["launches"], _ = phase(phase_main_path, device, card)
+    block["launches"], _, bench_stages = phase(phase_main_path, device, card)
     folded["launches"], _ = phase(phase_robots, device, card)
-    phase(phase_cpu_agreement, device)
-    phase(phase_determinism, device)
+    stacks = tuple(sorted(set(PYRAMID_STACKS) | set(args.pyramid)))
+    pyramids, pyramid16 = phase(phase_pyramid, device, card, stacks)
+    phase(phase_cpu_agreement, device, pyramid16)
+    phase(phase_determinism, device, pyramid16)
 
+    print(json.dumps({"pyramid": pyramids, "bench_step": bench_stages, "card": card}))
     source = "rapier_tpu_torch/csrc/contact_sweep.cu"
     print(json.dumps({"kernels": [
         {"name": "contact_sweep_kernel", "route": "cuda", "source": source,

@@ -9,6 +9,12 @@ the warmstart and one Gauss-Seidel color pass
 the pair lane LAST (``[B, 3, K]``, ``[B, 4, K]``, ``[B, 4, 3, K]``); body
 gathers and scatters are indexing on the ``[B, d, N+1]`` solver-body tables,
 whose last column N is a zeroed sentinel absorbing static endpoints.
+
+Endpoint scatters come in two forms.  Without a `RoutePlan` they are
+`Tensor.scatter_add`, which adds in lane order on the CPU: the kernel's plain
+version, which the kernel matches bit for bit.  The non-kernel solve paths
+pass a `RoutePlan`, whose sums have a fixed order on the card too: a sorted
+segment sum, or for a conflict-free color block one inverse gather.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch
 
 from rapier_tpu_torch.math import quat
 from rapier_tpu_torch.math.quat import cross_cl, dot_cl, rotate_cl
+from rapier_tpu_torch.utils.routing import SegmentPlan, segment_sum
 
 
 class SolverBodies(NamedTuple):
@@ -78,18 +85,37 @@ class ContactConstraints(NamedTuple):
     cfm_factor: float                 # set by update
 
 
+class RoutePlan(NamedTuple):
+    """Fixed-order endpoint scatter of K lanes into ``[B, d, N+1]`` tables
+    (the reference's RoutePlan, contact_constraints.py:91-111): one of
+
+    - seg_pair: a segment plan over the concatenated endpoints [b1; b2],
+      which sums every lane-endpoint's delta into its body;
+    - inv_pair ``[B, N+1]``: for a block whose lanes share no body, the one
+      delta column in [0, 2K) each body receives, 2K for none."""
+
+    seg_pair: SegmentPlan = None
+    inv_pair: torch.Tensor = None
+
+
 def gather_cols(table, idx):
     """Lane gather: ``table [B, d, N+1]`` at ``idx [B, K]`` -> ``[B, d, K]``."""
     ix = idx.long().unsqueeze(1).expand(table.shape[:-1] + (idx.shape[-1],))
     return torch.gather(table, -1, ix)
 
 
-def scatter_add_pair(table, b1, b2, v1, v2):
+def scatter_add_pair(table, b1, b2, v1, v2, route: RoutePlan = None):
     """``table [B, d, N+1]`` += deltas of both endpoints, endpoint-1 lanes
-    first (the reference's fused [2K, N+1] route order)."""
-    idx = torch.cat([b1, b2], dim=-1).long().unsqueeze(1)
+    first (the reference's fused [2K, N+1] route order), through `route`
+    where one is given."""
     vals = torch.cat([v1, v2], dim=-1)
-    return table.scatter_add(-1, idx.expand(vals.shape), vals)
+    if route is None:
+        idx = torch.cat([b1, b2], dim=-1).long().unsqueeze(1)
+        return table.scatter_add(-1, idx.expand(vals.shape), vals)
+    if route.inv_pair is not None:
+        vals = torch.cat([vals, torch.zeros_like(vals[..., :1])], dim=-1)
+        return table + gather_cols(vals, route.inv_pair)
+    return table + segment_sum(vals, route.seg_pair)
 
 
 def _ii_mul(ii, v):
@@ -115,6 +141,17 @@ def compute_tangent_directions(dir1, linvel1, linvel2):
     fb = torch.where(a_len > 1e-6, a, b)
     fb = fb / torch.clamp(torch.sqrt(dot_cl(fb, fb)).unsqueeze(-2), min=1e-12)
     return torch.where(norm < 1e-4, fb, tan_n)
+
+
+def generate(man, sb: SolverBodies, prev_impulse, color, n_bodies: int):
+    """Constraint lanes from a ManifoldBatch (contact_constraints.py:311-327):
+    an endpoint that is absent or dominated becomes the sentinel N."""
+    sent = n_bodies
+    b1 = torch.where((man.body1 >= 0) & (man.rel_dominance <= 0), man.body1, sent)
+    b2 = torch.where((man.body2 >= 0) & (man.rel_dominance >= 0), man.body2, sent)
+    return generate_from(b1, b2, man.solver_pair, color, man.normal, man.point,
+                         man.point_active, man.dist, man.friction, man.restitution,
+                         sb, prev_impulse)
 
 
 def generate_from(b1, b2, valid, color, normal, point, point_active, dist,
@@ -273,7 +310,8 @@ def update(c: ContactConstraints, sb: SolverBodies, *, cfm_factor, inv_dt,
     )
 
 
-def warmstart(c: ContactConstraints, sb: SolverBodies) -> SolverBodies:
+def warmstart(c: ContactConstraints, sb: SolverBodies,
+              route: RoutePlan = None) -> SolverBodies:
     """Apply the cached impulses of ALL lanes to body velocities (a pure
     accumulation, so no coloring is needed)."""
     act = (c.valid.unsqueeze(1) & c.point_mask).to(torch.float32)
@@ -300,12 +338,13 @@ def warmstart(c: ContactConstraints, sb: SolverBodies) -> SolverBodies:
     dw2 = dw2 + c.twist_ii_dir2 * wi
 
     vw = scatter_add_pair(torch.cat([sb.v_lin, sb.v_ang], dim=1), c.b1, c.b2,
-                          torch.cat([dv1, dw1], dim=1), torch.cat([dv2, dw2], dim=1))
+                          torch.cat([dv1, dw1], dim=1), torch.cat([dv2, dw2], dim=1),
+                          route)
     return sb._replace(v_lin=vw[:, 0:3], v_ang=vw[:, 3:6])
 
 
 def solve_color(c: ContactConstraints, sb: SolverBodies, color_id, *,
-                use_bias: bool):
+                use_bias: bool, route: RoutePlan = None):
     """One Gauss-Seidel pass over the lanes of one color
     (contact_with_twist_friction.rs:395-460): normal points in order, then
     the coupled tangent pair, then twist.  Lanes of one color share no
@@ -390,7 +429,7 @@ def solve_color(c: ContactConstraints, sb: SolverBodies, color_id, *,
     vw = scatter_add_pair(
         vw, c.b1, c.b2,
         torch.cat([(v1 - v1_0) * m, (w1 - w1_0) * m], dim=1),
-        torch.cat([(v2 - v2_0) * m, (w2 - w2_0) * m], dim=1))
+        torch.cat([(v2 - v2_0) * m, (w2 - w2_0) * m], dim=1), route)
     c = c._replace(
         impulse=torch.where(mask.unsqueeze(1), impulses, c.impulse),
         tan_impulse=torch.where(mask.unsqueeze(1), tan_impulse, c.tan_impulse),

@@ -2,9 +2,11 @@
 (counterpart of rapier_tpu.dynamics.solver.velocity_solver).
 
 Substep dt = dt / num_solver_iterations (island_solver.rs:50-54).  The
-substep loop itself lives with the contact-solve kernel
-(`contact_sweep.py`); this module builds its inputs and writes its results
-back.  Body arrays are ``[B, N, ...]``; solver bodies are component-leading
+kernel path's substep loop lives with the contact-solve kernel
+(`contact_sweep.py`); this module builds its inputs, writes its results back,
+and holds the substep loops of the two non-kernel paths: `solve`, the masked
+color sweep over every lane, and `solve_blocked`, one pass per static color
+block.  Body arrays are ``[B, N, ...]``; solver bodies are component-leading
 ``[B, d, N+1]`` with a zeroed sentinel column N.
 """
 
@@ -15,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from rapier_tpu_torch.dynamics.solver import contact_constraints as cc
 from rapier_tpu_torch.dynamics.solver.contact_constraints import SolverBodies
 from rapier_tpu_torch.math import quat
 from rapier_tpu_torch.types import (
@@ -152,6 +155,83 @@ def substep_inputs(bodies, sb, active, params: SimParams):
         cfm_factor=float(spring_cfm_factor(nf, dr, dt_sub)),
         dv_inc=dv_inc, dw_inc=dw_inc, move_mask=move_mask,
     )
+
+
+def integrate_poses(sb: SolverBodies, move_mask, dt_sub) -> SolverBodies:
+    """Linearised pose integration of the movers ``move_mask [B, N+1]``
+    (velocity_solver.rs:213-238)."""
+    move = move_mask.unsqueeze(1)
+    com = sb.com + torch.where(move, sb.v_lin * dt_sub, 0.0)
+    rot = torch.where(move, quat.integrate_linearized_cl(sb.rot, sb.v_ang, dt_sub),
+                      sb.rot)
+    return sb._replace(com=com, rot=rot)
+
+
+def _substeps(bodies, sb, constraints, active, params: SimParams, route, sweep):
+    """The TGS-soft substep loop around `sweep(constraints, sb, use_bias)`:
+    external increments, the soft-rhs update, warmstart (through `route`),
+    the biased sweeps, pose integration, the bias-free sweeps."""
+    si = substep_inputs(bodies, sb, active, params)
+    for _ in range(si["n_sub"]):
+        sb = sb._replace(v_lin=sb.v_lin + si["dv_inc"], v_ang=sb.v_ang + si["dw_inc"])
+        constraints = cc.update(
+            constraints, sb, cfm_factor=si["cfm_factor"], inv_dt=si["inv_dt_sub"],
+            allowed_lin_err=float(params.allowed_linear_error()),
+            erp_inv_dt=si["erp_inv_dt"],
+            max_corrective_velocity=float(params.max_corrective_velocity()),
+            warmstart_coeff=float(params.warmstart_coefficient))
+        sb = cc.warmstart(constraints, sb, route)
+        for _ in range(params.num_internal_pgs_iterations):
+            constraints, sb = sweep(constraints, sb, True)
+        sb = integrate_poses(sb, si["move_mask"], si["dt_sub"])
+        for _ in range(params.num_internal_stabilization_iterations):
+            constraints, sb = sweep(constraints, sb, False)
+    return sb, constraints
+
+
+def solve(bodies, sb: SolverBodies, constraints, num_colors, active,
+          params: SimParams, route):
+    """The masked sweep (velocity_solver.py:178-254, contacts only): each
+    pass solves one color over every lane, masked.  Every scene sweeps the
+    batch's largest color count; colors past a scene's own are empty and
+    change nothing.  Returns (sb, constraints)."""
+    ncol = int(torch.max(num_colors)) if num_colors.numel() else 0
+
+    def sweep(cons, s, use_bias):
+        for ci in range(ncol):
+            cons, s = cc.solve_color(cons, s, ci, use_bias=use_bias, route=route)
+        return cons, s
+
+    return _substeps(bodies, sb, constraints, active, params, route, sweep)
+
+
+def _slice_lanes(c: cc.ContactConstraints, start: int, width: int):
+    """A static lane-axis slice (a view) of every per-lane constraint field."""
+    return type(c)(*(v if not isinstance(v, torch.Tensor) else v[..., start:start + width]
+                     for v in c))
+
+
+def solve_blocked(bodies, sb: SolverBodies, constraints, blocks, route, active,
+                  params: SimParams):
+    """The TGS-soft substep loop over a blocked lane layout
+    (velocity_solver.py:257-322).  `blocks` lists (color id, start, width,
+    RoutePlan) of contiguous static blocks covering the lanes in order; a
+    pass solves one block's lanes and scatters through its plan.  `route`
+    routes the warmstart over all lanes.  Returns (sb, constraints)."""
+
+    def sweep(cons, s, use_bias):
+        parts = []
+        for ci, s0, width, route_c in blocks:
+            c_sl, s = cc.solve_color(_slice_lanes(cons, s0, width), s, ci,
+                                     use_bias=use_bias, route=route_c)
+            parts.append(c_sl)
+        # A pass reads only its own block's impulses, so the blocks' new
+        # impulses join once the sweep is done.
+        return cons._replace(**{
+            f: torch.cat([getattr(p, f) for p in parts], dim=-1)
+            for f in ("impulse", "tan_impulse", "twist_impulse")}), s
+
+    return _substeps(bodies, sb, constraints, active, params, route, sweep)
 
 
 def writeback(bodies, sb: SolverBodies, active, params: SimParams):

@@ -4,23 +4,22 @@ rapier_tpu.pipeline.physics_pipeline.step).
 `step(state, params)` takes a `SceneState` whose every leaf has a leading
 scene axis ``[B, ...]`` and advances all B scenes by ``params.dt``: multibody
 forward dynamics (phase A), kinematic velocities, AABBs with margins, the
-all-pairs broad phase, the narrow phase, the warmstart join against the
-contact cache, the link-parent contact filter, started/stopped events, wake
-propagation, the link mobility install (phase B), compaction of the touching
-lanes to ``max_solver_pairs``, coloring, the contact solve (a CUDA kernel on
-the GPU), writeback, the multibody impulse absorption with joint integration
-(phase C), sleeping, and the new contact cache with `StepEvents`.
+broad phase (all pairs, SAP or the grid), the narrow phase, the warmstart
+join against the contact cache, the link-parent contact filter,
+started/stopped events, wake propagation, the link mobility install (phase
+B), the contact solve, writeback, the multibody impulse absorption with joint
+integration (phase C), sleeping, and the new contact cache with `StepEvents`.
 
-The contact solve follows the reference's TPU path, the Pallas kernel's
-semantics.  Where the reference's gate for that kernel fails
-(physics_pipeline.py:554-562) the reference solves another way (the masked
-JAX sweep or the blocked solve), which the port does not carry: `step`
-raises NotImplementedError naming that path, and so it does for
-solver_backend="jax".
+The contact solve takes the reference's path for the scene (`solve_path`,
+physics_pipeline.py:554-562, :664-667): the contact-sweep kernel (the
+reference's Pallas kernel; a CUDA kernel on the card) where its gate holds;
+otherwise, above DENSE_ROUTE_ELEMS lane x body elements, the blocked solve of
+large scenes, and below it the masked color sweep.  solver_backend="jax"
+never takes the kernel.
 
 Not ported (NotImplementedError): impulse joints, multibody dof couplings,
 meshes, convex hulls, CCD, hooks, FrictionModel.COULOMB, the 2x2 block
-solver, SAP/GRID broad phases.
+solver, f64.
 """
 
 from __future__ import annotations
@@ -33,7 +32,12 @@ import torch
 
 from rapier_tpu_torch.dynamics import multibody as mbmod
 from rapier_tpu_torch.dynamics.solver import velocity_solver as vs
-from rapier_tpu_torch.dynamics.solver.coloring import color_constraints
+from rapier_tpu_torch.dynamics.solver import contact_constraints as cc
+from rapier_tpu_torch.dynamics.solver.coloring import (
+    color_constraints,
+    color_constraints_blocked,
+    solve_caps,
+)
 from rapier_tpu_torch.dynamics.solver.contact_sweep import (
     solve_from_manifolds,
     vmem_feasible,
@@ -56,6 +60,8 @@ from rapier_tpu_torch.types import (
     SimParams,
 )
 from rapier_tpu_torch.utils.compaction import compact_indices, gather_lanes
+from rapier_tpu_torch.utils.counters import stage
+from rapier_tpu_torch.utils.routing import make_segment_plan, take_lanes
 
 _f32 = np.float32
 # Lane x body elements above which the reference routes by segment plans and
@@ -144,36 +150,29 @@ def _match_previous(prev: Contacts, man: ManifoldBatch):
     return ws_normal, ws_tan, ws_twist, prev_impulse, prev_touching, matched, still
 
 
-def _check_supported(state: SceneState, params: SimParams):
-    """Refuse what the port does not carry, before any work.  The solve
-    gate is the reference's `use_pallas` (physics_pipeline.py:554-562), term
-    by term; where it fails the reference solves another way."""
+def solve_path(state: SceneState, params: SimParams) -> str:
+    """Which contact solve the reference takes for this scene
+    (physics_pipeline.py:554-562, :664-667), refusing first what the port
+    does not carry.  Returns "kernel" (the contact-sweep kernel, the
+    reference's Pallas path), "blocked" (the blocked solve, above the dense
+    routing limit) or "masked" (the masked color sweep)."""
     if params.enable_ccd:
         raise NotImplementedError("CCD is not ported")
+    if params.friction_model == int(FrictionModel.COULOMB):
+        raise NotImplementedError("FrictionModel.COULOMB is not ported")
+    if params.block_solver_2x2:
+        raise NotImplementedError("the 2x2 block solver (block_solver_2x2) is not ported")
+    if state.bodies.pos.dtype != torch.float32:
+        raise NotImplementedError(f"{state.bodies.pos.dtype} scenes are not ported "
+                                  "(the port is float32, like the reference's kernels)")
     n = state.bodies.body_type.shape[-1]
     p_lanes = state.contacts.max_pairs
-    coulomb = params.friction_model == int(FrictionModel.COULOMB)
-    use_kernel = (
-        # `joints is None`: the port's SceneState carries no impulse joints
-        # (from_numpy refuses a state with them); they join here later.
-        not coulomb
-        and state.bodies.pos.dtype == torch.float32    # not f64
-        and not params.block_solver_2x2
-        and params.solver_backend != "jax"
-        and vmem_feasible(p_lanes, n + 1)
-        # `backend == "pallas" or default_backend() == "tpu"`: the port
-        # follows the reference's TPU semantics, so "auto" takes the kernel.
-    )
-    if not use_kernel:
-        # physics_pipeline.py:664-667: the blocked solve above the dense
-        # routing limit, else the masked JAX sweep (:798-936).
-        blocked = not coulomb and p_lanes * (n + 1) > DENSE_ROUTE_ELEMS
-        path = "blocked solve" if blocked else "masked JAX sweep"
-        raise NotImplementedError(
-            f"the reference solves this scene with the {path}, which is not "
-            f"ported (P={p_lanes}, N={n}, friction_model={params.friction_model}, "
-            f"block_solver_2x2={params.block_solver_2x2}, "
-            f"solver_backend={params.solver_backend!r})")
+    # `joints is None` holds: the port's SceneState carries no impulse
+    # joints (from_numpy refuses a state with them).  "auto" takes the
+    # kernel, as the reference does on its TPU.
+    if params.solver_backend != "jax" and vmem_feasible(p_lanes, n + 1):
+        return "kernel"
+    return "blocked" if p_lanes * (n + 1) > DENSE_ROUTE_ELEMS else "masked"
 
 
 def _fixed_point(flag, step_fn, max_iters: int):
@@ -189,10 +188,195 @@ def _fixed_point(flag, step_fn, max_iters: int):
     return flag
 
 
+def _unsolved(man, ws_n, ws_t, ws_tw):
+    """The impulse block ``[B, 14, P]`` a lane keeps when no solve sees it:
+    its matched warmstart values, zero accumulators (:646-663)."""
+    return torch.cat([
+        ws_n * man.point_active.float(), torch.zeros_like(ws_n), ws_t,
+        torch.zeros_like(ws_t), ws_tw.unsqueeze(1), torch.zeros_like(ws_tw).unsqueeze(1)],
+        dim=1)
+
+
+def _scatter_back(imp, src, kvalid, default):
+    """Compacted impulse lanes ``[B, 14, K]`` back to their pair lanes of
+    `default` ``[B, 14, P]``; invalid slots write to a dropped column."""
+    p_lanes = default.shape[-1]
+    tgt = torch.where(kvalid, src, p_lanes).unsqueeze(1).expand(imp.shape)
+    full = torch.cat([default, torch.zeros_like(default[..., :1])], dim=-1)
+    return full.scatter(-1, tgt, imp)[..., :p_lanes]
+
+
+def _impulse_block(c):
+    return torch.cat([c.impulse, c.impulse_acc, c.tan_impulse, c.tan_impulse_acc,
+                      c.twist_impulse.unsqueeze(1), c.twist_impulse_acc.unsqueeze(1)],
+                     dim=1)
+
+
+def _solve_kernel(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_n,
+                  ws_t, ws_tw):
+    """The contact-sweep kernel's path (physics_pipeline.py:568-663): the
+    touching lanes compacted to max_solver_pairs, Luby colors, the kernel.
+    Returns (sb, impulse block ``[B, 14, P]``, solver_overflow ``[B]``)."""
+    n = bodies.body_type.shape[-1]
+    sent = n
+    si = vs.substep_inputs(bodies, sb, active, params)
+    p_lanes = man.body1.shape[-1]
+    b1s = torch.where((man.body1 >= 0) & (man.rel_dominance <= 0), man.body1, sent)
+    b2s = torch.where((man.body2 >= 0) & (man.rel_dominance >= 0), man.body2, sent)
+    lanes = dict(
+        valid=man.solver_pair, dyn1=dyn1, dyn2=dyn2, normal=man.normal,
+        point=man.point, point_active=man.point_active, dist=man.dist,
+        friction=man.friction, restitution=man.restitution,
+        prev_impulse=prev_imp, ws_n=ws_n * man.point_active.float(),
+        ws_t=ws_t, ws_tw=ws_tw)
+    cap = params.max_solver_pairs
+    compact = 0 < cap < p_lanes
+    if compact:
+        # Stream-compact the touching lanes: the solve then works K = cap
+        # lanes.  Overflowing lanes are dropped for this step and counted.
+        src, kvalid, solver_overflow = compact_indices(man.solver_pair, cap)
+        lanes = {k: gather_lanes(v, src, kvalid) for k, v in lanes.items()}
+        lanes["valid"] = kvalid
+        b1s = gather_lanes(b1s, src, kvalid, fill=sent)
+        b2s = gather_lanes(b2s, src, kvalid, fill=sent)
+    else:
+        solver_overflow = torch.zeros_like(man.unsupported)
+
+    color, num_colors = color_constraints(
+        b1s, b2s, lanes["dyn1"], lanes["dyn2"], lanes["valid"], n, params.max_colors)
+    sb, imp = solve_from_manifolds(
+        sb, b1=b1s, b2=b2s, color=color, num_colors=num_colors,
+        dv_inc=si["dv_inc"], dw_inc=si["dw_inc"], move_mask=si["move_mask"],
+        dt_sub=si["dt_sub"], inv_dt_sub=si["inv_dt_sub"],
+        erp_inv_dt=si["erp_inv_dt"], cfm_factor=si["cfm_factor"],
+        allowed_lin_err=float(params.allowed_linear_error()),
+        max_corrective_velocity=float(params.max_corrective_velocity()),
+        warmstart_coeff=float(params.warmstart_coefficient),
+        n_sub=si["n_sub"], pgs_iters=params.num_internal_pgs_iterations,
+        stab_iters=params.num_internal_stabilization_iterations,
+        max_colors=params.max_colors, **lanes)
+    if compact:
+        imp = _scatter_back(imp, src, kvalid, _unsolved(man, ws_n, ws_t, ws_tw))
+    return sb, imp, solver_overflow
+
+
+def _solve_blocked(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_n,
+                   ws_t, ws_tw):
+    """The blocked solve of large scenes (physics_pipeline.py:664-797): the
+    capped Luby coloring lays the touching lanes out in contiguous per-color
+    blocks, and each Gauss-Seidel pass runs one block.  The Jacobi tail block
+    holds every lane the Luby rounds leave (`solve_caps`; the reference drops
+    those past its cap, ROADMAP R7).  Returns (sb, impulse block
+    ``[B, 14, P]``, solver_overflow ``[B]``: lanes that got no slot)."""
+    n = bodies.body_type.shape[-1]
+    sent = n
+    p_lanes = man.body1.shape[-1]
+    cap = params.max_solver_pairs
+    caps = solve_caps(cap if 0 < cap < p_lanes else p_lanes, p_lanes, params.max_colors)
+    starts = [sum(caps[:i]) for i in range(len(caps))]
+    w_total = sum(caps)
+    _, slot, solver_overflow = color_constraints_blocked(
+        man.body1, man.body2, dyn1, dyn2, man.solver_pair, n, caps)
+
+    # Slot -> pair lane: slots are unique; unslotted lanes all write the
+    # cut-off column w_total.
+    lane_ids = torch.arange(p_lanes, device=slot.device).expand(slot.shape)
+    blk_src = torch.full((slot.shape[0], w_total + 1), p_lanes, dtype=torch.int64,
+                         device=slot.device)
+    blk_src = blk_src.scatter(1, torch.clamp(slot, max=w_total).long(),
+                              lane_ids)[:, :w_total]
+    slot_valid = blk_src < p_lanes
+    srcc = torch.clamp(blk_src, max=p_lanes - 1)
+
+    def rt(x, neutral=0):
+        return gather_lanes(x, srcc, slot_valid, fill=neutral)
+
+    bb1, bb2, rdom = rt(man.body1, -1), rt(man.body2, -1), rt(man.rel_dominance)
+    b1s = torch.where((bb1 >= 0) & (rdom <= 0), bb1, sent)
+    b2s = torch.where((bb2 >= 0) & (rdom >= 0), bb2, sent)
+
+    # One warmstart plan over all slots; per block an inverse gather (each
+    # body meets at most one lane-endpoint of a conflict-free block), and
+    # for the Jacobi tail block a segment sum.
+    route = cc.RoutePlan(seg_pair=make_segment_plan(torch.cat([b1s, b2s], dim=-1), n + 1))
+    blocks = []
+    for ci, (s0, width) in enumerate(zip(starts, caps)):
+        segp = make_segment_plan(
+            torch.cat([b1s[:, s0:s0 + width], b2s[:, s0:s0 + width]], dim=-1), n + 1)
+        if ci < len(caps) - 1:
+            first = torch.gather(segp.perm, 1, torch.clamp(segp.starts, max=2 * width - 1))
+            inv = torch.where(segp.ends > segp.starts, first, 2 * width)
+            blocks.append((ci, s0, width, cc.RoutePlan(inv_pair=inv)))
+        else:
+            blocks.append((ci, s0, width, cc.RoutePlan(seg_pair=segp)))
+    color_of_slot = torch.repeat_interleave(
+        torch.arange(len(caps), device=slot.device), torch.tensor(caps, device=slot.device),
+        output_size=w_total).expand(slot.shape[0], w_total)
+
+    pact_b = rt(man.point_active, False)
+    cons = cc.generate_from(
+        b1s, b2s, rt(man.solver_pair, False), color_of_slot, rt(man.normal),
+        rt(man.point), pact_b, rt(man.dist, 1e10), rt(man.friction),
+        rt(man.restitution), sb, rt(prev_imp))
+    cons = cons._replace(impulse=rt(ws_n) * pact_b.float(), tan_impulse=rt(ws_t),
+                         twist_impulse=rt(ws_tw))
+    sb, cons = vs.solve_blocked(bodies, sb, cons, blocks, route, active, params)
+
+    # Back to the pair lanes; lanes without a slot keep their warmstart.
+    has_slot = (slot < w_total).unsqueeze(1)
+    imp = take_lanes(_impulse_block(cons), torch.clamp(slot, max=w_total - 1).long())
+    return sb, torch.where(has_slot, imp, _unsolved(man, ws_n, ws_t, ws_tw)), solver_overflow
+
+
+def _solve_masked(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_n,
+                  ws_t, ws_tw):
+    """The masked sweep (physics_pipeline.py:798-936): the touching lanes
+    compacted to max_solver_pairs, Luby colors, and one masked pass over
+    every lane per color.  Returns (sb, impulse block ``[B, 14, P]``,
+    solver_overflow ``[B]``)."""
+    n = bodies.body_type.shape[-1]
+    p_lanes = man.body1.shape[-1]
+    cap = params.max_solver_pairs
+    compact = 0 < cap < p_lanes
+    fields = ("body1", "body2", "rel_dominance", "solver_pair", "normal", "point",
+              "point_active", "dist", "friction", "restitution")
+    if compact:
+        src, kvalid, solver_overflow = compact_indices(man.solver_pair, cap)
+
+        def take(x):
+            return gather_lanes(x, src, kvalid)
+
+        man_s = man._replace(**{f: take(getattr(man, f)) for f in fields})
+        man_s = man_s._replace(
+            body1=torch.where(kvalid, man_s.body1, -1),
+            body2=torch.where(kvalid, man_s.body2, -1),
+            solver_pair=kvalid,
+            point_active=man_s.point_active & kvalid.unsqueeze(1))
+        dyn1_s, dyn2_s = take(dyn1) & kvalid, take(dyn2) & kvalid
+        prev_imp_s, ws_n_s, ws_t_s, ws_tw_s = (take(x) for x in (prev_imp, ws_n, ws_t, ws_tw))
+    else:
+        solver_overflow = torch.zeros_like(man.unsupported)
+        man_s, dyn1_s, dyn2_s = man, dyn1, dyn2
+        prev_imp_s, ws_n_s, ws_t_s, ws_tw_s = prev_imp, ws_n, ws_t, ws_tw
+
+    color, num_colors = color_constraints(
+        man_s.body1, man_s.body2, dyn1_s, dyn2_s, man_s.solver_pair, n, params.max_colors)
+    cons = cc.generate(man_s, sb, prev_imp_s, color, n)
+    cons = cons._replace(impulse=ws_n_s * cons.point_mask.float(), tan_impulse=ws_t_s,
+                         twist_impulse=ws_tw_s)
+    route = cc.RoutePlan(seg_pair=make_segment_plan(torch.cat([cons.b1, cons.b2], dim=-1),
+                                                    n + 1))
+    sb, cons = vs.solve(bodies, sb, cons, num_colors, active, params, route)
+    imp = _impulse_block(cons)
+    if compact:
+        imp = _scatter_back(imp, src, kvalid, _unsolved(man, ws_n, ws_t, ws_tw))
+    return sb, imp, solver_overflow
+
+
 def step(state: SceneState, params: SimParams):
     """Advance every scene of the batch by params.dt.  Returns
     (new_state, StepEvents)."""
-    _check_supported(state, params)
+    path = solve_path(state, params)
     bodies = state.bodies
     colliders = state.colliders
     bsz, n = bodies.body_type.shape
@@ -227,83 +411,105 @@ def step(state: SceneState, params: SimParams):
         angvel=torch.where(kin_pos, kin_angvel, bodies.angvel))
 
     # 2. Broad phase, AABBs with margins (physics_pipeline.py:244-260).
-    w_pos, w_rot = collider_world_poses(bodies, colliders)
-    mins, maxs = shapes.compute_aabbs(
-        colliders.shape_type, colliders.shape_params, w_pos, w_rot)
-    _, _, _, soft_pred, linvel_c = parent_body_cols(bodies, colliders.parent)
-    soft_margin = torch.minimum(torch.linalg.norm(linvel_c, dim=-1) * dt, soft_pred)
-    margin = (colliders.contact_skin
-              + float(_f32(0.5) * params.prediction_distance())
-              + float(_f32(0.01) * _f32(params.length_unit))
-              + soft_margin).unsqueeze(-1)
-    mins = mins - margin
-    maxs = maxs + margin
-    bp_body_type = torch.where(bodies.mb_link, int(BodyType.DYNAMIC), bodies.body_type)
-    c1, c2, pair_valid, bp_overflow = broadphase.find_pairs(
-        mins, maxs, colliders, bp_body_type, state.contacts.max_pairs,
-        params.broad_phase)
+    with stage("broad_phase"):
+        w_pos, w_rot = collider_world_poses(bodies, colliders)
+        mins, maxs = shapes.compute_aabbs(
+            colliders.shape_type, colliders.shape_params, w_pos, w_rot)
+        _, _, _, soft_pred, linvel_c = parent_body_cols(bodies, colliders.parent)
+        soft_margin = torch.minimum(torch.linalg.norm(linvel_c, dim=-1) * dt, soft_pred)
+        margin = (colliders.contact_skin
+                  + float(_f32(0.5) * params.prediction_distance())
+                  + float(_f32(0.01) * _f32(params.length_unit))
+                  + soft_margin).unsqueeze(-1)
+        mins = mins - margin
+        maxs = maxs + margin
+        bp_body_type = torch.where(bodies.mb_link, int(BodyType.DYNAMIC), bodies.body_type)
+        c1, c2, pair_valid, bp_overflow = broadphase.find_pairs(
+            mins, maxs, colliders, bp_body_type, state.contacts.max_pairs,
+            params.broad_phase, params.sap_window)
 
     # 3. Narrow phase.
-    man = compute_manifolds(
-        bodies, colliders, c1, c2, pair_valid, float(params.prediction_distance()),
-        present=params.shape_types_present, dt=params.dt)
+    with stage("narrow_phase"):
+        man = compute_manifolds(
+            bodies, colliders, c1, c2, pair_valid, float(params.prediction_distance()),
+            present=params.shape_types_present, dt=params.dt)
 
     # 4. Warmstart matching + events bookkeeping.
-    ws_n, ws_t, ws_tw, prev_imp, prev_touch, _matched, still = _match_previous(
-        state.contacts, man)
-    started = man.touching & ~prev_touch
+    with stage("contact_match"):
+        ws_n, ws_t, ws_tw, prev_imp, prev_touch, _matched, still = _match_previous(
+            state.contacts, man)
+        started = man.touching & ~prev_touch
 
-    # Pairs of a link and its parent with contacts disabled leave the solve
-    # (physics_pipeline.py:337-369).  The impulse-joint keys join this table
-    # when impulse joints are ported.
-    if multibodies is not None:
-        lb = multibodies.link_body                            # [B, M, L]
-        lp = torch.clamp(multibodies.link_parent, 0, multibodies.l - 1).long()
-        pb = torch.gather(lb, -1, lp)
-        no_c = (multibodies.link_valid & ~multibodies.contacts_enabled
-                & (multibodies.link_parent >= 0) & (lb >= 0) & (pb >= 0) & (pb != lb))
-        jkeys = torch.where(no_c, torch.minimum(lb, pb) * n + torch.maximum(lb, pb),
-                            torch.iinfo(torch.int32).max).reshape(bsz, -1)
-        mb1 = torch.minimum(man.body1, man.body2)
-        mb2 = torch.maximum(man.body1, man.body2)
-        mkey = torch.where(mb1 >= 0, mb1 * n + mb2, -1)
-        blocked = torch.any(mkey.unsqueeze(-1) == jkeys.unsqueeze(-2), dim=-1)
-        man = man._replace(solver_pair=man.solver_pair & ~blocked)
-    prev_c = state.contacts
-    stopped = prev_c.touching & ~still & (prev_c.pair_key >= 0)
+        # Pairs of a link and its parent with contacts disabled leave the solve
+        # (physics_pipeline.py:337-369).  The impulse-joint keys join this table
+        # when impulse joints are ported.
+        if multibodies is not None:
+            lb = multibodies.link_body                            # [B, M, L]
+            lp = torch.clamp(multibodies.link_parent, 0, multibodies.l - 1).long()
+            pb = torch.gather(lb, -1, lp)
+            no_c = (multibodies.link_valid & ~multibodies.contacts_enabled
+                    & (multibodies.link_parent >= 0) & (lb >= 0) & (pb >= 0) & (pb != lb))
+            jkeys = torch.where(no_c, torch.minimum(lb, pb) * n + torch.maximum(lb, pb),
+                                torch.iinfo(torch.int32).max).reshape(bsz, -1)
+            mb1 = torch.minimum(man.body1, man.body2)
+            mb2 = torch.maximum(man.body1, man.body2)
+            mkey = torch.where(mb1 >= 0, mb1 * n + mb2, -1)
+            blocked = torch.any(mkey.unsqueeze(-1) == jkeys.unsqueeze(-2), dim=-1)
+            man = man._replace(solver_pair=man.solver_pair & ~blocked)
+        prev_c = state.contacts
+        stopped = prev_c.touching & ~still & (prev_c.pair_key >= 0)
 
     # 5. Wake-up on contact start + awake propagation over the
     #    dynamic-dynamic touching graph (physics_pipeline.py:380-499).
-    dyn = bodies.body_type == BodyType.DYNAMIC
-    sent = n
-    edge_dd = (man.touching & (man.body1 >= 0) & (man.body2 >= 0)
-               & man.dyn1 & man.dyn2)
-    t1 = torch.where(edge_dd, man.body1, sent).long()
-    t2 = torch.where(edge_dd, man.body2, sent).long()
-    zero_n1 = torch.zeros((bsz, n + 1), dtype=torch.int32, device=dev)
+    with stage("wake"):
+        dyn = bodies.body_type == BodyType.DYNAMIC
+        sent = n
+        edge_dd = (man.touching & (man.body1 >= 0) & (man.body2 >= 0)
+                   & man.dyn1 & man.dyn2)
+        t1 = torch.where(edge_dd, man.body1, sent).long()
+        t2 = torch.where(edge_dd, man.body2, sent).long()
+        # Large scenes (:409-426, :454-466): the touching edges, and the lanes
+        # that start touching, are compacted to max_solver_pairs before they
+        # propagate; edges beyond the cap are dropped for this step, as in the
+        # reference.
+        p_lanes = man.body1.shape[-1]
+        cap_e = params.max_solver_pairs
+        dense = p_lanes * (n + 1) <= DENSE_ROUTE_ELEMS and n * n <= DENSE_ROUTE_ELEMS
+        compact_edges = 0 < cap_e < p_lanes and not dense
+        compact_started = compact_edges and not (
+            cap_e * (n + 1) <= DENSE_ROUTE_ELEMS and n * n <= DENSE_ROUTE_ELEMS)
+        if compact_edges:
+            esrc, evalid, _ = compact_indices(edge_dd, cap_e)
+            t1 = gather_lanes(t1, esrc, evalid, fill=sent)
+            t2 = gather_lanes(t2, esrc, evalid, fill=sent)
+        zero_n1 = torch.zeros((bsz, n + 1), dtype=torch.int32, device=dev)
 
-    def neighbor_or(flag):
-        """OR of `flag` over each body's graph neighbours."""
-        ext = torch.cat([flag, torch.zeros_like(flag[:, :1])], dim=1).int()
-        a = zero_n1.scatter_reduce(1, t1, torch.gather(ext, 1, t2), "amax")
-        a = a.scatter_reduce(1, t2, torch.gather(ext, 1, t1), "amax")
-        return a[:, :n] > 0
+        def neighbor_or(flag):
+            """OR of `flag` over each body's graph neighbours."""
+            ext = torch.cat([flag, torch.zeros_like(flag[:, :1])], dim=1).int()
+            a = zero_n1.scatter_reduce(1, t1, torch.gather(ext, 1, t2), "amax")
+            a = a.scatter_reduce(1, t2, torch.gather(ext, 1, t1), "amax")
+            return a[:, :n] > 0
 
-    def scatter_started(mask):
-        s1 = torch.where(mask & (man.body1 >= 0), man.body1, sent).long()
-        s2 = torch.where(mask & (man.body2 >= 0), man.body2, sent).long()
-        m = mask.int()
-        w = zero_n1.scatter_reduce(1, s1, m, "amax").scatter_reduce(1, s2, m, "amax")
-        return w[:, :n] > 0
+        def scatter_started(mask):
+            s1 = torch.where(mask & (man.body1 >= 0), man.body1, sent).long()
+            s2 = torch.where(mask & (man.body2 >= 0), man.body2, sent).long()
+            if compact_started:
+                ssrc, mask, _ = compact_indices(mask, cap_e)
+                s1 = gather_lanes(s1, ssrc, mask, fill=sent)
+                s2 = gather_lanes(s2, ssrc, mask, fill=sent)
+            m = mask.int()
+            w = zero_n1.scatter_reduce(1, s1, m, "amax").scatter_reduce(1, s2, m, "amax")
+            return w[:, :n] > 0
 
-    sleeping = bodies.sleeping & dyn
-    if params.sleeping_enabled:
-        woke = scatter_started(started)
-        awake = (dyn & ~sleeping) | (woke & dyn)
-        awake = _fixed_point(awake, lambda f: f | (neighbor_or(f) & dyn),
-                             params.sleep_propagation_iters)
-        sleeping = dyn & ~awake
-    bodies = dataclasses.replace(bodies, sleeping=sleeping)
+        sleeping = bodies.sleeping & dyn
+        if params.sleeping_enabled:
+            woke = scatter_started(started)
+            awake = (dyn & ~sleeping) | (woke & dyn)
+            awake = _fixed_point(awake, lambda f: f | (neighbor_or(f) & dyn),
+                                 params.sleep_propagation_iters)
+            sleeping = dyn & ~awake
+        bodies = dataclasses.replace(bodies, sleeping=sleeping)
 
     # 6. Solve.
     active = bodies.enabled & ~sleeping
@@ -323,52 +529,12 @@ def step(state: SceneState, params: SimParams):
     dyn1 = man.dyn1 & ~asleep1
     dyn2 = man.dyn2 & ~asleep2
 
-    si = vs.substep_inputs(bodies, sb, active, params)
-    p_lanes = man.body1.shape[-1]
-    b1s = torch.where((man.body1 >= 0) & (man.rel_dominance <= 0), man.body1, sent)
-    b2s = torch.where((man.body2 >= 0) & (man.rel_dominance >= 0), man.body2, sent)
-    lanes = dict(
-        valid=solver_pair, dyn1=dyn1, dyn2=dyn2, normal=man.normal,
-        point=man.point, point_active=man.point_active, dist=man.dist,
-        friction=man.friction, restitution=man.restitution,
-        prev_impulse=prev_imp, ws_n=ws_n * man.point_active.float(),
-        ws_t=ws_t, ws_tw=ws_tw)
-    cap = params.max_solver_pairs
-    compact = 0 < cap < p_lanes
-    if compact:
-        # Stream-compact the touching lanes: the solve then works K = cap
-        # lanes.  Overflowing lanes are dropped for this step and counted.
-        src, kvalid, solver_overflow = compact_indices(solver_pair, cap)
-        lanes = {k: gather_lanes(v, src, kvalid) for k, v in lanes.items()}
-        lanes["valid"] = kvalid
-        b1s = gather_lanes(b1s, src, kvalid, fill=sent)
-        b2s = gather_lanes(b2s, src, kvalid, fill=sent)
-    else:
-        solver_overflow = torch.zeros((bsz,), dtype=torch.int32, device=dev)
-
-    color, num_colors = color_constraints(
-        b1s, b2s, lanes["dyn1"], lanes["dyn2"], lanes["valid"], n, params.max_colors)
-    sb, imp = solve_from_manifolds(
-        sb, b1=b1s, b2=b2s, color=color, num_colors=num_colors,
-        dv_inc=si["dv_inc"], dw_inc=si["dw_inc"], move_mask=si["move_mask"],
-        dt_sub=si["dt_sub"], inv_dt_sub=si["inv_dt_sub"],
-        erp_inv_dt=si["erp_inv_dt"], cfm_factor=si["cfm_factor"],
-        allowed_lin_err=float(params.allowed_linear_error()),
-        max_corrective_velocity=float(params.max_corrective_velocity()),
-        warmstart_coeff=float(params.warmstart_coefficient),
-        n_sub=si["n_sub"], pgs_iters=params.num_internal_pgs_iterations,
-        stab_iters=params.num_internal_stabilization_iterations,
-        max_colors=params.max_colors, **lanes)
-    if compact:
-        # Scatter the impulse block back to the full lanes; lanes the solve
-        # never saw keep their matched warmstart caches (:646-663).
-        default = torch.cat([
-            ws_n * man.point_active.float(), torch.zeros_like(ws_n), ws_t,
-            torch.zeros_like(ws_t), ws_tw.unsqueeze(1),
-            torch.zeros_like(ws_tw).unsqueeze(1)], dim=1)
-        tgt = torch.where(kvalid, src, p_lanes).unsqueeze(1).expand(imp.shape)
-        full = torch.cat([default, torch.zeros_like(default[..., :1])], dim=-1)
-        imp = full.scatter(-1, tgt, imp)[..., :p_lanes]
+    lanes = dict(man=man, dyn1=dyn1, dyn2=dyn2, prev_imp=prev_imp, ws_n=ws_n, ws_t=ws_t,
+                 ws_tw=ws_tw)
+    solve = {"kernel": _solve_kernel, "blocked": _solve_blocked,
+             "masked": _solve_masked}[path]
+    with stage("solve"):
+        sb, imp, solver_overflow = solve(bodies, sb, active, params, **lanes)
     bodies = vs.writeback(bodies, sb, active, params)
     if multibodies is not None:
         # Phase C (physics_pipeline.py:939-946): link velocity deltas into
@@ -381,23 +547,24 @@ def step(state: SceneState, params: SimParams):
                                  rot=quat.normalize(bodies.next_rot))
 
     # 8. Sleeping (post-solve velocities, island-free propagation).
-    if params.sleeping_enabled:
-        lin_sq = torch.sum(bodies.linvel ** 2, dim=-1)
-        ang_sq = torch.sum(bodies.angvel ** 2, dim=-1)
-        lin_th = float(_f32(params.sleep_linear_threshold) * _f32(params.length_unit))
-        sat = float(params.sleep_angular_threshold)
-        quiet = (lin_sq < lin_th * lin_th) & (ang_sq < sat * sat)
-        timer = torch.where(quiet, bodies.sleep_timer + dt, 0.0)
-        eligible = dyn & bodies.can_sleep & bodies.enabled & (
-            timer >= float(params.time_until_sleep))
-        elig = _fixed_point(eligible | ~dyn, lambda f: f & ~neighbor_or(~f),
-                            params.sleep_propagation_iters)
-        new_sleeping = (dyn & eligible & elig)
-        ns = new_sleeping.unsqueeze(-1)
-        bodies = dataclasses.replace(
-            bodies, sleeping=new_sleeping, sleep_timer=timer,
-            linvel=torch.where(ns, 0.0, bodies.linvel),
-            angvel=torch.where(ns, 0.0, bodies.angvel))
+    with stage("sleep"):
+        if params.sleeping_enabled:
+            lin_sq = torch.sum(bodies.linvel ** 2, dim=-1)
+            ang_sq = torch.sum(bodies.angvel ** 2, dim=-1)
+            lin_th = float(_f32(params.sleep_linear_threshold) * _f32(params.length_unit))
+            sat = float(params.sleep_angular_threshold)
+            quiet = (lin_sq < lin_th * lin_th) & (ang_sq < sat * sat)
+            timer = torch.where(quiet, bodies.sleep_timer + dt, 0.0)
+            eligible = dyn & bodies.can_sleep & bodies.enabled & (
+                timer >= float(params.time_until_sleep))
+            elig = _fixed_point(eligible | ~dyn, lambda f: f & ~neighbor_or(~f),
+                                params.sleep_propagation_iters)
+            new_sleeping = (dyn & eligible & elig)
+            ns = new_sleeping.unsqueeze(-1)
+            bodies = dataclasses.replace(
+                bodies, sleeping=new_sleeping, sleep_timer=timer,
+                linvel=torch.where(ns, 0.0, bodies.linvel),
+                angvel=torch.where(ns, 0.0, bodies.angvel))
 
     # 9. Persist the contact cache; events.
     impulse, impulse_acc = imp[:, 0:4], imp[:, 4:8]

@@ -38,6 +38,63 @@ def mixed_primitives_world(num_layers: int = 4, grid: int = 4, rad: float = 0.5,
     return w
 
 
+def pyramid_world(base_count: int = 10, half: float = 0.5, friction: float = 0.6,
+                  **world_kw) -> PhysicsWorld:
+    """s2d_pyramid (examples2d/s2d_pyramid.rs:13-38) lifted to 3D: a planar
+    triangular pyramid of cuboids on a ground cuboid."""
+    w = PhysicsWorld(**world_kw)
+    ground = w.insert_body(RigidBodyBuilder.fixed().with_translation((0.0, -1.0, 0.0)))
+    w.insert_collider(
+        ColliderBuilder.cuboid(100.0, 1.0, 100.0).with_friction(friction), ground)
+    gap = half * 2.0 * 1.002
+    for row in range(base_count):
+        n_in_row = base_count - row
+        y = half + row * half * 2.0
+        x0 = -(n_in_row - 1) * gap / 2.0
+        for i in range(n_in_row):
+            b = w.insert_body(
+                RigidBodyBuilder.dynamic().with_translation((x0 + i * gap, y, 0.0)))
+            w.insert_collider(
+                ColliderBuilder.cuboid(half, half, half).with_friction(friction), b)
+    return w
+
+
+def stack_world(n: int = 10, half: float = 0.5, friction: float = 0.7,
+                **world_kw) -> PhysicsWorld:
+    """A single column of `n` cuboids on a ground cuboid."""
+    w = PhysicsWorld(**world_kw)
+    ground = w.insert_body(RigidBodyBuilder.fixed().with_translation((0.0, -1.0, 0.0)))
+    w.insert_collider(
+        ColliderBuilder.cuboid(50.0, 1.0, 50.0).with_friction(friction), ground)
+    for i in range(n):
+        b = w.insert_body(
+            RigidBodyBuilder.dynamic().with_translation((0.0, half + i * half * 2.002, 0.0)))
+        w.insert_collider(
+            ColliderBuilder.cuboid(half, half, half).with_friction(friction), b)
+    return w
+
+
+def pyramid3_world(stack_height: int = 12, half: float = 1.0,
+                   **world_kw) -> PhysicsWorld:
+    """3D square pyramid stress scene (examples3d/stress_tests/pyramid3.rs:
+    4-64): level i holds (stack_height - i)^2 cuboids, so stack 16 has 1,496
+    boxes, stack 24 4,900 and stack 31 10,416."""
+    w = PhysicsWorld(**world_kw)
+    ground = w.insert_body(RigidBodyBuilder.fixed().with_translation((0.0, -0.1, 0.0)))
+    w.insert_collider(ColliderBuilder.cuboid(50.0, 0.1, 50.0), ground)
+    shift = half * 2.5
+    n = stack_height
+    for i in range(n):
+        for j in range(i, n):
+            for k in range(i, n):
+                x = i * shift / 2.0 + (k - i) * shift - n * half
+                y = i * shift + half
+                z = i * shift / 2.0 + (j - i) * shift - n * half
+                b = w.insert_body(RigidBodyBuilder.dynamic().with_translation((x, y, z)))
+                w.insert_collider(ColliderBuilder.cuboid(half, half, half), b)
+    return w
+
+
 # Quadruped robot (reference scenes.py:125-192): a free-floating trunk with
 # four 2-hinge legs driven by position servos, on a plane; the batched-RL
 # configuration of the bench's robots mode.

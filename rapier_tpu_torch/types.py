@@ -306,6 +306,7 @@ class SimParams:
     num_internal_stabilization_iterations: int = 1
     friction_model: int = int(FrictionModel.SIMPLIFIED)
     broad_phase: int = int(BroadPhaseKind.ALL_PAIRS)
+    sap_window: int = 64
     max_colors: int = 16
     max_solver_pairs: int = 0
     enable_ccd: bool = False

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from rapier_tpu_torch.utils.routing import take_lanes
+
 
 def compact_indices(mask, max_out: int):
     """Indices of the first `max_out` True lanes of `mask` ``[..., K]``.
@@ -31,8 +33,6 @@ def compact_indices(mask, max_out: int):
 def gather_lanes(x, src, valid, fill=0):
     """Gather the compacted lanes ``x[..., src]`` of a lane-last field
     ``[B, *rows, K]`` by ``src [B, K']``; invalid slots take `fill`."""
-    rows = x.shape[1:-1]
-    idx = src.view((src.shape[0],) + (1,) * len(rows) + (src.shape[-1],))
-    g = torch.gather(x, -1, idx.expand(x.shape[:-1] + (src.shape[-1],)))
-    v = valid.view(idx.shape)
-    return torch.where(v, g, torch.as_tensor(fill, dtype=x.dtype, device=x.device))
+    v = valid.view((valid.shape[0],) + (1,) * (x.dim() - 2) + (valid.shape[-1],))
+    return torch.where(v, take_lanes(x, src),
+                       torch.as_tensor(fill, dtype=x.dtype, device=x.device))

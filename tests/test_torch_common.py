@@ -125,3 +125,78 @@ def unsolved_impulses(ws_n, ws_t, ws_tw, point_active, warmstart_coeff, n_sub):
         acc = [a + x for a, x in zip(acc, imp)]
         imp = [x * warmstart_coeff for x in imp]
     return torch.cat([imp[0], acc[0], imp[1], acc[1], imp[2], acc[2]], dim=1)
+
+
+def perturbed_batch(world, noise_axes, seed):
+    """(reference numpy batch of B scenes of `world`, scene 1's dynamic
+    bodies moved by seeded noise along `noise_axes`; reference params)."""
+    import rapier_tpu.types as jt
+    from rapier_tpu.scenes import replicate_scene
+
+    state = world.build()
+    batch = replicate_scene(state, B)
+    rng = np.random.default_rng(seed)
+    dyn = np.asarray(state.bodies.body_type) == int(jt.BodyType.DYNAMIC)
+    noise = rng.normal(0.0, 0.02, (int(dyn.sum()), 3)).astype(np.float32)
+    noise *= np.asarray(noise_axes, np.float32)
+    for name in ("pos", "next_pos"):
+        getattr(batch.bodies, name)[1, dyn] += noise
+    return batch, world.params
+
+
+def blocked_thresholds(mp):
+    """Send every scene of both packages down the large-scene paths (set
+    the dense-routing limits to 0 through the monkeypatch `mp`)."""
+    import rapier_tpu.dynamics.solver.coloring as jcol
+    import rapier_tpu.pipeline.physics_pipeline as jpp
+    import rapier_tpu.utils.routing as jrt
+    import rapier_tpu_torch.pipeline.physics_pipeline as pp
+
+    for mod, name in ((jrt, "DENSE_ROUTE_ELEMS"), (jrt, "DENSE_JOIN_ELEMS"),
+                      (jpp, "_DENSE_ROUTE_ELEMS"), (jpp, "_DENSE_JOIN_ELEMS"),
+                      (jcol, "DENSE_ROUTE_ELEMS"), (pp, "DENSE_ROUTE_ELEMS")):
+        mp.setattr(mod, name, 0)
+
+
+def rollouts(start, jparams, n_steps):
+    """`n_steps` steps of the reference (jit of the vmapped step) and of the
+    port from the numpy batch `start`: (the port's solve path, reference
+    states, port states), each state with numpy leaves.  The port's steps
+    must not overflow."""
+    import jax
+    import jax.numpy as jnp
+    import rapier_tpu.pipeline.physics_pipeline as jpp
+    import rapier_tpu_torch.pipeline.physics_pipeline as pp
+    from rapier_tpu_torch.types import from_numpy, to_numpy
+
+    f = jax.jit(jax.vmap(jpp.step, in_axes=(0, None)))
+    js = jax.tree.map(jnp.asarray, start)
+    ref = []
+    for _ in range(n_steps):
+        js, _ = f(js, jparams)
+        ref.append(jax.tree.map(np.asarray, js))
+    params = from_numpy(jparams)
+    ps = from_numpy(start)
+    path = pp.solve_path(ps, params)
+    port = []
+    for _ in range(n_steps):
+        ps, ev = pp.step(ps, params)
+        assert int(ev.solver_overflow.max()) == 0 and int(ev.broadphase_overflow.max()) == 0
+        port.append(to_numpy(ps))
+    return path, ref, port
+
+
+def assert_trajectories_agree(ref, port):
+    """Pair keys and touching flags equal, positions and rotations within
+    1e-4, velocities within 1e-3, at every step.  Returns the fewest
+    touching lanes of any step."""
+    touching = 0
+    for t, (rs, ps) in enumerate(zip(ref, port)):
+        assert_equal(ps.contacts.pair_key, rs.contacts.pair_key, f"step {t + 1} pair_key")
+        assert_equal(ps.contacts.touching, rs.contacts.touching, f"step {t + 1} touching")
+        assert_close(ps.bodies.pos, rs.bodies.pos, 1e-4, f"step {t + 1} pos")
+        assert_close(ps.bodies.rot, rs.bodies.rot, 1e-4, f"step {t + 1} rot")
+        assert_close(ps.bodies.linvel, rs.bodies.linvel, 1e-3, f"step {t + 1} linvel")
+        assert_close(ps.bodies.angvel, rs.bodies.angvel, 1e-3, f"step {t + 1} angvel")
+        touching = min(touching or 10**9, int(np.sum(rs.contacts.touching)))
+    return touching

@@ -1,5 +1,6 @@
-"""The CUDA contact-sweep kernels on the card (marker `gpu`; skipped without
-a CUDA device).  Run on a machine with one card:
+"""The CUDA contact-sweep kernels, and the non-kernel solves, on the card
+(marker `gpu`; skipped without a CUDA device).  Run on a machine with one
+card:
 
     python -m pytest tests/test_torch_cuda.py -m gpu -q
 
@@ -253,3 +254,37 @@ def test_kernel_refuses_scenes_beyond_shared_memory(device):
             torch.zeros(b, n1, dtype=torch.int32, device=device),
             torch.zeros(b, dtype=torch.int32, device=device),
             n_sub=4, pgs_iters=1, stab_iters=1, max_colors=16, scalars=(0.0,) * 7)
+
+
+@pytest.mark.parametrize("path", ["blocked", "masked"])
+def test_non_kernel_paths_on_the_card(device, monkeypatch, path):
+    """The blocked solve and the masked sweep on the card: a stack-4
+    pyramid on the grid broad phase with solver_backend="jax" (the routing
+    limit set to 0 for the blocked path), 10 steps after 20.  Two runs are
+    bitwise equal, and the card agrees with the CPU within 1e-4 in position
+    and 1e-3 in velocity."""
+    from rapier_tpu_torch.pipeline import physics_pipeline as pp
+    from rapier_tpu_torch.scenes import pyramid3_world, replicate_scene
+    from rapier_tpu_torch.types import BroadPhaseKind, from_numpy, tree_map
+
+    if path == "blocked":
+        monkeypatch.setattr(pp, "DENSE_ROUTE_ELEMS", 0)
+    w = pyramid3_world(stack_height=4, device=device)
+    params = w.params.replace(broad_phase=int(BroadPhaseKind.GRID), solver_backend="jax")
+    state = replicate_scene(from_numpy(w.build(), device), 2)
+    assert pp.solve_path(state, params) == path
+    for _ in range(20):
+        state, _ = pp.step(state, params)
+
+    def run(s):
+        for _ in range(10):
+            s, _ = pp.step(s, params)
+        return s
+
+    a = run(tree_map(lambda x: x.clone(), state))
+    b = run(tree_map(lambda x: x.clone(), state))
+    cpu = run(tree_map(lambda x: x.cpu(), state))
+    for name in ("pos", "rot", "linvel", "angvel"):
+        assert torch.equal(getattr(a.bodies, name), getattr(b.bodies, name)), name
+    assert float((a.bodies.pos.cpu() - cpu.bodies.pos).abs().max()) <= 1e-4
+    assert float((a.bodies.linvel.cpu() - cpu.bodies.linvel).abs().max()) <= 1e-3

@@ -17,7 +17,7 @@ import torch
 import test_torch_common as tp
 from rapier_tpu.pipeline.physics_pipeline import step as jax_step
 from rapier_tpu_torch.pipeline.physics_pipeline import step as port_step
-from rapier_tpu_torch.types import from_numpy, to_numpy
+from rapier_tpu_torch.types import FrictionModel, from_numpy, to_numpy
 
 N_STEPS = 20
 CACHE_FLOATS = ("warmstart_impulse", "warmstart_tangent_impulse",
@@ -147,30 +147,85 @@ def _empty_batch(n_bodies, max_pairs):
     return from_numpy(replicate_scene(state, 1))
 
 
-def test_step_refuses_a_scene_over_the_kernel_limit():
+def _reference_path(p_lanes, n_bodies, backend="auto"):
+    """The reference's solve path for a contacts-only f32 scene
+    (physics_pipeline.py:554-562, :664-667, as on its TPU)."""
+    from rapier_tpu.dynamics.solver.pallas_sweep import vmem_feasible as ref_feasible
+    from rapier_tpu.utils.routing import DENSE_ROUTE_ELEMS
+
+    if backend != "jax" and ref_feasible(p_lanes, n_bodies + 1):
+        return "kernel"
+    return "blocked" if p_lanes * (n_bodies + 1) > DENSE_ROUTE_ELEMS else "masked"
+
+
+def _steps_finite_on(path, state, params):
+    from rapier_tpu_torch.pipeline.physics_pipeline import solve_path
+
+    n, p_lanes = state.bodies.pos.shape[1], state.contacts.max_pairs
+    assert solve_path(state, params) == path
+    assert _reference_path(p_lanes, n, params.solver_backend) == path
+    s, ev = port_step(state, params)
+    for name in ("pos", "rot", "linvel", "angvel"):
+        assert bool(torch.isfinite(getattr(s.bodies, name)).all()), name
+    assert int(ev.solver_overflow.max()) == 0
+    return s
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for a test of large lane counts: with a thread per
+    core in each of several test workers, the threads of each large op wait
+    on one another (minutes instead of seconds)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_step_refuses_a_scene_over_the_kernel_limit(one_thread):
     """500 bodies with 2048 pair lanes need ~15 MB of the reference kernel's
-    10 MiB: the reference takes the masked JAX sweep, which is not ported."""
+    10 MiB: the scene steps on the masked sweep, as in the reference (the
+    port refused it until the masked sweep was ported)."""
     from rapier_tpu_torch.dynamics.solver.contact_sweep import vmem_feasible
     from rapier_tpu_torch.types import SimParams
 
     assert not vmem_feasible(2048, 501)
-    with pytest.raises(NotImplementedError, match="masked JAX sweep"):
-        port_step(_empty_batch(500, 2048), SimParams())
+    _steps_finite_on("masked", _empty_batch(500, 2048), SimParams())
 
 
 def test_step_refuses_the_jax_backend():
-    with pytest.raises(NotImplementedError, match="masked JAX sweep"):
-        port_step(from_numpy(tp.settled_batch()),
-                  tp.port_params().replace(solver_backend="jax"))
+    """solver_backend="jax" never takes the kernel: the parity batch steps on
+    the masked sweep (formerly refused)."""
+    s = _steps_finite_on("masked", from_numpy(tp.settled_batch()),
+                         tp.port_params().replace(solver_backend="jax"))
+    assert int(s.contacts.touching.sum()) > 0
 
 
-def test_step_names_the_blocked_solve_above_the_routing_limit():
+def test_step_names_the_blocked_solve_above_the_routing_limit(one_thread):
     from rapier_tpu_torch.types import SimParams
 
     # 131072 lanes x 129 columns is above 2**24; the reference's own vmem
     # gate fails first and its blocked solve takes the scene.
-    with pytest.raises(NotImplementedError, match="blocked solve"):
-        port_step(_empty_batch(128, 131072), SimParams())
+    _steps_finite_on("blocked", _empty_batch(128, 131072), SimParams())
+
+
+@pytest.mark.parametrize("change, what", [
+    (dict(friction_model=int(FrictionModel.COULOMB)), "COULOMB"),
+    (dict(block_solver_2x2=True), "2x2 block solver"),
+    (dict(enable_ccd=True), "CCD"),
+])
+def test_step_refuses_what_is_not_ported(change, what):
+    with pytest.raises(NotImplementedError, match=what):
+        port_step(from_numpy(tp.settled_batch()), tp.port_params().replace(**change))
+
+
+def test_step_refuses_f64():
+    from rapier_tpu_torch.types import tree_map
+
+    state = tree_map(lambda x: x.double() if x.is_floating_point() else x,
+                     from_numpy(tp.settled_batch()))
+    with pytest.raises(NotImplementedError, match="float64"):
+        port_step(state, tp.port_params())
 
 
 def test_parity_shape_takes_the_kernel_path():
