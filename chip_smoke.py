@@ -40,8 +40,9 @@ Phases (any failure exits non-zero; each prints its wall time):
    to scene 0, and the trunk at the reference's height (R5).
 6. The large single scenes: bench.py's pyramid mode (`pyramid3_world`, the
    grid broad phase, max_solver_pairs = 8 per box rounded up to 128, one
-   scene) at stacks 16 and 24 (and 31 with ``--pyramid 31``), 150 steps,
-   then 50 timed steps.  Checks the blocked solve's path, zero broad-phase /
+   scene) at stacks 16 and 24 (and 31 with ``--pyramid 31``), 120 steps,
+   then 30 timed steps (bench.py runs 150 and 50; cut for the run's time
+   limit).  Checks the blocked solve's path, zero broad-phase /
    solver overflow, finite state, and that stacks 16 and 24 have come to
    rest (the top box within PYRAMID_TOP_TOL of its resting height) and any
    other stands (not below it); prints steps/s, the top box's distance from
@@ -51,16 +52,31 @@ Phases (any failure exits non-zero; each prints its wall time):
    synchronisations, `utils/counters.profile_step`) with its kernel count
    and device-busy share (`trace_step`, torch.profiler).
    The bench step's breakdown is printed in phase 4.
-7. The card against the CPU (plain) path: 2 bench scenes and 2 quadruped
-   scenes for 10 steps each; the stack-16 pyramid after 30 steps on the
-   card (mid-landing) and after phase 6's 200 (at rest), 10 steps each
+7. The card against the CPU (plain) path: 2 bench scenes, 2 quadruped
+   scenes, 2 joints3 scenes and 2 impulse-joint quadrupeds for 10 steps each
+   (with the joints' row impulses within 1e-3 of the largest); the stack-16
+   pyramid after 30 steps on the
+   card (mid-landing) and after phase 6's 150 (at rest), 10 steps each
    stepped on the CPU from the card's state, bodies and contact cache (pair
    keys, touching flags, impulses) compared.  A free run of the pile
    amplifies rounding about twofold a step, so beside each it prints the
    free card-vs-CPU gap and, as its witness, the gap between two free CPU
    runs whose start differs by 1 ulp in one body's height.
 8. Determinism: 10 steps run twice from one state are bitwise equal, for a
-   bench batch, a quadruped batch and the stack-16 pyramid.
+   bench batch, a quadruped batch, the stack-16 pyramid and a joints3 batch.
+9. The impulse joints: 4096 replicas of the joint zoo (`scenes.joints3_world`,
+   examples/joints3.py: revolute chain, prismatic slider with a position
+   motor and limits, fixed-joint lattice, spherical rope with swing limits)
+   and 4096 impulse-joint quadrupeds (`quadruped_world(use_multibody=False)`),
+   each 240 steps, then 50 timed steps.  Both take the masked sweep (the
+   reference's gate sends scenes with joints there), so neither may launch a
+   contact-sweep kernel.  Checks zero overflow, finite state, every scene
+   bitwise equal to scene 0, and for joints3 after 240 steps the example's
+   own checks on every scene (the chain tip below y = 8, the slider within
+   0.3 of y = 7.5); prints the quadruped's trunk height after 240 steps
+   beside the reference's 0.188 (R5),
+   env-steps/s, the stage breakdown (with the `joints` stage: row builds and
+   sweeps), kernels a step and the device-busy share.
 
 The line before the last is the kernels' JSON record (with `bound_share`,
 bound over time, and each kernel's resources); the last line is
@@ -101,8 +117,25 @@ CPU_TOL = dict(pos=1e-4, vel=1e-3, imp=1e-3)
 # has a parity fault.
 TRUNK_Z = (0.045, 0.055)
 TRUNK = 1                       # body handle of the trunk
+# The impulse-joint quadruped falls more slowly; the reference's trunk is at
+# 0.188 after 240 steps (ROADMAP R5, a CPU run of the reference): printed
+# beside the port's, not checked.
+IMPULSE_TRUNK_Z_REF = 0.188
+JOINT_SETTLE = 240
+JOINT_TIMED = 50                # timed steps after the settle (launch-bound: ~0.2-0.6 s each)
+JOINT_CPU_SETTLE = 30
 PYRAMID_STACKS = (16, 24)       # bench.py's default stack and pyramid3.rs's
+# Steps before and in the timed run: a pyramid step takes ~0.7-1.4 s.
+# bench.py runs 150 and 50; at 150 + 50 the whole script took ~1,140 s of
+# its 1,200 on an H100 80GB HBM3 machine whose host ran ~35% slow, so the
+# piles run 120 + 30 (both are at rest by then: checked below).
+PYRAMID_SETTLE = 120
+PYRAMID_TIMED = 30
 PYRAMID_CPU_SETTLE = 30
+# Steps traced under torch.profiler for the launch-bound paths (pyramid and
+# joints): each of their steps launches the same kernels, and the profiler's
+# processing grows with the 15,000-51,000 launches a step.
+TRACE_STEPS_LONG = 1
 # A settled pyramid's top box rests at 2 * stack - 1 (boxes 2 high, the
 # ground's top at 0); it starts 0.5 m a level higher.  Stacks 16 and 24 have
 # come to rest by the end of the timed run: their top box must lie within
@@ -176,6 +209,40 @@ def quadruped_batch(device, n_scenes: int, seed=None):
         state.bodies.pos[:, TRUNK] += d
         state.bodies.next_pos[:, TRUNK] += d
         state.multibodies.motor_target_pos[:, 0, 1:, 3] += torch.from_numpy(servo).to(device)
+    return state, world.params
+
+
+def joints3_batch(device, n_scenes: int):
+    """The joint zoo replicated to `n_scenes` on `device`; returns (state,
+    params, handles)."""
+    from rapier_tpu_torch.scenes import joints3_world, replicate_scene
+    from rapier_tpu_torch.types import from_numpy
+
+    world, handles = joints3_world(device=device)
+    return (replicate_scene(from_numpy(world.build(), device), n_scenes), world.params,
+            handles)
+
+
+def impulse_quadruped_batch(device, n_scenes: int, seed=None):
+    """`quadruped_world(use_multibody=False)` replicated to `n_scenes` on
+    `device`; with a seed, each scene's trunk position (0.01 m) and servo
+    targets (0.05 rad) get seeded numpy noise."""
+    import numpy as np
+    import torch
+    from rapier_tpu_torch.scenes import quadruped_world, replicate_scene
+    from rapier_tpu_torch.types import from_numpy
+
+    world, robot = quadruped_world(use_multibody=False, device=device)
+    if robot.bodies["trunk"] != TRUNK:
+        _fail(f"unexpected trunk handle {robot.bodies['trunk']}")
+    state = replicate_scene(from_numpy(world.build(), device), n_scenes)
+    if seed is not None:
+        rng = np.random.default_rng(seed)
+        d = torch.from_numpy(rng.normal(0, 0.01, (n_scenes, 3)).astype(np.float32))
+        servo = rng.normal(0, 0.05, (n_scenes, 8)).astype(np.float32)
+        state.bodies.pos[:, TRUNK] += d.to(device)
+        state.bodies.next_pos[:, TRUNK] += d.to(device)
+        state.joints.motor_target_pos[:, :8, 3] += torch.from_numpy(servo).to(device)
     return state, world.params
 
 
@@ -493,14 +560,17 @@ def _stages(what, state, params, card, trace_steps: int = 3):
     and its profiler trace (kernels a step, device-busy share)."""
     from rapier_tpu_torch.utils import counters
 
+    t0 = time.time()
     t = counters.profile_step(state, params).as_dict()
     tr = counters.trace_step(state, params, steps=trace_steps)
+    took = time.time() - t0
     share = "not measured" if tr["device_share"] is None else f"{tr['device_share']:.1%}"
     device_ms = "not measured" if tr["device_ms"] is None else f"{tr['device_ms']:.3f} ms"
     print(f"{what}: stages (host ms between synchronisations) " + ", ".join(
         f"{k[:-3]} {v:.3f}" for k, v in t.items()) + f"; under the profiler a step is "
         f"{tr['wall_ms']:.3f} ms with {tr['kernels']:.0f} device kernels and copies "
-        f"busy for {device_ms} (device busy {share}) ({card})")
+        f"busy for {device_ms} (device busy {share}) ({card}); profile and trace took "
+        f"{took:.1f} s")
     for k in tr["top"] or ():
         print(f"  {k['ms']:.3f} ms a step in {k['count']:.0f} x {k['name']}")
     return dict(stages_ms=t, **tr)
@@ -571,20 +641,20 @@ def phase_pyramid(device, card, stacks):
         if stack == PYRAMID_STACKS[0]:
             # Phases 7 and 8 start from this state.
             checks["landing"] = tree_map(lambda x: x.clone(), state), params
-        state, worst_s = run(state, params, SETTLE - PYRAMID_CPU_SETTLE)
+        state, worst_s = run(state, params, PYRAMID_SETTLE - PYRAMID_CPU_SETTLE)
         torch.cuda.synchronize()
         settle_s = time.time() - t0
         for k in worst:
             worst[k] = max(worst[k], worst_s[k])
         cs.KERNEL.launches = cs.KERNEL.launches_folded = 0
         t0 = time.time()
-        state, worst_t = run(state, params, TIMED)
+        state, worst_t = run(state, params, PYRAMID_TIMED)
         torch.cuda.synchronize()
         elapsed = time.time() - t0
         launches = cs.KERNEL.launches, cs.KERNEL.launches_folded
         for k in worst:
             worst[k] = max(worst[k], worst_t[k])
-        rate = TIMED / elapsed
+        rate = PYRAMID_TIMED / elapsed
         if stack == PYRAMID_STACKS[0]:
             checks["settled"] = tree_map(lambda x: x.clone(), state), params
         b = state.bodies
@@ -594,8 +664,9 @@ def phase_pyramid(device, card, stacks):
         top, rest, start = float(b.pos[0, boxes, 1]), 2 * stack - 1, (stack - 1) * 2.5 + 1.0
         top_vy = float(b.linvel[0, boxes, 1])
         at_rest = abs(top - rest) <= PYRAMID_TOP_TOL
-        print(f"pyramid stack {stack}: {rate:.3f} steps/s ({TIMED} steps in {elapsed:.3f} s "
-              f"after {SETTLE} in {settle_s:.1f} s; {card}); overflow {worst}; contact-sweep "
+        print(f"pyramid stack {stack}: {rate:.3f} steps/s ({PYRAMID_TIMED} steps in "
+              f"{elapsed:.3f} s after {PYRAMID_SETTLE} in {settle_s:.1f} s; {card}); overflow "
+              f"{worst}; contact-sweep "
               f"launches in the timed run {launches[0]} + folded {launches[1]} (this path "
               f"has none); top box y {top:.4f} ({top - rest:+.4f} from rest at {rest}, "
               f"{'at rest' if at_rest else 'not at rest'}; started at {start}), vertical "
@@ -615,7 +686,7 @@ def phase_pyramid(device, card, stacks):
                    reference_layout_drops=ref_dropped, solver_lanes=lanes, **worst)
         if stack != stacks[0]:
             row.update(_stages(f"pyramid stack {stack} step", state, params, card,
-                               trace_steps=2))
+                               trace_steps=TRACE_STEPS_LONG))
         rows.append(row)
     return rows, checks
 
@@ -626,7 +697,7 @@ def _finite(state):
     for name in ("pos", "rot", "linvel", "angvel"):
         if not bool(torch.isfinite(getattr(state.bodies, name)).all()):
             _fail(f"non-finite bodies.{name}")
-    for name in ("q", "qd"):
+    for name in ("q", "qd") if state.multibodies is not None else ():
         if not bool(torch.isfinite(getattr(state.multibodies, name)).all()):
             _fail(f"non-finite multibodies.{name}")
 
@@ -661,12 +732,7 @@ def phase_robots(device, card):
               f"counted {folded} and {launches}")
     _next_step_storage("robots path, the step after the timed run", state, params, True)
     _finite(state)
-    for part in ("bodies", "contacts", "multibodies"):
-        p = getattr(state, part)
-        for f in dataclasses.fields(p):
-            x = getattr(p, f.name)
-            if not torch.equal(x, x[:1].expand_as(x)):
-                _fail(f"replicas differ from scene 0 in {part}.{f.name}")
+    _replicas_equal("robots path", state, ("bodies", "contacts", "multibodies"))
     _multibody_phase_ms(state, params, 1e3 / rate * N_SCENES, card)
     z = state.bodies.pos[:, TRUNK, 2]
     print(f"trunk height after {ROBOT_SETTLE + TIMED} steps: {float(z[0]):.5f} "
@@ -716,10 +782,18 @@ def _cpu_agreement(what, state, params, settle):
     cpu, _ = run(cpu, params, 10)
     dp = float((gpu.bodies.pos.cpu() - cpu.bodies.pos).abs().max())
     dv = float((gpu.bodies.linvel.cpu() - cpu.bodies.linvel).abs().max())
-    print(f"GPU vs CPU path, {state.bodies.pos.shape[0]} {what} scene(s) x 10 contact "
+    ok = dp <= CPU_TOL["pos"] and dv <= CPU_TOL["vel"]
+    joints = ""
+    if gpu.joints is not None:
+        scale = max(1e-30, float(cpu.joints.impulses.abs().max()))
+        di = float((gpu.joints.impulses.cpu() - cpu.joints.impulses).abs().max())
+        joints = (f", max |d joint impulse| {di:.3e} (tol {CPU_TOL['imp']} x {scale:.4g}, "
+                  f"the largest)")
+        ok = ok and di <= CPU_TOL["imp"] * scale
+    print(f"GPU vs CPU path, {state.bodies.pos.shape[0]} {what} scene(s) x 10 "
           f"steps: max |d pos| {dp:.3e} "
-          f"(tol {CPU_TOL['pos']}), max |d linvel| {dv:.3e} (tol {CPU_TOL['vel']})")
-    if not (dp <= CPU_TOL["pos"] and dv <= CPU_TOL["vel"]):
+          f"(tol {CPU_TOL['pos']}), max |d linvel| {dv:.3e} (tol {CPU_TOL['vel']}){joints}")
+    if not ok:
         _fail(f"GPU path disagrees with the CPU path ({what})")
 
 
@@ -784,7 +858,11 @@ def phase_cpu_agreement(device, pyramid):
     ("landing") and after phase 6's timed run ("settled")."""
     _cpu_agreement("bench", *bench_world(device, 2), 100)
     _cpu_agreement("quadruped", *quadruped_batch(device, 2, seed=3), ROBOT_CHECK_STEPS)
-    for name, steps in (("landing", PYRAMID_CPU_SETTLE), ("settled", SETTLE + TIMED)):
+    _cpu_agreement("joints3", *joints3_batch(device, 2)[:2], JOINT_CPU_SETTLE)
+    _cpu_agreement("impulse-joint quadruped", *impulse_quadruped_batch(device, 2, seed=3),
+                   ROBOT_CHECK_STEPS)
+    for name, steps in (("landing", PYRAMID_CPU_SETTLE),
+                        ("settled", PYRAMID_SETTLE + PYRAMID_TIMED)):
         _cpu_step_agreement(f"the stack-16 pyramid after {steps} steps", *pyramid[name])
 
 
@@ -811,6 +889,86 @@ def phase_determinism(device, pyramid):
     state, _ = run(state, params, ROBOT_CHECK_STEPS)
     _rerun_equal("quadruped", state, params, ("bodies", "contacts", "multibodies"))
     _rerun_equal("stack-16 pyramid", *pyramid["landing"], ("bodies", "contacts"))
+    state, params, _ = joints3_batch(device, N_CHECK)
+    state, _ = run(state, params, JOINT_CPU_SETTLE)
+    _rerun_equal("joints3", state, params, ("bodies", "contacts", "joints"))
+
+
+def _replicas_equal(what, state, parts):
+    import torch
+
+    for part in parts:
+        p = getattr(state, part)
+        for f in dataclasses.fields(p):
+            x = getattr(p, f.name)
+            if not torch.equal(x, x[:1].expand_as(x)):
+                _fail(f"{what}: replicas differ from scene 0 in {part}.{f.name}")
+
+
+def phase_joints(device, card):
+    """Phase 9: 4096 joints3 scenes and 4096 impulse-joint quadrupeds
+    through the port's step, on the masked sweep."""
+    import torch
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.pipeline.physics_pipeline import solve_path
+
+    rows = {}
+    joints3 = joints3_batch(device, N_SCENES)
+    for name, (state, params) in (("joints3", joints3[:2]),
+                                  ("impulse quadruped", impulse_quadruped_batch(device,
+                                                                                N_SCENES))):
+        path = solve_path(state, params)
+        if path != "masked":
+            _fail(f"{name} takes the {path} path, not the masked sweep")
+        cs.KERNEL.launches = cs.KERNEL.launches_folded = 0
+        t0 = time.time()
+        state, worst = run(state, params, JOINT_SETTLE)
+        torch.cuda.synchronize()
+        settle_s = time.time() - t0
+        # The example's checks, and the trunk height, after its 240 steps.
+        _finite(state)
+        b = state.bodies
+        if name == "joints3":
+            handles = joints3[2]
+            tip_y = b.pos[:, handles["chain"][-1], 1]
+            slider_y = b.pos[:, handles["slider"], 1]
+            print(f"joints3 after {JOINT_SETTLE} steps: chain tip y {float(tip_y[0]):.4f} "
+                  f"(below 8), slider y {float(slider_y[0]):.4f} (within 0.3 of 7.5), rope "
+                  f"tip {b.pos[0, handles['rope'][-1]].tolist()} in scene 0; the checks "
+                  f"hold in all {N_SCENES} scenes")
+            if not (bool((tip_y < 8.0).all()) and bool(((slider_y - 7.5).abs() < 0.3).all())):
+                _fail("joints3: the example's checks fail")
+            row = dict(chain_tip_y=float(tip_y[0]), slider_y=float(slider_y[0]))
+        else:
+            z = float(b.pos[0, TRUNK, 2])
+            print(f"impulse-joint quadruped: trunk height {z:.5f} after {JOINT_SETTLE} "
+                  f"steps (the reference's: {IMPULSE_TRUNK_Z_REF}, R5)")
+            row = dict(trunk_z=z)
+        t0 = time.time()
+        state, worst_t = run(state, params, JOINT_TIMED)
+        torch.cuda.synchronize()
+        elapsed = time.time() - t0
+        launches = cs.KERNEL.launches, cs.KERNEL.launches_folded
+        for k in worst:
+            worst[k] = max(worst[k], worst_t[k])
+        rate = N_SCENES * JOINT_TIMED / elapsed
+        print(f"{name}: {rate:.1f} env-steps/s ({N_SCENES} scenes x {JOINT_TIMED} steps in "
+              f"{elapsed:.3f} s after {JOINT_SETTLE} in {settle_s:.1f} s; {card}); "
+              f"{state.joints.n} joints a scene (padded to 8), row slots "
+              f"{params.joint_slots}; overflow {worst}; contact-sweep "
+              f"launches {launches[0]} + folded {launches[1]} (the masked sweep has none)")
+        if worst["broadphase_overflow"] or worst["solver_overflow"]:
+            _fail(f"{name} overflows: {worst}")
+        if launches != (0, 0):
+            _fail(f"{name} launched a contact-sweep kernel: {launches}")
+        _finite(state)
+        _replicas_equal(name, state, ("bodies", "contacts", "joints"))
+        print(f"{name}: all {N_SCENES} scenes bitwise equal to scene 0 after "
+              f"{JOINT_SETTLE + JOINT_TIMED} steps")
+        rows[name] = dict(env_steps_per_s=rate, **row, **worst,
+                          **_stages(f"{name} step, {N_SCENES} scenes", state, params, card,
+                                    trace_steps=TRACE_STEPS_LONG))
+    return rows
 
 
 LANE_KEYS = ("b1", "b2", "valid", "color", "normal", "point", "point_active", "dist",
@@ -948,7 +1106,7 @@ def main():
     card = _card_line()
     print(card)   # name, power limit: nvidia-smi's own line
 
-    t0 = time.time()
+    start = t0 = time.time()
     cs.KERNEL.build()
     print(f"built contact_sweep.cu in {time.time() - t0:.1f} s")
     for line in cs.KERNEL.build_log.splitlines():
@@ -973,8 +1131,11 @@ def main():
     pyramids, pyramid16 = phase(phase_pyramid, device, card, stacks)
     phase(phase_cpu_agreement, device, pyramid16)
     phase(phase_determinism, device, pyramid16)
+    joints = phase(phase_joints, device, card)
+    print(f"[all phases, the build included: {time.time() - start:.1f} s of the 1,200 allowed]")
 
-    print(json.dumps({"pyramid": pyramids, "bench_step": bench_stages, "card": card}))
+    print(json.dumps({"pyramid": pyramids, "bench_step": bench_stages, "joints": joints,
+                      "card": card}))
     source = "rapier_tpu_torch/csrc/contact_sweep.cu"
     print(json.dumps({"kernels": [
         {"name": "contact_sweep_kernel", "route": "cuda", "source": source,

@@ -5,19 +5,22 @@ Substep dt = dt / num_solver_iterations (island_solver.rs:50-54).  The
 kernel path's substep loop lives with the contact-solve kernel
 (`contact_sweep.py`); this module builds its inputs, writes its results back,
 and holds the substep loops of the two non-kernel paths: `solve`, the masked
-color sweep over every lane, and `solve_blocked`, one pass per static color
-block.  Body arrays are ``[B, N, ...]``; solver bodies are component-leading
-``[B, d, N+1]`` with a zeroed sentinel column N.
+color sweep over every lane (with the impulse joints' rows, where a scene
+has joints), and `solve_blocked`, one pass per static color block.  Body
+arrays are ``[B, N, ...]``; solver bodies are component-leading ``[B, d,
+N+1]`` with a zeroed sentinel column N.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from rapier_tpu_torch.dynamics.solver import contact_constraints as cc
+from rapier_tpu_torch.dynamics.solver import joint_constraints as jc
 from rapier_tpu_torch.dynamics.solver.contact_constraints import SolverBodies
 from rapier_tpu_torch.math import quat
 from rapier_tpu_torch.types import (
@@ -28,6 +31,15 @@ from rapier_tpu_torch.types import (
     spring_cfm_factor,
     spring_erp_inv_dt,
 )
+from rapier_tpu_torch.utils.counters import stage
+
+
+class JointSolve(NamedTuple):
+    """The impulse joints of a step as the solve takes them."""
+
+    joints: object             # types.Joints, ``[B, J, ...]``
+    color: torch.Tensor        # [B, J] Luby colors
+    n_colors: int              # the batch's largest color count
 
 
 def _unlocked(bodies, first_bit):
@@ -167,13 +179,33 @@ def integrate_poses(sb: SolverBodies, move_mask, dt_sub) -> SolverBodies:
     return sb._replace(com=com, rot=rot)
 
 
-def _substeps(bodies, sb, constraints, active, params: SimParams, route, sweep):
+def _substeps(bodies, sb, constraints, active, params: SimParams, route, sweep,
+              joints: JointSolve = None):
     """The TGS-soft substep loop around `sweep(constraints, sb, use_bias)`:
-    external increments, the soft-rhs update, warmstart (through `route`),
-    the biased sweeps, pose integration, the bias-free sweeps."""
+    external increments, the joint rows rebuilt from the current poses
+    (joint_constraint_builder.rs:66-106), the soft-rhs update, warmstart
+    (through `route`), the biased sweeps, pose integration, the bias-free
+    sweeps; in each iteration the joint sweep runs before the contact
+    sweep.  Returns (sb, constraints, the last substep's joint rows or
+    None)."""
     si = substep_inputs(bodies, sb, active, params)
+    n = bodies.body_type.shape[-1]
+    rows = jroute = None
+
+    def joint_sweep(rows, s, use_bias):
+        with stage("joints"):
+            for ci in range(joints.n_colors):
+                rows, s = jc.solve_color(rows, s, ci, use_bias=use_bias, route=jroute)
+        return rows, s
+
     for _ in range(si["n_sub"]):
         sb = sb._replace(v_lin=sb.v_lin + si["dv_inc"], v_ang=sb.v_ang + si["dw_inc"])
+        if joints is not None:
+            with stage("joints"):
+                rows = jc.build_rows(joints.joints, sb, joints.color, si["dt_sub"],
+                                     si["inv_dt_sub"], n, params.joint_slots)
+                if jroute is None:
+                    jroute = jc.segment_route(rows.b1, rows.b2, n)
         constraints = cc.update(
             constraints, sb, cfm_factor=si["cfm_factor"], inv_dt=si["inv_dt_sub"],
             allowed_lin_err=float(params.allowed_linear_error()),
@@ -182,19 +214,25 @@ def _substeps(bodies, sb, constraints, active, params: SimParams, route, sweep):
             warmstart_coeff=float(params.warmstart_coefficient))
         sb = cc.warmstart(constraints, sb, route)
         for _ in range(params.num_internal_pgs_iterations):
+            if joints is not None:
+                rows, sb = joint_sweep(rows, sb, True)
             constraints, sb = sweep(constraints, sb, True)
         sb = integrate_poses(sb, si["move_mask"], si["dt_sub"])
         for _ in range(params.num_internal_stabilization_iterations):
+            if joints is not None:
+                rows, sb = joint_sweep(rows, sb, False)
             constraints, sb = sweep(constraints, sb, False)
-    return sb, constraints
+    return sb, constraints, rows
 
 
 def solve(bodies, sb: SolverBodies, constraints, num_colors, active,
-          params: SimParams, route):
-    """The masked sweep (velocity_solver.py:178-254, contacts only): each
-    pass solves one color over every lane, masked.  Every scene sweeps the
+          params: SimParams, route, joints: JointSolve = None):
+    """The masked sweep (velocity_solver.py:178-254): each pass solves one
+    color over every lane, masked; with `joints`, the joint colors' passes
+    precede the contact passes of every iteration.  Every scene sweeps the
     batch's largest color count; colors past a scene's own are empty and
-    change nothing.  Returns (sb, constraints)."""
+    change nothing.  Returns (sb, constraints, the last substep's joint
+    rows or None)."""
     ncol = int(torch.max(num_colors)) if num_colors.numel() else 0
 
     def sweep(cons, s, use_bias):
@@ -202,7 +240,7 @@ def solve(bodies, sb: SolverBodies, constraints, num_colors, active,
             cons, s = cc.solve_color(cons, s, ci, use_bias=use_bias, route=route)
         return cons, s
 
-    return _substeps(bodies, sb, constraints, active, params, route, sweep)
+    return _substeps(bodies, sb, constraints, active, params, route, sweep, joints)
 
 
 def _slice_lanes(c: cc.ContactConstraints, start: int, width: int):
@@ -231,7 +269,8 @@ def solve_blocked(bodies, sb: SolverBodies, constraints, blocks, route, active,
             f: torch.cat([getattr(p, f) for p in parts], dim=-1)
             for f in ("impulse", "tan_impulse", "twist_impulse")}), s
 
-    return _substeps(bodies, sb, constraints, active, params, route, sweep)
+    sb, constraints, _ = _substeps(bodies, sb, constraints, active, params, route, sweep)
+    return sb, constraints
 
 
 def writeback(bodies, sb: SolverBodies, active, params: SimParams):

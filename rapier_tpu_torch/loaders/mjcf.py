@@ -6,15 +6,18 @@ elements; free joints, and hinge joints with ``axis``, ``pos``, ``limited``
 and ``range``; box, capsule (``size`` with ``fromto``) and plane geoms with
 ``density`` and ``friction``; ``position``, ``motor`` and ``velocity``
 actuators with ``joint``, ``kp``, ``kv`` and ``gear``.  Joints are inserted as
-reduced-coordinate multibody joints only (``use_multibody=True``).  Every
-other element or attribute raises NotImplementedError naming it, so nothing
-the reference would read is dropped silently.
+reduced-coordinate multibody joints (``use_multibody=True``) or as impulse
+joints (``use_multibody=False``).  Every other element or attribute raises
+NotImplementedError naming it, so nothing the reference would read is
+dropped silently.
 
 Semantics follow the reference loader: world geoms hang on a fixed body, a
-body with a free joint is a dynamic articulation root, a hinge's frames put
-the joint axis on X and coincide at the assembled rest pose, contacts between
-a link and its parent are disabled, MJCF contype/conaffinity map to collision
-groups, and a position actuator installs a PD motor (kv defaults to kp/10).
+body with a free joint is a free dynamic body (an articulation root), a
+top-level hinged body is jointed to a fixed world anchor made at first need,
+a hinge's frames put the joint axis on X and coincide at the assembled rest
+pose, contacts between a body and its joint parent are disabled, MJCF
+contype/conaffinity map to collision groups, and a position actuator
+installs a PD motor (kv defaults to kp/10).
 """
 
 from __future__ import annotations
@@ -76,8 +79,7 @@ def _quat_mul(a, b):
 
 
 def _quat_rotate(q, v):
-    u, w = np.asarray(q[:3], float), float(q[3])
-    v = np.asarray(v, float)
+    u, w = q[:3], q[3]
     t = 2.0 * np.cross(u, v)
     return v + w * t + np.cross(u, t)
 
@@ -111,18 +113,69 @@ class MjcfRobotHandles:
             self._mb_slots[jname] = world.multibody_link_of(child)
         return self._mb_slots[jname]
 
+    def _impulse_joint(self, world: PhysicsWorld, jname: str):
+        """(body1, body2, axis slot, the joint's local frames on the host)
+        of an impulse-inserted joint."""
+        j = self.joints[jname]
+        joints = world.state.joints
+        table = {name: getattr(joints, name)[0, j].cpu().numpy()
+                 for name in ("local_pos1", "local_pos2", "local_rot1", "local_rot2")}
+        return (int(joints.body1[0, j]), int(joints.body2[0, j]), self.joint_axis[jname],
+                table)
+
+    def joint_value(self, world: PhysicsWorld, jname: str) -> float:
+        """A 1-dof joint's coordinate (revolute angle, prismatic
+        displacement): the articulation's, or read from the two bodies'
+        poses for an impulse joint."""
+        if self.use_multibody:
+            ti, li = self._mb_slot(world, jname)
+            return float(world.multibody_q(ti)[li, self.joint_axis[jname]])
+        b1, b2, ax, jt = self._impulse_joint(world, jname)
+        q1, q2 = world.body_rotation(b1), world.body_rotation(b2)
+        f1 = _quat_mul(q1, jt["local_rot1"])
+        f2 = _quat_mul(q2, jt["local_rot2"])
+        if ax >= 3:
+            # Relative rotation about the joint axis (frame X by convention).
+            qerr = _quat_mul(np.array([-f1[0], -f1[1], -f1[2], f1[3]]), f2)
+            if np.dot(f1, f2) < 0:
+                qerr = -qerr
+            return float(2.0 * math.asin(np.clip(qerr[0], -1.0, 1.0)))
+        p1 = world.body_translation(b1) + _quat_rotate(q1, jt["local_pos1"])
+        p2 = world.body_translation(b2) + _quat_rotate(q2, jt["local_pos2"])
+        return float(np.dot(p2 - p1, _quat_rotate(f1, np.array([1.0, 0.0, 0.0]))))
+
+    def joint_velocity(self, world: PhysicsWorld, jname: str) -> float:
+        """A 1-dof joint's velocity: the articulation's, or the two bodies'
+        relative velocity along the joint axis for an impulse joint."""
+        if self.use_multibody:
+            ti, li = self._mb_slot(world, jname)
+            return float(world.multibody_qd(ti)[li, self.joint_axis[jname]])
+        b1, b2, ax, jt = self._impulse_joint(world, jname)
+        f1 = _quat_mul(world.body_rotation(b1), jt["local_rot1"])
+        axis_w = _quat_rotate(f1, np.array([1.0, 0.0, 0.0]))
+        if ax >= 3:
+            rel = world.body_angvel(b2) - world.body_angvel(b1)
+        else:
+            rel = world.body_linvel(b2) - world.body_linvel(b1)
+        return float(np.dot(rel, axis_w))
+
     def apply_controls(self, world: PhysicsWorld, ctrl):
         """Drive the actuators: position -> motor target position, motor and
         velocity -> motor target velocity, each scaled by its gear.  Writes
         the world's (batch-of-one) state in place."""
-        mb = world.state.multibodies
         for a, u in zip(self.actuators, np.asarray(ctrl)):
             if a.joint not in self.joints:
                 continue
-            ti, li = self._mb_slot(world, a.joint)
             ax = self.joint_axis[a.joint]
-            target = mb.motor_target_pos if a.kind == "position" else mb.motor_target_vel
-            target[0, ti, li, ax] = float(u) * a.gear
+            if self.use_multibody:
+                mb = world.state.multibodies
+                target = mb.motor_target_pos if a.kind == "position" else mb.motor_target_vel
+                ti, li = self._mb_slot(world, a.joint)
+                target[0, ti, li, ax] = float(u) * a.gear
+            else:
+                js = world.state.joints
+                target = js.motor_target_pos if a.kind == "position" else js.motor_target_vel
+                target[0, self.joints[a.joint], ax] = float(u) * a.gear
 
 
 def _geom_collider(attrs) -> ColliderBuilder:
@@ -152,8 +205,6 @@ def load_mjcf(xml: str, world: PhysicsWorld, *, use_multibody: bool = True
               ) -> MjcfRobotHandles:
     """Parse an MJCF model (an XML string) and insert it into `world`.
     MJCF is Z-up: scenes built from it set gravity to (0, 0, -9.81)."""
-    if not use_multibody:
-        raise NotImplementedError("MJCF robots as impulse joints are not ported")
     root = ET.fromstring(xml)
     if root.tag != "mujoco":
         raise ValueError(f"not an MJCF document (root <{root.tag}>)")
@@ -166,7 +217,20 @@ def load_mjcf(xml: str, world: PhysicsWorld, *, use_multibody: bool = True
     angle_unit = compiler.get("angle", "degree") if compiler is not None else "degree"
     angle_scale = math.pi / 180.0 if angle_unit == "degree" else 1.0
 
-    handles = MjcfRobotHandles()
+    handles = MjcfRobotHandles(use_multibody=use_multibody)
+    anchor = []
+
+    def insert_joint(parent, child, gb):
+        if use_multibody:
+            return world.insert_multibody_joint(parent, child, gb)
+        return world.insert_impulse_joint(parent, child, gb)
+
+    def world_anchor():
+        """The fixed body at the origin that top-level hinged bodies are
+        jointed to, made at first need."""
+        if not anchor:
+            anchor.append(world.insert_body(RigidBodyBuilder.fixed()))
+        return anchor[0]
 
     def insert_geoms(body_handle, elem):
         for g in elem.findall("geom"):
@@ -192,8 +256,6 @@ def load_mjcf(xml: str, world: PhysicsWorld, *, use_multibody: bool = True
                 _unsupported("body without a joint (fixed joint)")
             if len(joints) > 1:
                 _unsupported("body with several joints")
-            if parent_handle is None and not has_free:
-                _unsupported("top-level body jointed to the world")
             bb = RigidBodyBuilder.dynamic()
             bb.translation = tuple(wpos)
             bb.rotation = tuple(wrot)
@@ -204,17 +266,22 @@ def load_mjcf(xml: str, world: PhysicsWorld, *, use_multibody: bool = True
                 j = joints[0]
                 if types[0] != "hinge":
                     _unsupported(f"joint type {types[0]!r}")
+                # A top-level hinge anchors to the world body, in world
+                # coordinates.
+                p_handle, a_pos, a_rot = parent_handle, bpos, brot
+                if parent_handle is None:
+                    p_handle, a_pos, a_rot = world_anchor(), wpos, wrot
                 jpos = _vec(j.get("pos"), (0, 0, 0))
                 gb = GenericJointBuilder.revolute(_vec(j.get("axis"), (0, 0, 1)))
-                gb.with_local_anchor1(tuple(bpos + _quat_rotate(brot, jpos)))
+                gb.with_local_anchor1(tuple(a_pos + _quat_rotate(a_rot, jpos)))
                 gb.with_local_anchor2(tuple(jpos))
                 gb.with_contacts_enabled(False)
-                gb.local_frame_rot1 = tuple(_quat_mul(brot, np.asarray(gb.local_frame_rot2)))
+                gb.local_frame_rot1 = tuple(_quat_mul(a_rot, np.asarray(gb.local_frame_rot2)))
                 if j.get("limited", "false") in ("true", "1") and "range" in j.attrib:
                     rng = _vec(j.get("range"), (0, 0))
                     gb.with_limits(3, rng[0] * angle_scale, rng[1] * angle_scale)
                 name = j.get("name", f"joint{h}")
-                handles.joints[name] = world.insert_multibody_joint(parent_handle, h, gb)
+                handles.joints[name] = insert_joint(p_handle, h, gb)
                 handles.joint_axis[name] = 3
                 handles.joint_order.append(name)
             walk(b, h, wpos, wrot)
@@ -245,7 +312,8 @@ def load_mjcf(xml: str, world: PhysicsWorld, *, use_multibody: bool = True
             j = handles.joints.get(jname)
             if j is not None and world.state is None:
                 ax = handles.joint_axis[jname]
-                gbj = world._pending_mb_joints[j][0]
+                gbj = (world._pending_mb_joints if use_multibody
+                       else world._pending_joints)[j][0]
                 if a.tag == "position":
                     gbj.with_motor_position(ax, 0.0, kp, kv if kv > 0 else kp * 0.1)
                 elif a.tag == "velocity":

@@ -5,21 +5,22 @@ rapier_tpu.pipeline.physics_pipeline.step).
 scene axis ``[B, ...]`` and advances all B scenes by ``params.dt``: multibody
 forward dynamics (phase A), kinematic velocities, AABBs with margins, the
 broad phase (all pairs, SAP or the grid), the narrow phase, the warmstart
-join against the contact cache, the link-parent contact filter,
-started/stopped events, wake propagation, the link mobility install (phase
-B), the contact solve, writeback, the multibody impulse absorption with joint
-integration (phase C), sleeping, and the new contact cache with `StepEvents`.
+join against the contact cache, the contact filter of impulse joints and
+link-parent pairs, started/stopped events, wake propagation over contacts
+and joints, the link mobility install (phase B), the joint and contact
+solve, writeback, the multibody impulse absorption with joint integration
+(phase C), sleeping, and the new contact cache with `StepEvents`.
 
 The contact solve takes the reference's path for the scene (`solve_path`,
 physics_pipeline.py:554-562, :664-667): the contact-sweep kernel (the
 reference's Pallas kernel; a CUDA kernel on the card) where its gate holds;
 otherwise, above DENSE_ROUTE_ELEMS lane x body elements, the blocked solve of
 large scenes, and below it the masked color sweep.  solver_backend="jax"
-never takes the kernel.
+never takes the kernel.  A scene with impulse joints takes the masked sweep
+at any size: the joints' colored passes run before the contact passes.
 
-Not ported (NotImplementedError): impulse joints, multibody dof couplings,
-meshes, convex hulls, CCD, hooks, FrictionModel.COULOMB, the 2x2 block
-solver, f64.
+Not ported (NotImplementedError): multibody dof couplings, meshes, convex
+hulls, CCD, hooks, FrictionModel.COULOMB, the 2x2 block solver, f64.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 from rapier_tpu_torch.dynamics import multibody as mbmod
 from rapier_tpu_torch.dynamics.solver import velocity_solver as vs
 from rapier_tpu_torch.dynamics.solver import contact_constraints as cc
+from rapier_tpu_torch.dynamics.solver import joint_constraints as jc
 from rapier_tpu_torch.dynamics.solver.coloring import (
     color_constraints,
     color_constraints_blocked,
@@ -155,7 +157,8 @@ def solve_path(state: SceneState, params: SimParams) -> str:
     (physics_pipeline.py:554-562, :664-667), refusing first what the port
     does not carry.  Returns "kernel" (the contact-sweep kernel, the
     reference's Pallas path), "blocked" (the blocked solve, above the dense
-    routing limit) or "masked" (the masked color sweep)."""
+    routing limit) or "masked" (the masked color sweep, and every scene
+    with impulse joints)."""
     if params.enable_ccd:
         raise NotImplementedError("CCD is not ported")
     if params.friction_model == int(FrictionModel.COULOMB):
@@ -165,11 +168,11 @@ def solve_path(state: SceneState, params: SimParams) -> str:
     if state.bodies.pos.dtype != torch.float32:
         raise NotImplementedError(f"{state.bodies.pos.dtype} scenes are not ported "
                                   "(the port is float32, like the reference's kernels)")
+    if state.joints is not None:
+        return "masked"
     n = state.bodies.body_type.shape[-1]
     p_lanes = state.contacts.max_pairs
-    # `joints is None` holds: the port's SceneState carries no impulse
-    # joints (from_numpy refuses a state with them).  "auto" takes the
-    # kernel, as the reference does on its TPU.
+    # "auto" takes the kernel, as the reference does on its TPU.
     if params.solver_backend != "jax" and vmem_feasible(p_lanes, n + 1):
         return "kernel"
     return "blocked" if p_lanes * (n + 1) > DENSE_ROUTE_ELEMS else "masked"
@@ -216,7 +219,8 @@ def _solve_kernel(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_n
                   ws_t, ws_tw):
     """The contact-sweep kernel's path (physics_pipeline.py:568-663): the
     touching lanes compacted to max_solver_pairs, Luby colors, the kernel.
-    Returns (sb, impulse block ``[B, 14, P]``, solver_overflow ``[B]``)."""
+    Returns (sb, impulse block ``[B, 14, P]``, solver_overflow ``[B]``,
+    None: no joint rows)."""
     n = bodies.body_type.shape[-1]
     sent = n
     si = vs.substep_inputs(bodies, sb, active, params)
@@ -257,7 +261,7 @@ def _solve_kernel(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_n
         max_colors=params.max_colors, **lanes)
     if compact:
         imp = _scatter_back(imp, src, kvalid, _unsolved(man, ws_n, ws_t, ws_tw))
-    return sb, imp, solver_overflow
+    return sb, imp, solver_overflow, None
 
 
 def _solve_blocked(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_n,
@@ -267,7 +271,8 @@ def _solve_blocked(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_
     blocks, and each Gauss-Seidel pass runs one block.  The Jacobi tail block
     holds every lane the Luby rounds leave (`solve_caps`; the reference drops
     those past its cap, ROADMAP R7).  Returns (sb, impulse block
-    ``[B, 14, P]``, solver_overflow ``[B]``: lanes that got no slot)."""
+    ``[B, 14, P]``, solver_overflow ``[B]``: lanes that got no slot, None:
+    no joint rows)."""
     n = bodies.body_type.shape[-1]
     sent = n
     p_lanes = man.body1.shape[-1]
@@ -325,15 +330,18 @@ def _solve_blocked(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_
     # Back to the pair lanes; lanes without a slot keep their warmstart.
     has_slot = (slot < w_total).unsqueeze(1)
     imp = take_lanes(_impulse_block(cons), torch.clamp(slot, max=w_total - 1).long())
-    return sb, torch.where(has_slot, imp, _unsolved(man, ws_n, ws_t, ws_tw)), solver_overflow
+    imp = torch.where(has_slot, imp, _unsolved(man, ws_n, ws_t, ws_tw))
+    return sb, imp, solver_overflow, None
 
 
 def _solve_masked(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_n,
-                  ws_t, ws_tw):
+                  ws_t, ws_tw, joints=None):
     """The masked sweep (physics_pipeline.py:798-936): the touching lanes
     compacted to max_solver_pairs, Luby colors, and one masked pass over
-    every lane per color.  Returns (sb, impulse block ``[B, 14, P]``,
-    solver_overflow ``[B]``)."""
+    every lane per color, after the passes of the joint colors where
+    `joints` (a `velocity_solver.JointSolve`) is given.  Returns (sb,
+    impulse block ``[B, 14, P]``, solver_overflow ``[B]``, the last
+    substep's joint rows or None)."""
     n = bodies.body_type.shape[-1]
     p_lanes = man.body1.shape[-1]
     cap = params.max_solver_pairs
@@ -366,11 +374,11 @@ def _solve_masked(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_n
                          twist_impulse=ws_tw_s)
     route = cc.RoutePlan(seg_pair=make_segment_plan(torch.cat([cons.b1, cons.b2], dim=-1),
                                                     n + 1))
-    sb, cons = vs.solve(bodies, sb, cons, num_colors, active, params, route)
+    sb, cons, rows = vs.solve(bodies, sb, cons, num_colors, active, params, route, joints)
     imp = _impulse_block(cons)
     if compact:
         imp = _scatter_back(imp, src, kvalid, _unsolved(man, ws_n, ws_t, ws_tw))
-    return sb, imp, solver_overflow
+    return sb, imp, solver_overflow, rows
 
 
 def step(state: SceneState, params: SimParams):
@@ -440,17 +448,27 @@ def step(state: SceneState, params: SimParams):
             state.contacts, man)
         started = man.touching & ~prev_touch
 
-        # Pairs of a link and its parent with contacts disabled leave the solve
-        # (physics_pipeline.py:337-369).  The impulse-joint keys join this table
-        # when impulse joints are ported.
+        # Pairs of bodies joined by an impulse joint, or of a link and its
+        # parent, with contacts disabled leave the solve
+        # (physics_pipeline.py:337-369): one table of pair keys.
+        joints = state.joints
+        imax = torch.iinfo(torch.int32).max
+        jkeys = []
+        if joints is not None:
+            jb1 = torch.minimum(joints.body1, joints.body2)
+            jb2 = torch.maximum(joints.body1, joints.body2)
+            no_c = joints.enabled & ~joints.contacts_enabled & (jb1 >= 0)
+            jkeys.append(torch.where(no_c, jb1 * n + jb2, imax))
         if multibodies is not None:
             lb = multibodies.link_body                            # [B, M, L]
             lp = torch.clamp(multibodies.link_parent, 0, multibodies.l - 1).long()
             pb = torch.gather(lb, -1, lp)
             no_c = (multibodies.link_valid & ~multibodies.contacts_enabled
                     & (multibodies.link_parent >= 0) & (lb >= 0) & (pb >= 0) & (pb != lb))
-            jkeys = torch.where(no_c, torch.minimum(lb, pb) * n + torch.maximum(lb, pb),
-                                torch.iinfo(torch.int32).max).reshape(bsz, -1)
+            jkeys.append(torch.where(no_c, torch.minimum(lb, pb) * n + torch.maximum(lb, pb),
+                                     imax).reshape(bsz, -1))
+        if jkeys:
+            jkeys = torch.cat(jkeys, dim=-1)
             mb1 = torch.minimum(man.body1, man.body2)
             mb2 = torch.maximum(man.body1, man.body2)
             mkey = torch.where(mb1 >= 0, mb1 * n + mb2, -1)
@@ -460,22 +478,36 @@ def step(state: SceneState, params: SimParams):
         stopped = prev_c.touching & ~still & (prev_c.pair_key >= 0)
 
     # 5. Wake-up on contact start + awake propagation over the
-    #    dynamic-dynamic touching graph (physics_pipeline.py:380-499).
+    #    dynamic-dynamic graph of touching pairs and enabled joints
+    #    (physics_pipeline.py:380-499).
     with stage("wake"):
         dyn = bodies.body_type == BodyType.DYNAMIC
         sent = n
-        edge_dd = (man.touching & (man.body1 >= 0) & (man.body2 >= 0)
-                   & man.dyn1 & man.dyn2)
-        t1 = torch.where(edge_dd, man.body1, sent).long()
-        t2 = torch.where(edge_dd, man.body2, sent).long()
+
+        def is_dyn(b):
+            """Dynamic body at each id ``[B, K]`` (False for padding, -1)."""
+            return (b >= 0) & torch.gather(dyn, 1, b.clamp(min=0).long())
+
+        eb1, eb2 = man.body1, man.body2
+        emask = man.touching & (eb1 >= 0) & (eb2 >= 0)
+        edyn = man.dyn1 & man.dyn2
+        if joints is not None:
+            eb1 = torch.cat([eb1, joints.body1], dim=-1)
+            eb2 = torch.cat([eb2, joints.body2], dim=-1)
+            emask = torch.cat([emask, joints.enabled & (joints.body1 >= 0)
+                               & (joints.body2 >= 0)], dim=-1)
+            edyn = torch.cat([edyn, is_dyn(joints.body1) & is_dyn(joints.body2)], dim=-1)
+        edge_dd = emask & edyn
+        t1 = torch.where(edge_dd, eb1, sent).long()
+        t2 = torch.where(edge_dd, eb2, sent).long()
         # Large scenes (:409-426, :454-466): the touching edges, and the lanes
         # that start touching, are compacted to max_solver_pairs before they
         # propagate; edges beyond the cap are dropped for this step, as in the
         # reference.
-        p_lanes = man.body1.shape[-1]
+        e_lanes = t1.shape[-1]
         cap_e = params.max_solver_pairs
-        dense = p_lanes * (n + 1) <= DENSE_ROUTE_ELEMS and n * n <= DENSE_ROUTE_ELEMS
-        compact_edges = 0 < cap_e < p_lanes and not dense
+        dense = e_lanes * (n + 1) <= DENSE_ROUTE_ELEMS and n * n <= DENSE_ROUTE_ELEMS
+        compact_edges = 0 < cap_e < e_lanes and not dense
         compact_started = compact_edges and not (
             cap_e * (n + 1) <= DENSE_ROUTE_ELEMS and n * n <= DENSE_ROUTE_ELEMS)
         if compact_edges:
@@ -534,7 +566,18 @@ def step(state: SceneState, params: SimParams):
     solve = {"kernel": _solve_kernel, "blocked": _solve_blocked,
              "masked": _solve_masked}[path]
     with stage("solve"):
-        sb, imp, solver_overflow = solve(bodies, sb, active, params, **lanes)
+        if joints is not None:
+            # Joint colors over the dynamic bodies (:881-890); the scene's
+            # sleeping bodies do not change them.
+            jcolor, n_jcolors = color_constraints(
+                joints.body1, joints.body2, is_dyn(joints.body1), is_dyn(joints.body2),
+                joints.enabled & (joints.body1 >= 0), n, params.max_colors)
+            lanes["joints"] = vs.JointSolve(joints, jcolor, int(n_jcolors.max()))
+        sb, imp, solver_overflow, joint_rows = solve(bodies, sb, active, params, **lanes)
+    if joint_rows is not None:
+        # The last substep's impulses (:897-898).
+        joints = dataclasses.replace(
+            joints, impulses=jc.full_slots(joint_rows.impulse, joint_rows.slots))
     bodies = vs.writeback(bodies, sb, active, params)
     if multibodies is not None:
         # Phase C (physics_pipeline.py:939-946): link velocity deltas into
@@ -591,7 +634,8 @@ def step(state: SceneState, params: SimParams):
     collision_gate = (man.active_events_or & ACTIVE_EVENTS_COLLISION) != 0
     force_gate = (man.active_events_or & ACTIVE_EVENTS_CONTACT_FORCE) != 0
     new_state = SceneState(bodies=bodies, colliders=colliders, contacts=contacts,
-                           step_count=state.step_count + 1, multibodies=multibodies)
+                           step_count=state.step_count + 1, multibodies=multibodies,
+                           joints=joints)
     zero_b = torch.zeros((bsz,), dtype=torch.int32, device=dev)
     events = StepEvents(
         started_pairs=started & collision_gate,

@@ -6,7 +6,15 @@ import numpy as np
 import torch
 
 from rapier_tpu_torch.types import tree_map
-from rapier_tpu_torch.world import ColliderBuilder, PhysicsWorld, RigidBodyBuilder
+from rapier_tpu_torch.world import (
+    ColliderBuilder,
+    FixedJointBuilder,
+    PhysicsWorld,
+    PrismaticJointBuilder,
+    RevoluteJointBuilder,
+    RigidBodyBuilder,
+    SphericalJointBuilder,
+)
 
 
 def mixed_primitives_world(num_layers: int = 4, grid: int = 4, rad: float = 0.5,
@@ -142,14 +150,74 @@ def _quadruped_xml() -> str:
 
 
 def quadruped_world(use_multibody: bool = True, **world_kw):
-    """Quadruped standing on a plane, as a reduced-coordinate articulation.
-    Returns (world, MjcfRobotHandles).  The impulse-joint form
-    (use_multibody=False) is not ported."""
+    """Quadruped standing on a plane: a reduced-coordinate articulation, or
+    with use_multibody=False eight impulse joints.  Returns (world,
+    MjcfRobotHandles)."""
     from rapier_tpu_torch.loaders.mjcf import load_mjcf
 
     world_kw.setdefault("gravity", (0.0, 0.0, -9.81))
     w = PhysicsWorld(**world_kw)
     return w, load_mjcf(_quadruped_xml(), w, use_multibody=use_multibody)
+
+
+def joints3_world(**world_kw):
+    """The joint zoo of examples/joints3.py (examples3d/joints3.rs): a
+    5-link revolute chain hanging from a fixed anchor, a prismatic slider
+    with a position motor and limits, a 3x3 fixed-joint lattice hung from
+    its top middle body, and a 4-link spherical rope whose last joint has
+    swing limits.  Returns (world, {"chain": [...], "slider": h, "rope": [...]})."""
+    rb, cb = RigidBodyBuilder, ColliderBuilder
+    w = PhysicsWorld(**world_kw)
+
+    anchor = w.insert_body(rb.fixed().with_translation((0, 8, 0)))
+    prev, chain = anchor, []
+    for i in range(5):
+        b = w.insert_body(rb.dynamic().with_translation((0.6 * (i + 1), 8, 0)))
+        w.insert_collider(cb.cuboid(0.25, 0.1, 0.1), b)
+        jb = RevoluteJointBuilder((0, 0, 1)).with_local_anchor1(
+            (0.3, 0, 0) if prev != anchor else (0.0, 0.0, 0.0)
+        ).with_local_anchor2((-0.3, 0, 0)).with_contacts_enabled(False)
+        w.insert_impulse_joint(prev, b, jb)
+        chain.append(b)
+        prev = b
+
+    base = w.insert_body(rb.fixed().with_translation((4, 6, 0)))
+    slider = w.insert_body(rb.dynamic().with_translation((4, 6, 0)))
+    w.insert_collider(cb.cuboid(0.3, 0.3, 0.3), slider)
+    pj = PrismaticJointBuilder((0, 1, 0)).with_limits(0, -2.0, 2.0)
+    pj = pj.with_motor_position(0, 1.5, 200.0, 20.0).with_contacts_enabled(False)
+    w.insert_impulse_joint(base, slider, pj)
+
+    grid = {}
+    for r in range(3):
+        for c in range(3):
+            top = r == 0 and c == 1
+            bb = rb.fixed() if top else rb.dynamic()
+            b = w.insert_body(bb.with_translation((8 + c * 0.6, 8 - r * 0.6, 0)))
+            if not top:
+                w.insert_collider(cb.ball(0.2), b)
+            grid[(r, c)] = b
+    for (r, c), b in grid.items():
+        for (dr, dc, a1, a2) in [(1, 0, (0, -0.3, 0), (0, 0.3, 0)),
+                                 (0, 1, (0.3, 0, 0), (-0.3, 0, 0))]:
+            if (r + dr, c + dc) in grid:
+                jb = FixedJointBuilder().with_local_anchor1(a1) \
+                    .with_local_anchor2(a2).with_contacts_enabled(False)
+                w.insert_impulse_joint(b, grid[(r + dr, c + dc)], jb)
+
+    prev, rope = w.insert_body(rb.fixed().with_translation((12, 8, 0))), []
+    for i in range(4):
+        b = w.insert_body(rb.dynamic().with_translation((12, 8 - 0.7 * (i + 1), 0)))
+        w.insert_collider(cb.ball(0.15), b)
+        jb = SphericalJointBuilder().with_local_anchor1(
+            (0, -0.35, 0) if i else (0, 0, 0)
+        ).with_local_anchor2((0, 0.35, 0)).with_contacts_enabled(False)
+        if i == 3:
+            jb = jb.with_swing_limits(0.0, 0.5)
+        w.insert_impulse_joint(prev, b, jb)
+        rope.append(b)
+        prev = b
+    return w, {"chain": chain, "slider": slider, "rope": rope}
 
 
 def replicate_scene(state, batch: int):

@@ -9,8 +9,9 @@ component-leading, lane-last layout (``[3, P]``, ``[4, 3, P]``).
 `from_numpy` / `to_numpy` carry a reference `SceneState` or `SimParams`
 (numpy leaves, e.g. from `rapier_tpu.world.PhysicsWorld.build()`) into the
 port and back by field name, so the two packages exchange state without this
-one importing JAX.  The `multibodies` slot (reduced-coordinate
-articulations, `dynamics.multibody.Multibodies`) crosses the same way.
+one importing JAX.  The `joints` slot (impulse joints, `Joints`) and the
+`multibodies` slot (reduced-coordinate articulations,
+`dynamics.multibody.Multibodies`) cross the same way.
 
 ``Colliders.shape_params`` rows follow the reference's table
 (rapier_tpu.geometry.shapes): BALL ``[r]``, CUBOID ``[hx, hy, hz]``, CAPSULE
@@ -97,6 +98,21 @@ ACTIVE_COLLISION_TYPES_DEFAULT = int(
 
 LOCK_TRANSLATION_X = 1 << 0
 LOCK_ROTATION_X = 1 << 3
+
+# Joint axis bits (JointAxesMask): three linear axes, then three angular.
+JOINT_LIN_AXES = 0b000111
+JOINT_ANG_AXES = 0b111000
+
+# Constraint-row slots per joint (the layout of
+# dynamics/solver/joint_constraints.py).
+MAX_JOINT_ROWS = 21
+
+
+class MotorModel(enum.IntEnum):
+    """Joint motor model (motor_model.rs)."""
+
+    ACCELERATION_BASED = 0
+    FORCE_BASED = 1
 
 ACTIVE_EVENTS_COLLISION = 1 << 0
 ACTIVE_EVENTS_CONTACT_FORCE = 1 << 1
@@ -200,17 +216,53 @@ class Contacts:
 
 
 @dataclass
+class Joints:
+    """Impulse joints, one unified axis-based model (generic_joint.rs:260);
+    per scene ``[J, ...]``.  Local frames are w.r.t. each body's origin
+    frame (`PhysicsWorld.build` shifts the anchors into COM space)."""
+
+    body1: Any              # [J] int32, -1 = padding
+    body2: Any              # [J] int32
+    local_pos1: Any         # [J, 3]
+    local_rot1: Any         # [J, 4]
+    local_pos2: Any         # [J, 3]
+    local_rot2: Any         # [J, 4]
+    locked_axes: Any        # [J] int32 bitmask
+    limit_axes: Any         # [J] int32
+    motor_axes: Any         # [J] int32
+    coupled_axes: Any       # [J] int32
+    limit_min: Any          # [J, 6]
+    limit_max: Any          # [J, 6]
+    motor_target_pos: Any   # [J, 6]
+    motor_target_vel: Any   # [J, 6]
+    motor_stiffness: Any    # [J, 6]
+    motor_damping: Any      # [J, 6]
+    motor_max_force: Any    # [J, 6]
+    motor_model: Any        # [J, 6] int32 (MotorModel)
+    softness_frequency: Any  # [J]
+    softness_damping: Any    # [J]
+    contacts_enabled: Any    # [J] bool
+    enabled: Any             # [J] bool
+    impulses: Any            # [J, MAX_JOINT_ROWS], the last substep's
+
+    @property
+    def n(self) -> int:
+        return self.body1.shape[-1]
+
+
+@dataclass
 class SceneState:
-    """Full simulation state.  `multibodies` holds the reduced-coordinate
-    articulations (None without any); the reference's other feature slots
-    (joints, meshes, hulls) are not ported: `from_numpy` refuses a reference
-    state that sets them."""
+    """Full simulation state.  `joints` holds the impulse joints and
+    `multibodies` the reduced-coordinate articulations (None without any);
+    the reference's other feature slots (meshes, hulls) are not ported:
+    `from_numpy` refuses a reference state that sets them."""
 
     bodies: Bodies
     colliders: Colliders
     contacts: Contacts
     step_count: Any = field(default_factory=lambda: np.int32(0))
     multibodies: Any = None
+    joints: Any = None
 
 
 def _f(shape):
@@ -282,6 +334,27 @@ def empty_contacts(p: int) -> Contacts:
     )
 
 
+def empty_joints(j: int) -> Joints:
+    quat_id = _quat_id(j)
+    return Joints(
+        body1=_i((j,), -1), body2=_i((j,), -1),
+        local_pos1=_f((j, 3)), local_rot1=quat_id,
+        local_pos2=_f((j, 3)), local_rot2=quat_id,
+        locked_axes=_i((j,)), limit_axes=_i((j,)), motor_axes=_i((j,)),
+        coupled_axes=_i((j,)),
+        limit_min=np.full((j, 6), -np.inf, _f32),
+        limit_max=np.full((j, 6), np.inf, _f32),
+        motor_target_pos=_f((j, 6)), motor_target_vel=_f((j, 6)),
+        motor_stiffness=_f((j, 6)), motor_damping=_f((j, 6)),
+        motor_max_force=np.full((j, 6), 3.4e38, _f32),
+        motor_model=_i((j, 6)),
+        softness_frequency=np.full((j,), 1.0e6, _f32),
+        softness_damping=np.ones((j,), _f32),
+        contacts_enabled=_b((j,), True), enabled=_b((j,)),
+        impulses=_f((j, MAX_JOINT_ROWS)),
+    )
+
+
 @dataclass(frozen=True)
 class SimParams:
     """Runtime parameters (rapier_tpu.types.SimParams).  Float fields are
@@ -313,6 +386,10 @@ class SimParams:
     sleep_propagation_iters: int = 16
     sleeping_enabled: bool = True
     shape_types_present: tuple = ()
+    # The joint row slots each step builds and solves: a census, as
+    # shape_types_present is (PhysicsWorld.build keeps the slots its joint
+    # table uses); by default every slot, the reference's layout.
+    joint_slots: tuple = tuple(range(MAX_JOINT_ROWS))
     block_solver_2x2: bool = False
     solver_backend: str = "auto"
 
@@ -336,7 +413,11 @@ class SimParams:
 
 
 def spring_erp_inv_dt(natural_frequency, damping_ratio, dt):
-    """erp/dt for a soft constraint, in f32 (reference types.py)."""
+    """erp/dt for a soft constraint, in f32 (reference types.py): of numpy
+    scalars (the contact coefficients), or of tensors (per-joint softness)."""
+    if isinstance(natural_frequency, torch.Tensor):
+        ang_freq = natural_frequency * (2.0 * math.pi)
+        return ang_freq / (dt * ang_freq + 2.0 * damping_ratio)
     ang_freq = _f32(natural_frequency) * _f32(2.0 * math.pi)
     return _f32(ang_freq / _f32(_f32(dt) * ang_freq
                                 + _f32(2.0) * _f32(damping_ratio)))
@@ -361,7 +442,8 @@ def spring_cfm_factor(natural_frequency, damping_ratio, dt):
 _STATE_TYPES = {
     "bodies": Bodies, "colliders": Colliders, "contacts": Contacts,
 }
-_UNSUPPORTED_SLOTS = ("joints", "meshes", "hulls")
+_UNSUPPORTED_SLOTS = ("meshes", "hulls")
+_OPTIONAL_TYPES = {"joints": Joints, "multibodies": Multibodies}
 
 
 def _leaf_to_tensor(x, device):
@@ -380,8 +462,9 @@ def tree_map(fn, state) -> SceneState:
         if getattr(state, slot, None) is not None:
             raise NotImplementedError(f"SceneState.{slot} is not ported")
     types = dict(_STATE_TYPES)
-    if getattr(state, "multibodies", None) is not None:
-        types["multibodies"] = Multibodies
+    for slot, cls in _OPTIONAL_TYPES.items():
+        if getattr(state, slot, None) is not None:
+            types[slot] = cls
     parts = {
         name: cls(**{f.name: fn(getattr(getattr(state, name), f.name))
                      for f in dataclasses.fields(cls)})
@@ -397,6 +480,8 @@ def from_numpy(tree, device="cpu"):
     if hasattr(tree, "num_solver_iterations"):
         kw = {}
         for f in dataclasses.fields(SimParams):
+            if not hasattr(tree, f.name):   # joint_slots: the port's own
+                continue
             v = getattr(tree, f.name)
             if isinstance(f.default, (np.floating, float)) or f.name == "gravity":
                 v = np.asarray(v, _f32)

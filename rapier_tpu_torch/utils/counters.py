@@ -25,7 +25,9 @@ from dataclasses import dataclass, field
 
 import torch
 
-STAGES = ("broad_phase", "narrow_phase", "contact_match", "wake", "solve", "sleep")
+# "joints" (the impulse joints' row builds and sweeps) runs inside "solve".
+STAGES = ("broad_phase", "narrow_phase", "contact_match", "wake", "solve", "joints",
+          "sleep")
 PROFILE_ITERS = 3   # steps `profile_step` averages over
 TOP_KERNELS = 8     # kernel names `trace_step` ranks by device time
 
@@ -53,7 +55,8 @@ def stage(name: str):
 @dataclass
 class StageTimings:
     """Milliseconds a step, per stage (the reference's Counters schema);
-    `extra` holds the contact join, wake, sleep and the rest."""
+    `solver_ms` is the solve without the impulse joints, and `extra` holds
+    the joints, the contact join, wake, sleep and the rest."""
 
     broad_phase_ms: float = 0.0
     narrow_phase_ms: float = 0.0
@@ -93,11 +96,13 @@ def profile_step(state, params) -> StageTimings:
         ms = {k: v / PROFILE_ITERS for k, v in _timings.items()}
     finally:
         _timings = None
+    joints = ms.pop("joints", 0.0)
     extra = {f"{k}_ms": ms.get(k, 0.0) for k in ("contact_match", "wake", "sleep")}
+    extra["joints_ms"] = joints
     extra["rest_ms"] = total - sum(ms.values())
     return StageTimings(broad_phase_ms=ms.get("broad_phase", 0.0),
                         narrow_phase_ms=ms.get("narrow_phase", 0.0),
-                        solver_ms=ms.get("solve", 0.0), total_ms=total, extra=extra)
+                        solver_ms=ms.get("solve", 0.0) - joints, total_ms=total, extra=extra)
 
 
 def trace_step(state, params, steps: int = 3) -> dict:

@@ -1,8 +1,9 @@
 """Host-side scene construction + a convenience stepping facade.
 
 Counterpart of rapier_tpu.world: the `RigidBodyBuilder` / `ColliderBuilder`
-builders (ball, cuboid, capsule, halfspace), `GenericJointBuilder` for
-reduced-coordinate multibody joints, and `PhysicsWorld`.  Building is plain
+builders (ball, cuboid, capsule, halfspace), `GenericJointBuilder` with its
+typed forms for impulse joints and reduced-coordinate multibody joints, and
+`PhysicsWorld`.  Building is plain
 numpy and gives the same `SceneState` leaves as the reference's `build()`;
 `step()` runs the port's batched pipeline on a batch of one scene on
 `device`, the CUDA card unless the caller asks for another device.
@@ -18,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from rapier_tpu_torch.dynamics.solver.joint_constraints import used_slots
 from rapier_tpu_torch.geometry import mass_properties as mp
 from rapier_tpu_torch.types import (
     ACTIVE_COLLISION_TYPES_DEFAULT,
@@ -25,12 +27,14 @@ from rapier_tpu_torch.types import (
     BodyType,
     CoefficientCombineRule,
     Colliders,
+    Joints,
     SceneState,
     ShapeType,
     SimParams,
     empty_bodies,
     empty_colliders,
     empty_contacts,
+    empty_joints,
     from_numpy,
 )
 
@@ -224,18 +228,23 @@ def _quat_from_x_axis(axis) -> np.ndarray:
 
 
 _ALL_AXES = 0b111111
+_LIN_AXES = 0b000111
 
 
 @dataclass
 class GenericJointBuilder:
-    """Axis-based joint description (reference GenericJointBuilder) for
-    reduced-coordinate multibody joints.  A free slot of `locked_axes` is a
-    generalized dof: 0 leaves all six free, `revolute` frees ANG_X of a frame
-    whose X axis is the hinge axis."""
+    """Axis-based joint description (reference GenericJointBuilder,
+    generic_joint.rs:653-806), for impulse joints and reduced-coordinate
+    multibody joints.  Axes 0-2 are linear, 3-5 angular, in the joint frame;
+    for a multibody joint a free slot of `locked_axes` is a generalized dof.
+    The typed constructors mirror FixedJoint, RevoluteJoint (the hinge on the
+    frame's X axis), PrismaticJoint, SphericalJoint, RopeJoint and
+    SpringJoint."""
 
     locked_axes: int = 0
     limit_axes: int = 0
     motor_axes: int = 0
+    coupled_axes: int = 0
     local_anchor1: tuple = (0.0, 0.0, 0.0)
     local_anchor2: tuple = (0.0, 0.0, 0.0)
     local_frame_rot1: tuple = _IDQ
@@ -247,6 +256,7 @@ class GenericJointBuilder:
     motor_stiffness: tuple = tuple([0.0] * 6)
     motor_damping: tuple = tuple([0.0] * 6)
     motor_max_force: tuple = tuple([3.4e38] * 6)
+    motor_model: tuple = tuple([0] * 6)
     contacts_enabled: bool = True
     # Per-dof passive elements of the articulation.
     armature: tuple = tuple([0.0] * 6)
@@ -255,10 +265,36 @@ class GenericJointBuilder:
     mb_spring_ref: tuple = tuple([0.0] * 6)
 
     @staticmethod
+    def fixed() -> "GenericJointBuilder":
+        return GenericJointBuilder(locked_axes=_ALL_AXES)
+
+    @staticmethod
     def revolute(axis) -> "GenericJointBuilder":
         q = tuple(_quat_from_x_axis(axis))
         return GenericJointBuilder(locked_axes=_ALL_AXES & ~(1 << 3),
                                    local_frame_rot1=q, local_frame_rot2=q)
+
+    @staticmethod
+    def prismatic(axis) -> "GenericJointBuilder":
+        q = tuple(_quat_from_x_axis(axis))
+        return GenericJointBuilder(locked_axes=_ALL_AXES & ~(1 << 0),
+                                   local_frame_rot1=q, local_frame_rot2=q)
+
+    @staticmethod
+    def spherical() -> "GenericJointBuilder":
+        return GenericJointBuilder(locked_axes=_LIN_AXES)
+
+    @staticmethod
+    def rope(max_length: float) -> "GenericJointBuilder":
+        b = GenericJointBuilder(coupled_axes=_LIN_AXES, limit_axes=1 << 0)
+        return b._set_axis("limit_max", 0, float(max_length))
+
+    @staticmethod
+    def spring(rest_length: float, stiffness: float, damping: float) -> "GenericJointBuilder":
+        b = GenericJointBuilder(coupled_axes=_LIN_AXES, motor_axes=1 << 0)
+        b._set_axis("motor_target_pos", 0, float(rest_length))
+        b._set_axis("motor_stiffness", 0, float(stiffness))
+        return b._set_axis("motor_damping", 0, float(damping))
 
     def _set_axis(self, field_name, axis, value):
         cur = list(getattr(self, field_name))
@@ -291,9 +327,47 @@ class GenericJointBuilder:
         self._set_axis("motor_stiffness", axis, float(stiffness))
         return self._set_axis("motor_damping", axis, float(damping))
 
+    def with_motor_max_force(self, axis: int, force: float):
+        return self._set_axis("motor_max_force", axis, float(force))
+
     def with_contacts_enabled(self, enabled: bool):
         self.contacts_enabled = bool(enabled)
         return self
+
+    def with_swing_limits(self, lo: float, hi: float, twist_axis: int = 0):
+        """Spherical swing limit: bounds the arc angle between the two
+        frames' `twist_axis` (the coupled angular limit row,
+        joint_constraint_builder.rs:814)."""
+        for a in {0: (1, 2), 1: (0, 2), 2: (0, 1)}[twist_axis]:
+            self.coupled_axes |= 1 << (3 + a)
+            self.limit_axes |= 1 << (3 + a)
+            self._set_axis("limit_min", 3 + a, float(lo))
+            self._set_axis("limit_max", 3 + a, float(hi))
+        return self
+
+
+def FixedJointBuilder():
+    return GenericJointBuilder.fixed()
+
+
+def RevoluteJointBuilder(axis):
+    return GenericJointBuilder.revolute(axis)
+
+
+def PrismaticJointBuilder(axis):
+    return GenericJointBuilder.prismatic(axis)
+
+
+def SphericalJointBuilder():
+    return GenericJointBuilder.spherical()
+
+
+def RopeJointBuilder(max_length):
+    return GenericJointBuilder.rope(max_length)
+
+
+def SpringJointBuilder(rest_length, stiffness, damping):
+    return GenericJointBuilder.spring(rest_length, stiffness, damping)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -311,6 +385,8 @@ class PhysicsWorld:
                  device="cuda"):
         self._pending_bodies: list[RigidBodyBuilder] = []
         self._pending_colliders: list[tuple[ColliderBuilder, int]] = []
+        # (joint, body1, body2)
+        self._pending_joints: list[tuple] = []
         # (joint, parent body, child body, kinematic)
         self._pending_mb_joints: list[tuple] = []
         self._mb_trees: list[list[int]] = []
@@ -339,8 +415,13 @@ class PhysicsWorld:
             self.insert_collider(cb, h)
         return h
 
-    def insert_impulse_joint(self, *args, **kw):
-        raise NotImplementedError("impulse joints are not ported")
+    def insert_impulse_joint(self, body1: int, body2: int,
+                             joint: GenericJointBuilder) -> int:
+        """Join `body2` to `body1` through an impulse joint (solved beside the
+        contacts); returns the joint's index."""
+        assert self.state is None, "world already built"
+        self._pending_joints.append((joint, body1, body2))
+        return len(self._pending_joints) - 1
 
     def insert_multibody_joint(self, body1: int, body2: int,
                                joint: GenericJointBuilder,
@@ -454,7 +535,8 @@ class PhysicsWorld:
         mb_state = self._build_multibodies(bodies) if self._pending_mb_joints else None
         state = SceneState(
             bodies=Bodies(**bodies), colliders=Colliders(**colliders),
-            contacts=empty_contacts(p_cap), multibodies=mb_state)
+            contacts=empty_contacts(p_cap), multibodies=mb_state,
+            joints=self._build_joints(bodies) if self._pending_joints else None)
         census = Counter(int(cb.shape_type) for cb, _ in self._pending_colliders)
         self.params = self.params.replace(
             shape_types_present=tuple(sorted(census.items())))
@@ -462,7 +544,31 @@ class PhysicsWorld:
         from rapier_tpu_torch.scenes import replicate_scene
 
         self.state = from_numpy(replicate_scene(state, 1), self.device)
+        if state.joints is not None:
+            self.params = self.params.replace(joint_slots=used_slots(self.state.joints))
         return state
+
+    def _build_joints(self, bodies) -> Joints:
+        """The impulse-joint table, J rounded up to 8, with the local anchors
+        shifted into COM space (transform_to_solver_body_space,
+        joint_constraint_builder.rs:60)."""
+        j0 = empty_joints(_round_up(len(self._pending_joints), 8))
+        arr = {k: np.asarray(v).copy() for k, v in vars(j0).items()}
+        for i, (jb, b1, b2) in enumerate(self._pending_joints):
+            arr["body1"][i] = b1
+            arr["body2"][i] = b2
+            arr["local_pos1"][i] = np.asarray(jb.local_anchor1) - bodies["local_com"][b1]
+            arr["local_pos2"][i] = np.asarray(jb.local_anchor2) - bodies["local_com"][b2]
+            arr["local_rot1"][i] = _as_quat(jb.local_frame_rot1)
+            arr["local_rot2"][i] = _as_quat(jb.local_frame_rot2)
+            for name in ("locked_axes", "limit_axes", "motor_axes", "coupled_axes",
+                         "limit_min", "limit_max", "motor_target_pos", "motor_target_vel",
+                         "motor_stiffness", "motor_damping", "motor_model",
+                         "contacts_enabled"):
+                arr[name][i] = getattr(jb, name)
+            arr["motor_max_force"][i] = np.minimum(jb.motor_max_force, 3.4e38)
+            arr["enabled"][i] = True
+        return Joints(**arr)
 
     def _build_multibodies(self, bodies):
         """Group the multibody-joint edges into articulation trees (BFS order,
@@ -574,6 +680,9 @@ class PhysicsWorld:
 
     def body_linvel(self, h: int) -> np.ndarray:
         return self.state.bodies.linvel[0, int(h)].cpu().numpy()
+
+    def body_angvel(self, h: int) -> np.ndarray:
+        return self.state.bodies.angvel[0, int(h)].cpu().numpy()
 
     def body_is_sleeping(self, h: int) -> bool:
         return bool(self.state.bodies.sleeping[0, int(h)])

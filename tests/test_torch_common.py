@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import types
 
 import numpy as np
 
@@ -60,24 +61,37 @@ def initial_batch():
 
 
 def to_reference(state):
-    """A port state (numpy or tensor leaves) as a reference SceneState with
-    numpy leaves of the reference's dtypes."""
+    """A port state (numpy or tensor leaves; with or without joints) as a
+    reference SceneState with numpy leaves of the reference's dtypes."""
     import rapier_tpu.types as jt
     from rapier_tpu_torch.types import to_numpy
 
-    ref_state, _ = jax_world()
     np_state = to_numpy(state)
     parts = {}
-    for name, cls in (("bodies", jt.Bodies), ("colliders", jt.Colliders),
-                      ("contacts", jt.Contacts)):
-        ref_part = getattr(ref_state, name)
+    for name, cls, empty in (("bodies", jt.Bodies, jt.empty_bodies),
+                             ("colliders", jt.Colliders, jt.empty_colliders),
+                             ("contacts", jt.Contacts, jt.empty_contacts),
+                             ("joints", jt.Joints, jt.empty_joints)):
+        part = getattr(np_state, name)
+        if part is None:
+            continue
+        dtypes = empty(1)
         parts[name] = cls(**{
-            f.name: np.asarray(getattr(getattr(np_state, name), f.name)).astype(
-                np.asarray(getattr(ref_part, f.name)).dtype)
+            f.name: np.asarray(getattr(part, f.name)).astype(
+                np.asarray(getattr(dtypes, f.name)).dtype)
             for f in dataclasses.fields(cls)
         })
     return jt.SceneState(step_count=np.asarray(np_state.step_count, np.int32),
                          **parts)
+
+
+def reference_params(params):
+    """The port's SimParams as the reference's (the port's own fields,
+    such as joint_slots, dropped)."""
+    import rapier_tpu.types as jt
+
+    return jt.SimParams(**{f.name: getattr(params, f.name)
+                           for f in dataclasses.fields(jt.SimParams) if hasattr(params, f.name)})
 
 
 @functools.lru_cache(maxsize=None)
@@ -158,24 +172,35 @@ def blocked_thresholds(mp):
         mp.setattr(mod, name, 0)
 
 
-def rollouts(start, jparams, n_steps):
-    """`n_steps` steps of the reference (jit of the vmapped step) and of the
-    port from the numpy batch `start`: (the port's solve path, reference
-    states, port states), each state with numpy leaves.  The port's steps
-    must not overflow."""
+def reference_rollout(jax_step, start, jparams, n_steps):
+    """`n_steps` steps of the compiled reference step from the numpy batch
+    `start`: the states, with numpy leaves."""
+    import jax
+    import jax.numpy as jnp
+
+    js = jax.tree.map(jnp.asarray, start)
+    ref = []
+    for _ in range(n_steps):
+        js, _ = jax_step(js, jparams)
+        ref.append(jax.tree.map(np.asarray, js))
+    return ref
+
+
+def rollouts(start, jparams, n_steps, jax_step=None, **port_params):
+    """`n_steps` steps of the reference (jit of the vmapped step, or
+    `jax_step`, such a function compiled before) and of the port (its
+    parameters `jparams` but for `port_params`) from the numpy batch
+    `start`: (the port's solve path, reference states, port states), each
+    state with numpy leaves.  The port's steps must not overflow."""
     import jax
     import jax.numpy as jnp
     import rapier_tpu.pipeline.physics_pipeline as jpp
     import rapier_tpu_torch.pipeline.physics_pipeline as pp
     from rapier_tpu_torch.types import from_numpy, to_numpy
 
-    f = jax.jit(jax.vmap(jpp.step, in_axes=(0, None)))
-    js = jax.tree.map(jnp.asarray, start)
-    ref = []
-    for _ in range(n_steps):
-        js, _ = f(js, jparams)
-        ref.append(jax.tree.map(np.asarray, js))
-    params = from_numpy(jparams)
+    f = jax_step or jax.jit(jax.vmap(jpp.step, in_axes=(0, None)))
+    ref = reference_rollout(f, start, jparams, n_steps)
+    params = from_numpy(jparams).replace(**port_params)
     ps = from_numpy(start)
     path = pp.solve_path(ps, params)
     port = []
@@ -200,3 +225,82 @@ def assert_trajectories_agree(ref, port):
         assert_close(ps.bodies.angvel, rs.bodies.angvel, 1e-3, f"step {t + 1} angvel")
         touching = min(touching or 10**9, int(np.sum(rs.contacts.touching)))
     return touching
+
+
+def assert_joint_impulses_agree(ref, port):
+    """`joints.impulses` (the last substep's row impulses) within 1e-3 of
+    the step's largest impulse, at every step."""
+    for t, (rs, ps) in enumerate(zip(ref, port)):
+        r = np.asarray(rs.joints.impulses)
+        scale = float(np.abs(r).max())
+        assert scale > 0.0, f"step {t + 1}: no joint impulse"
+        assert_close(ps.joints.impulses, r, 1e-3 * scale, f"step {t + 1} joints.impulses")
+
+
+# ---------------------------------------------------------------------------
+# The impulse-joint scenes (tests/test_torch_joint_step.py and
+# tests/test_torch_joint_substeps.py).
+# ---------------------------------------------------------------------------
+
+JOINT_CAPACITY = dict(body_capacity=24, collider_capacity=24, max_pairs=256)
+
+
+def _pad_joints(state, j_cap):
+    """The state with its joint table padded to `j_cap` disabled joints."""
+    import rapier_tpu.types as rt
+
+    pad = rt.empty_joints(j_cap - state.joints.n)
+    joints = rt.Joints(**{f.name: np.concatenate([np.asarray(getattr(state.joints, f.name)),
+                                                  np.asarray(getattr(pad, f.name))])
+                          for f in dataclasses.fields(rt.Joints)})
+    return state.replace(joints=joints)
+
+
+def joint_starts(substeps):
+    """{"joints3" | "quadruped": (numpy batch, reference params)} at B = 2,
+    scene 1's dynamic bodies moved by seeded noise, with `substeps` solver
+    substeps and ONE static configuration, so that one compile of the
+    reference's step serves both: joints3 (`scenes.joints3_world`, built
+    with the port's builders) and the impulse-joint quadruped (the
+    reference's `quadruped_world(use_multibody=False)`, its joint table
+    padded to joints3's 24 with disabled joints and scene 1's servo targets
+    also moved) share their capacities and one shape census (the union of
+    the two; a census only skips kernels whose pair types cannot occur)."""
+    from rapier_tpu.scenes import quadruped_world
+    from rapier_tpu_torch.scenes import joints3_world
+
+    w = joints3_world(device="cpu", **JOINT_CAPACITY)[0]
+    state = to_reference(w.build())
+    j3 = types.SimpleNamespace(build=lambda: state, params=reference_params(w.params))
+    j3_batch, j3_params = perturbed_batch(j3, (1.0, 1.0, 1.0), seed=31)
+    quad = quadruped_world(use_multibody=False, **JOINT_CAPACITY)[0]
+    build = quad.build
+    quad.build = lambda: _pad_joints(build(), j3_batch.joints.n)
+    quad_batch, quad_params = perturbed_batch(quad, (1.0, 1.0, 1.0), seed=32)
+    quad_batch.joints.motor_target_pos[1, :8, 3] += np.random.default_rng(33).normal(
+        0, 0.05, 8).astype(np.float32)
+    census = tuple(sorted({**dict(quad_params.shape_types_present),
+                           **dict(j3_params.shape_types_present)}.items()))
+    static = dict(num_solver_iterations=substeps, shape_types_present=census)
+    return {"joints3": (j3_batch, j3_params.replace(**static)),
+            "quadruped": (quad_batch, quad_params.replace(**static))}
+
+
+def joint_step():
+    """The reference's step, vmapped and jitted (compiled at first call)."""
+    import jax
+    import rapier_tpu.pipeline.physics_pipeline as jpp
+
+    return jax.jit(jax.vmap(jpp.step, in_axes=(0, None)))
+
+
+def joint_rollouts(starts, n_steps, jax_step):
+    """{scene: rollouts(...)} of `joint_starts`, the port building the row
+    slots each joint table uses (`SimParams.joint_slots`, as
+    `PhysicsWorld.build` sets it)."""
+    from rapier_tpu_torch.dynamics.solver.joint_constraints import used_slots
+    from rapier_tpu_torch.types import from_numpy
+
+    return {name: rollouts(batch, params, n_steps, jax_step=jax_step,
+                           joint_slots=used_slots(from_numpy(batch).joints))
+            for name, (batch, params) in starts.items()}

@@ -1,5 +1,6 @@
-"""The CUDA contact-sweep kernels, and the non-kernel solves, on the card
-(marker `gpu`; skipped without a CUDA device).  Run on a machine with one
+"""The CUDA contact-sweep kernels, the non-kernel solves and the
+impulse-joint step on the card (marker `gpu`; skipped without a CUDA
+device).  Run on a machine with one
 card:
 
     python -m pytest tests/test_torch_cuda.py -m gpu -q
@@ -288,3 +289,42 @@ def test_non_kernel_paths_on_the_card(device, monkeypatch, path):
         assert torch.equal(getattr(a.bodies, name), getattr(b.bodies, name)), name
     assert float((a.bodies.pos.cpu() - cpu.bodies.pos).abs().max()) <= 1e-4
     assert float((a.bodies.linvel.cpu() - cpu.bodies.linvel).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("scene", ["joints3", "impulse quadruped"])
+def test_joint_step_on_the_card(device, scene):
+    """The impulse-joint step on the card (the masked sweep, no contact
+    kernel): 2 scenes, 10 steps after 20; two runs are bitwise equal, and
+    the card agrees with the CPU within 1e-4 in position, 1e-3 in velocity
+    and 1e-3 of the largest joint impulse."""
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.pipeline import physics_pipeline as pp
+    from rapier_tpu_torch.scenes import joints3_world, quadruped_world, replicate_scene
+    from rapier_tpu_torch.types import from_numpy, tree_map
+
+    if scene == "joints3":
+        w, _ = joints3_world(device=device)
+    else:
+        w, _ = quadruped_world(use_multibody=False, device=device)
+    state = replicate_scene(from_numpy(w.build(), device), 2)
+    assert pp.solve_path(state, w.params) == "masked"
+    launches = cs.KERNEL.launches, cs.KERNEL.launches_folded
+    for _ in range(20):
+        state, _ = pp.step(state, w.params)
+
+    def run(s):
+        for _ in range(10):
+            s, _ = pp.step(s, w.params)
+        return s
+
+    a = run(tree_map(lambda x: x.clone(), state))
+    b = run(tree_map(lambda x: x.clone(), state))
+    cpu = run(tree_map(lambda x: x.cpu(), state))
+    assert (cs.KERNEL.launches, cs.KERNEL.launches_folded) == launches
+    for name in ("pos", "rot", "linvel", "angvel"):
+        assert torch.equal(getattr(a.bodies, name), getattr(b.bodies, name)), name
+    assert torch.equal(a.joints.impulses, b.joints.impulses)
+    assert float((a.bodies.pos.cpu() - cpu.bodies.pos).abs().max()) <= 1e-4
+    assert float((a.bodies.linvel.cpu() - cpu.bodies.linvel).abs().max()) <= 1e-3
+    scale = float(cpu.joints.impulses.abs().max())
+    assert float((a.joints.impulses.cpu() - cpu.joints.impulses).abs().max()) <= 1e-3 * scale

@@ -6,7 +6,8 @@ built state (bodies, colliders, contact cache and the multibody table with
 limits and servo gains) and the parameters must be equal exactly; both are
 host-side numpy.  Controls applied through the handles land in the same
 motor-target slots.  Elements and attributes outside the port's subset
-raise NotImplementedError naming them.
+raise NotImplementedError naming them.  The impulse-joint form is held to
+the reference in tests/test_torch_joints.py.
 """
 
 import dataclasses
@@ -106,13 +107,6 @@ def test_outside_the_subset_raises(xml, what):
 
     with pytest.raises(NotImplementedError, match=what.replace("(", r"\(")):
         load_mjcf(xml, PhysicsWorld(device="cpu"))
-
-
-def test_impulse_joint_form_raises():
-    from rapier_tpu_torch.scenes import quadruped_world
-
-    with pytest.raises(NotImplementedError, match="impulse joints"):
-        quadruped_world(use_multibody=False, device="cpu")
 
 
 def test_world_multibody_accessors_match_reference():
