@@ -5,7 +5,8 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; each prints its wall time):
+Phases (any failure exits non-zero; each prints its wall time), run in the
+order 1-6, 10, 7-9:
 
 1. Build the contact-sweep kernels from ``rapier_tpu_torch/csrc`` (one nvcc
    call, sm_90a) and print the compiler's register / shared-memory report.
@@ -40,30 +41,38 @@ Phases (any failure exits non-zero; each prints its wall time):
    to scene 0, and the trunk at the reference's height (R5).
 6. The large single scenes: bench.py's pyramid mode (`pyramid3_world`, the
    grid broad phase, max_solver_pairs = 8 per box rounded up to 128, one
-   scene) at stacks 16 and 24 (and 31 with ``--pyramid 31``), 120 steps,
+   scene) at stack 16 (and 24 or 31 with ``--pyramid 24 31``), 120 steps,
    then 30 timed steps (bench.py runs 150 and 50; cut for the run's time
-   limit).  Checks the blocked solve's path, zero broad-phase /
-   solver overflow, finite state, and that stacks 16 and 24 have come to
-   rest (the top box within PYRAMID_TOP_TOL of its resting height) and any
-   other stands (not below it); prints steps/s, the top box's distance from
-   rest and its vertical velocity, the lanes the reference's layout would
-   drop (R7), and the
-   per-stage breakdown of a step (host milliseconds between
-   synchronisations, `utils/counters.profile_step`) with its kernel count
-   and device-busy share (`trace_step`, torch.profiler).
-   The bench step's breakdown is printed in phase 4.
+   limit; stack 24 left the default run to make room for phase 10, whose
+   5,050-box 2D pile keeps a blocked scene of that size in it).  Checks the
+   blocked solve's path, zero broad-phase / solver overflow, finite state,
+   and that stacks 16 and 24 have come to rest (the top box within
+   PYRAMID_TOP_TOL of its resting height) and any other stands (not below
+   it); prints steps/s, the top box's distance from rest and its vertical
+   velocity, the lanes the reference's layout would drop (R7), and for a
+   stack after the first the per-stage breakdown of a step (host
+   milliseconds between synchronisations, `utils/counters.profile_step`)
+   with its kernel count and device-busy share (`trace_step`,
+   torch.profiler).  The bench step's breakdown is printed in phase 4.
 7. The card against the CPU (plain) path: 2 bench scenes, 2 quadruped
-   scenes, 2 joints3 scenes and 2 impulse-joint quadrupeds for 10 steps each
-   (with the joints' row impulses within 1e-3 of the largest); the stack-16
-   pyramid after 30 steps on the
-   card (mid-landing) and after phase 6's 150 (at rest), 10 steps each
-   stepped on the CPU from the card's state, bodies and contact cache (pair
-   keys, touching flags, impulses) compared.  A free run of the pile
-   amplifies rounding about twofold a step, so beside each it prints the
-   free card-vs-CPU gap and, as its witness, the gap between two free CPU
-   runs whose start differs by 1 ulp in one body's height.
+   scenes, 2 joints3 scenes, 2 impulse-joint quadrupeds and 2
+   high-mass-ratio 2D scenes for 10 steps each (with the joints' row
+   impulses within 1e-3 of the largest); the stack-16 pyramid after 30
+   steps on the card (mid-landing) and after phase 6's 150 (at rest), 2
+   10-row 2D pyramids and 2 Coulomb stacks after 3, 10 steps each, and
+   phase 10's 5,050-box 2D pile after its 90, 3 steps, stepped on the CPU
+   from the card's state, bodies and contact cache (pair keys, touching
+   flags, impulses) compared; the 2D pile's bodies and impulses to the
+   larger of CPU_TOL and twice the gap of two CPU steps whose starts differ
+   by 1 ulp in every body's height (within one step the 100-row pile
+   amplifies rounding past CPU_TOL, PERF.md).  A free run of a
+   pile amplifies rounding about twofold a step, so beside the stack-16 and
+   10-row 2D checks it
+   prints the free card-vs-CPU gap and, as its witness, the gap between two
+   free CPU runs whose start differs by 1 ulp in one body's height.
 8. Determinism: 10 steps run twice from one state are bitwise equal, for a
-   bench batch, a quadruped batch, the stack-16 pyramid and a joints3 batch.
+   bench batch, a quadruped batch, the stack-16 pyramid and a joints3 batch;
+   5 steps for a 10-row 2D pyramid batch and a Coulomb-stack batch.
 9. The impulse joints: 4096 replicas of the joint zoo (`scenes.joints3_world`,
    examples/joints3.py: revolute chain, prismatic slider with a position
    motor and limits, fixed-joint lattice, spherical rope with swing limits)
@@ -77,10 +86,39 @@ Phases (any failure exits non-zero; each prints its wall time):
    beside the reference's 0.188 (R5),
    env-steps/s, the stage breakdown (with the `joints` stage: row builds and
    sweeps), kernels a step and the device-busy share.
+10. The 2D slice (`PhysicsWorld2D`: plane-locked bodies, the 2x2 block
+   solve; none of it launches a contact-sweep kernel, as the reference's
+   gate sends 2x2 and Coulomb scenes to its jnp sweeps).  (a) SURVEY.md's
+   s2d_pyramid at its full 100 rows (`scenes.s2d_pyramid_world(100)`, 5,050
+   boxes, one scene) at 24 colors, not SimParams' default 16: at 16 the
+   Luby rounds leave ~1,000 lanes to the Jacobi tail and the pile explodes,
+   as the reference's blocked solve does with such a tail (ROADMAP F6; each
+   reading prints the tail 16 colors would leave).  The blocked solve with
+   the 2x2 flag on every pass, 80 steps, then 10 timed (examples/s2d_pyramid.py
+   runs 600; cut for the run's time limit), the top box and the tail read
+   every 10 steps; checks zero overflow, finite state, z and the x / y spins
+   exactly 0, and that the pile holds (after its top row lands at step ~30
+   no box faster than that row's free fall, none above its start, the top
+   box above 0.9 x 99 and within 1.5 of rest, its swing shrinking); prints
+   whether it is at rest (it still swings after 90 steps: F6), steps/s, the
+   largest row-height deviation, how far the boxes sank and one traced step.
+   (b) 4096 replicas of the 10-row pyramid, 10 steps, then 10 timed, and (c)
+   4096 of the Coulomb stack with its kicked slider
+   (`scenes.s2d_coulomb_stack_world`), 75 steps (the slider comes to rest
+   at ~80), then 10 timed, each on the masked sweep; checks zero overflow,
+   no contact-kernel launch, every scene bitwise equal to scene 0,
+   tests/test_s2d.py's own checks on every scene (boxes within 0.15 of their
+   starts; the slider at rest between x = 20.5 and 30); prints env-steps/s,
+   and for (c) one traced step.
 
 The line before the last is the kernels' JSON record (with `bound_share`,
 bound over time, and each kernel's resources); the last line is
 ``{"ok": true, "device": {...}}``.
+
+With ``--s2d-only`` the script builds the kernels and runs phase 10 alone;
+with ``--rest-steps STEPS`` it steps the ``--pyramid`` stacks (default 31)
+STEPS steps each and prints the top box's distance from rest and vertical
+velocity every 50 steps.  Neither prints the ok line.
 
 With ``--earlier DIR [DIR ...]`` (each DIR an unpacked checkout of another
 commit, e.g. ``git archive <commit> | tar -x -C build/earlier``) the script
@@ -112,6 +150,10 @@ KERNEL_TOL = dict(bodies=1e-4, impulses=1e-3)   # atol, summation order only
 # atol over 10 contact steps; impulses: atol times the largest impulse's
 # magnitude (at least 1), since they scale with the weight a contact bears.
 CPU_TOL = dict(pos=1e-4, vel=1e-3, imp=1e-3)
+# A tall pile's single steps may differ up to this many times a 1-ulp
+# witness's gap (`_cpu_step_agreement`), as the reference's own float32
+# rounding bounds the port's in the CPU tests.
+WITNESS_FACTOR = 2.0
 # The reference's quadruped falls onto its trunk (ROADMAP R5): trunk centre
 # at the box's half height, 0.050, after 240 steps.  A port that stands here
 # has a parity fault.
@@ -124,7 +166,11 @@ IMPULSE_TRUNK_Z_REF = 0.188
 JOINT_SETTLE = 240
 JOINT_TIMED = 50                # timed steps after the settle (launch-bound: ~0.2-0.6 s each)
 JOINT_CPU_SETTLE = 30
-PYRAMID_STACKS = (16, 24)       # bench.py's default stack and pyramid3.rs's
+# bench.py's default stack.  pyramid3.rs's stack 24 is opt-in (--pyramid 24),
+# as 31 is: its ~150 steps and ~36 s trace made room for phase 10 within the
+# script's time limit; the blocked path keeps a ~5,000-body scene in the
+# default run, phase 10(a).
+PYRAMID_STACKS = (16,)
 # Steps before and in the timed run: a pyramid step takes ~0.7-1.4 s.
 # bench.py runs 150 and 50; at 150 + 50 the whole script took ~1,140 s of
 # its 1,200 on an H100 80GB HBM3 machine whose host ran ~35% slow, so the
@@ -162,6 +208,47 @@ RECORDED_EARLIER_MS = {"contact_sweep_kernel": 3.356, "contact_sweep_folded_kern
 SCALAR_ARGS = ("dt_sub", "inv_dt_sub", "erp_inv_dt", "cfm_factor",
                "allowed_lin_err", "max_corrective_velocity", "warmstart_coeff")
 STATIC_ARGS = ("n_sub", "pgs_iters", "stab_iters", "max_colors")
+
+
+# Phase 10, the 2D slice.  (a) SURVEY.md's s2d_pyramid at its full 100 rows
+# (5,050 boxes), one scene on the blocked path with S2D_BIG_COLORS colors:
+# S2D_BIG_SETTLE steps, then S2D_BIG_TIMED timed (examples/s2d_pyramid.py
+# runs 600; cut for the run's time limit), read every S2D_READ_EVERY steps.
+# At SimParams' default 16 colors the Luby rounds leave 500-1,000 of its
+# ~13,000 lanes to the Jacobi tail by step 20-30 and the pile explodes, as
+# the reference's blocked solve does with such a tail (ROADMAP F6,
+# tests/test_torch_s2d_step.py::test_jacobi_tail_explodes_in_both); at 24 the
+# tail holds a few lanes.  The top row falls freely until it lands at about
+# step S2D_BIG_LANDING (at 30 steps it falls at S2D_BIG_FALL), then the pile
+# swings about its rest height, the top box at S2D_BIG_REST (100 rows of
+# unit boxes on the ground's top at y = 0).  (b) 4096 replicas of the 10-row
+# pyramid: S2D_SETTLE steps, then S2D_TIMED timed; (c) of the Coulomb stack:
+# S2D_SLIDE steps, the kicked slider's ~6 in the air and ~74 sliding to rest,
+# then S2D_TIMED timed.  Both masked.
+S2D_BIG_BASE = 100
+S2D_BIG_COLORS = 24
+S2D_BIG_SETTLE = 80
+S2D_BIG_TIMED = 10
+S2D_READ_EVERY = 10
+S2D_BIG_LANDING = 30
+S2D_BIG_FALL = 4.905            # m/s: g x 30 steps of 1/60 s
+S2D_BIG_REST = 99.5
+S2D_BIG_TOP_TOL = 1.5           # the pile holds: its top box within 1.5 of rest
+S2D_REST_TOL = 0.1              # at rest: within 0.1 of rest, slower than 0.1 m/s
+S2D_REST_VY = 0.1
+S2D_SETTLE = 10
+S2D_SLIDE = 75
+S2D_TIMED = 10
+S2D_CPU_SETTLE = 3              # 2D piles touch from their first step
+S2D_RERUN = 5
+# tests/test_s2d.py's checks: boxes within 0.15 of their starts; the slider
+# at rest (|vx| < 0.1) between x = 20.5 and 30; the standing pile's top box
+# above (base - 1) x 0.9 (examples/s2d_pyramid.py:33).
+S2D_BOX_TOL = 0.15
+SLIDER_X = (20.5, 30.0)
+SLIDER_VX = 0.1
+# --rest-steps: the pyramid's top box printed every REST_EVERY steps.
+REST_EVERY = 50
 
 
 def _fail(msg: str, code: int = 1):
@@ -797,16 +884,31 @@ def _cpu_agreement(what, state, params, settle):
         _fail(f"GPU path disagrees with the CPU path ({what})")
 
 
-def _cpu_step_agreement(what, state, params):
+def _nudge_up(state, body=None):
+    """`state` with `body`'s height (every body's, for None) 1 ulp higher."""
+    import torch
+
+    for name in ("pos", "next_pos"):
+        y = getattr(state.bodies, name)[..., 1]
+        sel = (slice(None), slice(None)) if body is None else (0, body)
+        y[sel] = torch.nextafter(y[sel], torch.tensor(float("inf")))
+    return state
+
+
+def _cpu_step_agreement(what, state, params, steps: int = 10, witness: str = "free"):
     """The card against the CPU one step at a time along the card's
     trajectory: each CPU step starts from the card's state, and the step's
     bodies and contact cache (pair keys, touching flags, and the impulses
-    the next step warmstarts from) must agree.  Printed beside it: the gap
-    between the card and the CPU run freely over the same steps, and a
-    witness of how far the pile itself amplifies rounding, the gap between
-    two free CPU runs whose start differs by 1 ulp in the height of the
-    body moving fastest vertically (1 ulp at these heights is the card's
-    one-step gap in position; a velocity's ulp would be absorbed at rest)."""
+    the next step warmstarts from) must agree.  With witness="free" it
+    prints beside it the gap between the card and the CPU run freely over
+    the same steps, and a witness of how far the pile itself amplifies
+    rounding, the gap between two free CPU runs whose start differs by 1 ulp
+    in the height of the body moving fastest vertically (1 ulp at these
+    heights is the card's one-step gap in position; a velocity's ulp would
+    be absorbed at rest).  With witness="step" each CPU step is taken twice,
+    the second from the card's state with every body 1 ulp higher: within
+    one step a tall pile amplifies rounding past CPU_TOL, so the bodies' and
+    impulses' gaps may reach WITNESS_FACTOR times this witness's."""
     import torch
     from rapier_tpu_torch.pipeline.physics_pipeline import step
     from rapier_tpu_torch.types import tree_map
@@ -817,19 +919,23 @@ def _cpu_step_agreement(what, state, params):
 
     imp = ("impulse", "tangent_impulse", "warmstart_impulse",
            "warmstart_tangent_impulse", "warmstart_twist_impulse")
-    steps = 10
     gpu, dp, dv, di, scale, flips = state, 0.0, 0.0, 0.0, 1.0, 0
+    wit = dict(pos=0.0, vel=0.0, imp=0.0)
     free = tree_map(lambda x: x.cpu(), state)
-    nudged = tree_map(lambda x: x.clone(), free)
-    i = int(nudged.bodies.linvel[0, :, 1].abs().argmax())
-    for name in ("pos", "next_pos"):
-        y = getattr(nudged.bodies, name)[..., 1]
-        y[0, i] = torch.nextafter(y[0, i], torch.tensor(float("inf")))
+    i = int(free.bodies.linvel[0, :, 1].abs().argmax())
+    nudged = _nudge_up(tree_map(lambda x: x.clone(), free), i)
     for _ in range(steps):
         nxt, _ = step(gpu, params)
         cpu, _ = step(tree_map(lambda x: x.cpu(), gpu), params)
-        free, _ = step(free, params)
-        nudged, _ = step(nudged, params)
+        if witness == "free":
+            free, _ = step(free, params)
+            nudged, _ = step(nudged, params)
+        elif witness == "step":
+            one, _ = step(_nudge_up(tree_map(lambda x: x.cpu().clone(), gpu)), params)
+            wit = dict(pos=max(wit["pos"], gap(one, cpu, "bodies", "pos")),
+                       vel=max(wit["vel"], gap(one, cpu, "bodies", "linvel"),
+                               gap(one, cpu, "bodies", "angvel")),
+                       imp=max([wit["imp"]] + [gap(one, cpu, "contacts", f) for f in imp]))
         dp = max(dp, gap(nxt, cpu, "bodies", "pos"))
         dv = max(dv, gap(nxt, cpu, "bodies", "linvel"), gap(nxt, cpu, "bodies", "angvel"))
         di = max([di] + [gap(nxt, cpu, "contacts", f) for f in imp])
@@ -838,24 +944,41 @@ def _cpu_step_agreement(what, state, params):
                                   != getattr(cpu.contacts, f)).sum())
                              for f in ("pair_key", "touching")))
         gpu = nxt
-    fp, fv = gap(gpu, free, "bodies", "pos"), gap(gpu, free, "bodies", "linvel")
-    wp, wv = gap(nudged, free, "bodies", "pos"), gap(nudged, free, "bodies", "linvel")
+    free_runs = ""
+    if witness == "free":
+        fp, fv = gap(gpu, free, "bodies", "pos"), gap(gpu, free, "bodies", "linvel")
+        wp, wv = gap(nudged, free, "bodies", "pos"), gap(nudged, free, "bodies", "linvel")
+        free_runs = (f"; run freely from the same start, the card and the CPU part by "
+                     f"{fp:.3e} in position and {fv:.3e} in velocity after {steps} steps, "
+                     f"and two CPU runs whose start differs by 1 ulp in body {i}'s height by "
+                     f"{wp:.3e} and {wv:.3e}")
+    if witness == "step":
+        free_runs = (f"; tolerances the larger of CPU_TOL and {WITNESS_FACTOR} x the gap "
+                     f"of two CPU steps whose starts differ by 1 ulp in every body's height "
+                     f"({wit['pos']:.3e}, {wit['vel']:.3e}, {wit['imp']:.3e})")
+    tol_p = max(CPU_TOL["pos"], WITNESS_FACTOR * wit["pos"])
+    tol_v = max(CPU_TOL["vel"], WITNESS_FACTOR * wit["vel"])
+    tol_i = max(CPU_TOL["imp"] * scale, WITNESS_FACTOR * wit["imp"])
     print(f"GPU vs CPU step, {what}, {steps} steps each from the card's state: max |d pos| "
-          f"{dp:.3e} (tol {CPU_TOL['pos']}), max |d vel| {dv:.3e} (tol {CPU_TOL['vel']}), "
-          f"max |d impulse| {di:.3e} (tol {CPU_TOL['imp']} x {scale:.3f}, the largest "
-          f"impulse), pair keys and touching flags differing in {flips} lanes; run freely "
-          f"from the same start, the card and the CPU part by {fp:.3e} in position and "
-          f"{fv:.3e} in velocity after {steps} steps, and two CPU runs whose start "
-          f"differs by 1 ulp in body {i}'s height by {wp:.3e} and {wv:.3e}")
-    if not (dp <= CPU_TOL["pos"] and dv <= CPU_TOL["vel"]
-            and di <= CPU_TOL["imp"] * scale and flips == 0):
+          f"{dp:.3e} (tol {tol_p:.3e}), max |d vel| {dv:.3e} (tol {tol_v:.3e}), "
+          f"max |d impulse| {di:.3e} (tol {tol_i:.3e}; {CPU_TOL['imp']} x {scale:.3f}, the "
+          f"largest impulse), pair keys and touching flags differing in {flips} "
+          f"lanes{free_runs}")
+    if not (dp <= tol_p and dv <= tol_v and di <= tol_i and flips == 0):
         _fail(f"GPU step disagrees with the CPU step ({what})")
 
 
-def phase_cpu_agreement(device, pyramid):
+def phase_cpu_agreement(device, pyramid, s2d_big):
     """Phase 7: the card's path against the CPU (plain) path; `pyramid`
     holds the stack-16 pyramid after PYRAMID_CPU_SETTLE steps on the card
-    ("landing") and after phase 6's timed run ("settled")."""
+    ("landing") and after phase 6's timed run ("settled"), `s2d_big` the
+    2D pyramid (with its params) after phase 10's timed run."""
+    from rapier_tpu_torch.scenes import (
+        s2d_coulomb_stack_world,
+        s2d_high_mass_ratio_world,
+        s2d_pyramid_world,
+    )
+
     _cpu_agreement("bench", *bench_world(device, 2), 100)
     _cpu_agreement("quadruped", *quadruped_batch(device, 2, seed=3), ROBOT_CHECK_STEPS)
     _cpu_agreement("joints3", *joints3_batch(device, 2)[:2], JOINT_CPU_SETTLE)
@@ -864,24 +987,40 @@ def phase_cpu_agreement(device, pyramid):
     for name, steps in (("landing", PYRAMID_CPU_SETTLE),
                         ("settled", PYRAMID_SETTLE + PYRAMID_TIMED)):
         _cpu_step_agreement(f"the stack-16 pyramid after {steps} steps", *pyramid[name])
+    # The 2D piles, as the stack-16 pyramid: a free run amplifies rounding
+    # (2 scenes of the 10-row pyramid part by ~9e-04 in position after 10
+    # free steps on an H100, PERF.md), so single steps from the card's state.
+    _cpu_agreement("high-mass-ratio", *s2d_batch(device, s2d_high_mass_ratio_world, 2)[:2],
+                   S2D_CPU_SETTLE)
+    for name, make, witness in (("10-row 2D pyramid", s2d_pyramid_world, "free"),
+                                ("Coulomb stack", s2d_coulomb_stack_world, None)):
+        state, params, _ = s2d_batch(device, make, 2)
+        state, _ = run(state, params, S2D_CPU_SETTLE)
+        _cpu_step_agreement(f"2 scenes of the {name} after {S2D_CPU_SETTLE} steps", state,
+                            params, witness=witness)
+    _cpu_step_agreement(f"the base-{S2D_BIG_BASE} 2D pyramid after "
+                        f"{S2D_BIG_SETTLE + S2D_BIG_TIMED} steps", *s2d_big, steps=3,
+                        witness="step")
 
 
-def _rerun_equal(what, state, params, parts):
+def _rerun_equal(what, state, params, parts, steps: int = 10):
     import torch
     from rapier_tpu_torch.types import tree_map
 
-    a, _ = run(tree_map(lambda x: x.clone(), state), params, 10)
-    b, _ = run(tree_map(lambda x: x.clone(), state), params, 10)
+    a, _ = run(tree_map(lambda x: x.clone(), state), params, steps)
+    b, _ = run(tree_map(lambda x: x.clone(), state), params, steps)
     for part in parts:
         pa, pb = getattr(a, part), getattr(b, part)
         for f in dataclasses.fields(pa):
             if not torch.equal(getattr(pa, f.name), getattr(pb, f.name)):
                 _fail(f"{what} rerun differs in {part}.{f.name}")
-    print(f"determinism: two 10-step reruns of the {what} batch are bitwise equal")
+    print(f"determinism: two {steps}-step reruns of the {what} batch are bitwise equal")
 
 
 def phase_determinism(device, pyramid):
     """Phase 8: bitwise reruns."""
+    from rapier_tpu_torch.scenes import s2d_coulomb_stack_world, s2d_pyramid_world
+
     state, params = bench_world(device, 64)
     state, _ = run(state, params, 60)
     _rerun_equal("bench", state, params, ("bodies", "contacts"))
@@ -892,6 +1031,11 @@ def phase_determinism(device, pyramid):
     state, params, _ = joints3_batch(device, N_CHECK)
     state, _ = run(state, params, JOINT_CPU_SETTLE)
     _rerun_equal("joints3", state, params, ("bodies", "contacts", "joints"))
+    for name, make in (("2D pyramid", s2d_pyramid_world),
+                       ("Coulomb stack", s2d_coulomb_stack_world)):
+        state, params, _ = s2d_batch(device, make, N_CHECK)
+        state, _ = run(state, params, S2D_CPU_SETTLE)
+        _rerun_equal(name, state, params, ("bodies", "contacts"), S2D_RERUN)
 
 
 def _replicas_equal(what, state, parts):
@@ -969,6 +1113,250 @@ def phase_joints(device, card):
                           **_stages(f"{name} step, {N_SCENES} scenes", state, params, card,
                                     trace_steps=TRACE_STEPS_LONG))
     return rows
+
+
+def s2d_batch(device, make, n_scenes: int, **kw):
+    """A 2D scene of `rapier_tpu_torch.scenes` (`make`, a PhysicsWorld2D)
+    replicated to `n_scenes` on `device`: (state, params, handles)."""
+    from rapier_tpu_torch.scenes import replicate_scene
+    from rapier_tpu_torch.types import from_numpy
+
+    world, handles = make(device=device, **kw)
+    return replicate_scene(from_numpy(world.build(), device), n_scenes), world.params, handles
+
+
+def _in_plane(what, state):
+    """Fail unless z, its velocity and the x / y spins are exactly 0 (the
+    plane lock)."""
+    b = state.bodies
+    if bool(b.pos[..., 2].any() | b.linvel[..., 2].any() | b.angvel[..., :2].any()):
+        _fail(f"{what}: a body left the plane")
+
+
+def _pile_step_facts(state, params):
+    """On the step after `state` (which the launch counts do not see): the
+    block_2x2 flag of every contact pass."""
+    from rapier_tpu_torch.dynamics.solver import contact_constraints as cc
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.pipeline import physics_pipeline as pp
+
+    flags = []
+    solve_color = cc.solve_color
+
+    def record_pass(*a, **kw):
+        flags.append(bool(kw.get("block_2x2", False)))
+        return solve_color(*a, **kw)
+
+    launches = cs.KERNEL.launches, cs.KERNEL.launches_folded
+    cc.solve_color = record_pass
+    try:
+        pp.step(state, params)
+    finally:
+        cc.solve_color = solve_color
+        cs.KERNEL.launches, cs.KERNEL.launches_folded = launches
+    return flags
+
+
+def _run_pile(state, params, n_steps: int, boxes, t_start: int, readings: list,
+              default_colors: int):
+    """`run` for the 2D pile, recording every S2D_READ_EVERY steps the top
+    box's height and vertical velocity, the largest box speed, and the
+    lanes the step's blocked layout left to the Jacobi tail at the scene's
+    colors and at `default_colors` (a coloring of the same lanes)."""
+    import torch
+    from rapier_tpu_torch.dynamics.solver.coloring import solve_caps
+    from rapier_tpu_torch.pipeline import physics_pipeline as pp
+
+    coloring, last = pp.color_constraints_blocked, {}
+
+    def record(*a):
+        out = coloring(*a)
+        last.update(args=a, tail=(out[0] == len(a[-1]) - 1).sum())
+        return out
+
+    def tail_at(colors):
+        a = last["args"]
+        caps = solve_caps(params.max_solver_pairs, state.contacts.max_pairs, colors)
+        return int((coloring(*a[:-1], caps)[0] == len(caps) - 1).sum())
+
+    worst = {"broadphase_overflow": 0, "solver_overflow": 0}
+    pp.color_constraints_blocked = record
+    try:
+        for i in range(1, n_steps + 1):
+            state, ev = pp.step(state, params)
+            for k in worst:
+                worst[k] = max(worst[k], int(getattr(ev, k).max()))
+            if (t_start + i) % S2D_READ_EVERY == 0:
+                v = state.bodies.linvel[0, boxes]
+                readings.append(dict(
+                    step=t_start + i, top_y=float(state.bodies.pos[0, boxes[-1], 1]),
+                    top_vy=float(v[-1, 1]), max_speed=float(v.norm(dim=-1).max()),
+                    tail=int(last["tail"]), tail_default=tail_at(default_colors),
+                    lanes=int(last["args"][4].sum())))
+    finally:
+        pp.color_constraints_blocked = coloring
+    torch.cuda.synchronize()
+    return state, worst
+
+
+def _s2d_big(device, card):
+    """Phase 10(a): the full-size s2d_pyramid, one scene, blocked, with
+    S2D_BIG_COLORS colors."""
+    import torch
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.pipeline.physics_pipeline import solve_path
+    from rapier_tpu_torch.scenes import s2d_pyramid_world
+    from rapier_tpu_torch.types import tree_map
+
+    state, params, handles = s2d_batch(device, s2d_pyramid_world, 1, base_count=S2D_BIG_BASE)
+    default_colors = params.max_colors
+    params = params.replace(max_colors=S2D_BIG_COLORS)
+    boxes = torch.tensor(handles["boxes"], device=device)
+    y0 = state.bodies.pos[0, boxes, 1].clone()
+    path = solve_path(state, params)
+    print(f"2D pyramid, base {S2D_BIG_BASE}: {len(handles['boxes'])} boxes, "
+          f"P={state.contacts.max_pairs} pair lanes, N+1={state.bodies.pos.shape[1] + 1}, "
+          f"max_solver_pairs {params.max_solver_pairs}, max_colors {params.max_colors} (NOT "
+          f"SimParams' default {default_colors}: there the Jacobi tail explodes the pile, "
+          f"ROADMAP F6), block_solver_2x2 {params.block_solver_2x2}, solve path {path}")
+    if path != "blocked" or not params.block_solver_2x2:
+        _fail(f"the 2D pyramid takes the {path} path (2x2: {params.block_solver_2x2}), not "
+              f"the blocked solve with the 2x2 block solve")
+    readings = []
+    cs.KERNEL.launches = cs.KERNEL.launches_folded = 0
+    t0 = time.time()
+    state, worst = _run_pile(state, params, S2D_BIG_SETTLE, boxes, 0, readings,
+                             default_colors)
+    settle_s = time.time() - t0
+    t0 = time.time()
+    state, worst_t = _run_pile(state, params, S2D_BIG_TIMED, boxes, S2D_BIG_SETTLE, readings,
+                               default_colors)
+    elapsed = time.time() - t0
+    launches = cs.KERNEL.launches, cs.KERNEL.launches_folded
+    for k in worst:
+        worst[k] = max(worst[k], worst_t[k])
+    rate = S2D_BIG_TIMED / elapsed
+    for r in readings:
+        print(f"2D pyramid, base {S2D_BIG_BASE}, step {r['step']}: top box y {r['top_y']:.4f} "
+              f"({r['top_y'] - S2D_BIG_REST:+.4f} from rest at {S2D_BIG_REST}), vertical "
+              f"velocity {r['top_vy']:+.4f} m/s; fastest box {r['max_speed']:.4f} m/s; Jacobi "
+              f"tail {r['tail']} of {r['lanes']} lanes (at {default_colors} colors it would "
+              f"hold {r['tail_default']})")
+    _finite(state)
+    _in_plane("the 2D pyramid", state)
+    y = state.bodies.pos[0, boxes, 1]
+    deviation = float((y - torch.round(y * 2) / 2).abs().max())
+    top, top_vy = readings[-1]["top_y"], readings[-1]["top_vy"]
+    sink, raised = float((y0 - y).max()), float((y - y0).max())
+    sunk = int((y0 - y > 0.25).sum())
+    # The pile holds: after its top row lands no box is faster than that
+    # row's free fall, none is thrown above its start, the top box stays
+    # above 0.9 x 99 (examples/s2d_pyramid.py:33) and within S2D_BIG_TOP_TOL
+    # of rest, and its swing shrinks.  At rest: the
+    # top box within S2D_REST_TOL of rest and slower than S2D_REST_VY.
+    landed = [r for r in readings if r["step"] > S2D_BIG_LANDING]
+    peak_vy = max(abs(r["top_vy"]) for r in landed)
+    fastest = max(r["max_speed"] for r in landed)
+    holds = (fastest < S2D_BIG_FALL and raised < 0.1 and top > (S2D_BIG_BASE - 1) * 0.9
+             and abs(top - S2D_BIG_REST) < S2D_BIG_TOP_TOL and abs(top_vy) < peak_vy)
+    at_rest = abs(top - S2D_BIG_REST) < S2D_REST_TOL and abs(top_vy) < S2D_REST_VY
+    flags = _pile_step_facts(state, params)
+    print(f"2D pyramid, base {S2D_BIG_BASE}: {rate:.3f} steps/s ({S2D_BIG_TIMED} steps in "
+          f"{elapsed:.3f} s after {S2D_BIG_SETTLE} in {settle_s:.1f} s; {card}); overflow "
+          f"{worst}; contact-sweep launches {launches[0]} + folded {launches[1]} (this path has "
+          f"none); after {readings[-1]['step']} steps the top box at {top:.4f} "
+          f"({top - S2D_BIG_REST:+.4f} from rest), vertical velocity {top_vy:+.4f} m/s: "
+          f"{'at rest' if at_rest else 'NOT at rest'} (within {S2D_REST_TOL} of rest and "
+          f"slower than {S2D_REST_VY} m/s); the pile {'holds' if holds else 'does NOT hold'} "
+          f"(after step {S2D_BIG_LANDING} no box faster than {S2D_BIG_FALL} m/s: fastest "
+          f"{fastest:.4f}; no box above its start: highest {raised:+.4f}; the top box above "
+          f"{(S2D_BIG_BASE - 1) * 0.9:.1f}, within {S2D_BIG_TOP_TOL} of rest and its swing "
+          f"shrinking: {abs(top_vy):.4f} m/s against "
+          f"a peak of {peak_vy:.4f}); largest row-height deviation {deviation:.4f}; boxes sunk "
+          f"more than 0.25 below their start {sunk}, the deepest by {sink:.4f}; the next "
+          f"step's {len(flags)} contact passes {'all' if all(flags) else 'not all'} with the "
+          f"2x2 block solve")
+    if worst["broadphase_overflow"] or worst["solver_overflow"]:
+        _fail(f"the 2D pyramid overflows: {worst}")
+    if launches != (0, 0):
+        _fail(f"the 2D pyramid launched a contact-sweep kernel: {launches}")
+    if not flags or not all(flags):
+        _fail("the 2D pyramid's blocked passes run without the 2x2 block solve")
+    if not holds:
+        _fail(f"the 2D pyramid does not hold: its top box is at {top} ({top_vy:+.4f} m/s), "
+              f"the fastest box at {fastest} m/s, a box {raised:+.4f} from its start")
+    row = dict(boxes=len(handles["boxes"]), max_colors=S2D_BIG_COLORS, steps_per_s=rate,
+               row_height_deviation=deviation, top_y=top, top_vy=top_vy, at_rest=at_rest,
+               holds=holds, deepest_sink=sink, boxes_sunk=sunk, readings=readings, **worst,
+               **_stages(f"2D pyramid step, base {S2D_BIG_BASE}", state, params, card,
+                         trace_steps=TRACE_STEPS_LONG))
+    return row, (tree_map(lambda x: x.clone(), state), params)
+
+
+def phase_2d(device, card):
+    """Phase 10: the 2D slice.  Returns the rows
+    for the JSON record and (a)'s settled pile (with its params) for phase
+    7."""
+    import torch
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.pipeline.physics_pipeline import solve_path
+    from rapier_tpu_torch.scenes import s2d_coulomb_stack_world, s2d_pyramid_world
+
+    rows = {}
+    rows[f"pyramid, base {S2D_BIG_BASE}"], big = _s2d_big(device, card)
+    for name, make in (("pyramid, base 10", s2d_pyramid_world),
+                       ("Coulomb stack", s2d_coulomb_stack_world)):
+        state, params, handles = s2d_batch(device, make, N_SCENES)
+        boxes = handles["boxes"]
+        start = state.bodies.pos[:, boxes, :2].clone()
+        path = solve_path(state, params)
+        if path != "masked":
+            _fail(f"2D {name} takes the {path} path, not the masked sweep")
+        settle = S2D_SLIDE if "slider" in handles else S2D_SETTLE
+        cs.KERNEL.launches = cs.KERNEL.launches_folded = 0
+        t0 = time.time()
+        state, worst = run(state, params, settle)
+        torch.cuda.synchronize()
+        settle_s = time.time() - t0
+        t0 = time.time()
+        state, worst_t = run(state, params, S2D_TIMED)
+        torch.cuda.synchronize()
+        elapsed = time.time() - t0
+        launches = cs.KERNEL.launches, cs.KERNEL.launches_folded
+        for k in worst:
+            worst[k] = max(worst[k], worst_t[k])
+        rate = N_SCENES * S2D_TIMED / elapsed
+        _finite(state)
+        _in_plane(f"2D {name}", state)
+        _replicas_equal(f"2D {name}", state, ("bodies", "contacts"))
+        moved = float((state.bodies.pos[:, boxes, :2] - start).abs().max())
+        row = dict(env_steps_per_s=rate, box_moved=moved, **worst)
+        note = ""
+        if "slider" in handles:
+            x = state.bodies.pos[:, handles["slider"], 0]
+            vx = state.bodies.linvel[:, handles["slider"], 0]
+            slid = bool(((x > SLIDER_X[0]) & (x < SLIDER_X[1]) & (vx.abs() < SLIDER_VX)).all())
+            row.update(slider_x=float(x[0]), slider_vx=float(vx[0]))
+            note = (f"; slider at x {float(x[0]):.4f}, vx {float(vx[0]):.6f} (at rest between "
+                    f"{SLIDER_X[0]} and {SLIDER_X[1]}: {slid})")
+            if not slid:
+                _fail(f"2D {name}: the slider is not at rest inside {SLIDER_X}")
+        print(f"2D {name}: {rate:.1f} env-steps/s ({N_SCENES} scenes x {S2D_TIMED} steps in "
+              f"{elapsed:.3f} s after {settle} in {settle_s:.1f} s; {card}); overflow "
+              f"{worst}; contact-sweep launches {launches[0]} + folded {launches[1]} (the "
+              f"masked sweep has none); boxes moved at most {moved:.4f} from their starts "
+              f"(tol {S2D_BOX_TOL}){note}; all {N_SCENES} scenes bitwise equal to scene 0")
+        if worst["broadphase_overflow"] or worst["solver_overflow"]:
+            _fail(f"2D {name} overflows: {worst}")
+        if launches != (0, 0):
+            _fail(f"2D {name} launched a contact-sweep kernel: {launches}")
+        if not moved < S2D_BOX_TOL:
+            _fail(f"2D {name}: a box moved {moved} from its start")
+        if "slider" in handles:
+            row.update(_stages(f"2D {name} step, {N_SCENES} scenes", state, params, card,
+                               trace_steps=TRACE_STEPS_LONG))
+        rows[name] = row
+    return rows, big
 
 
 LANE_KEYS = ("b1", "b2", "valid", "color", "normal", "point", "point_active", "dist",
@@ -1080,14 +1468,42 @@ def phase_earlier(device, card, roots):
     print(json.dumps({"earlier": rows}))
 
 
+def phase_rest(device, card, stacks, steps: int):
+    """With --rest-steps: each pyramid stack stepped `steps` steps, its top
+    box's height above rest and vertical velocity printed every REST_EVERY
+    steps (does the pile come to rest?)."""
+    import torch
+
+    for stack in stacks:
+        state, params, boxes = pyramid_batch(device, stack)
+        rest, worst, t0 = 2 * stack - 1, {}, time.time()
+        for done in range(REST_EVERY, steps + 1, REST_EVERY):
+            state, w = run(state, params, REST_EVERY)
+            worst = {k: max(v, worst.get(k, 0)) for k, v in w.items()}
+            _finite(state)
+            top, vy = float(state.bodies.pos[0, boxes, 1]), float(state.bodies.linvel[0, boxes, 1])
+            torch.cuda.synchronize()
+            print(f"pyramid stack {stack}, step {done}: top box {top - rest:+.4f} from rest "
+                  f"({rest}), vertical velocity {vy:+.4f} m/s; touching pairs "
+                  f"{int(state.contacts.touching.sum())}, sleeping "
+                  f"{int(state.bodies.sleeping.sum())}; overflow {worst}; "
+                  f"{time.time() - t0:.1f} s ({card})", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--earlier", nargs="+", metavar="DIR",
                     help="time the kernels of these unpacked checkouts beside this one's "
                          "and run nothing else")
     ap.add_argument("--pyramid", type=int, nargs="*", default=[], metavar="STACK",
-                    help="also run the pyramid phase at these stack heights (e.g. 31, "
-                         "BASELINE.json's 10,416-box pyramid)")
+                    help="also run the pyramid phase at these stack heights (e.g. 24, "
+                         "pyramid3.rs's, or 31, BASELINE.json's 10,416-box pyramid)")
+    ap.add_argument("--rest-steps", type=int, metavar="STEPS",
+                    help="step the --pyramid stacks (default 31) STEPS steps each, print the "
+                         f"top box's distance from rest every {REST_EVERY} steps, and run "
+                         "nothing else")
+    ap.add_argument("--s2d-only", action="store_true",
+                    help="run the build and phase 10 (the 2D slice) only")
     args = ap.parse_args()
     try:
         import torch
@@ -1122,6 +1538,13 @@ def main():
     if args.earlier:
         phase(phase_earlier, device, card, args.earlier)
         return
+    if args.rest_steps:
+        phase(phase_rest, device, card, tuple(args.pyramid) or (31,), args.rest_steps)
+        return
+    if args.s2d_only:
+        print(json.dumps({"s2d": phase(phase_2d, device, card)[0],
+                          "card": card}))
+        return
 
     block = phase(phase_kernel, device, card)
     folded = phase(phase_folded_kernel, device, card)
@@ -1129,13 +1552,14 @@ def main():
     folded["launches"], _ = phase(phase_robots, device, card)
     stacks = tuple(sorted(set(PYRAMID_STACKS) | set(args.pyramid)))
     pyramids, pyramid16 = phase(phase_pyramid, device, card, stacks)
-    phase(phase_cpu_agreement, device, pyramid16)
+    s2d, s2d_big = phase(phase_2d, device, card)
+    phase(phase_cpu_agreement, device, pyramid16, s2d_big)
     phase(phase_determinism, device, pyramid16)
     joints = phase(phase_joints, device, card)
     print(f"[all phases, the build included: {time.time() - start:.1f} s of the 1,200 allowed]")
 
-    print(json.dumps({"pyramid": pyramids, "bench_step": bench_stages, "joints": joints,
-                      "card": card}))
+    print(json.dumps({"pyramid": pyramids, "s2d": s2d, "bench_step": bench_stages,
+                      "joints": joints, "card": card}))
     source = "rapier_tpu_torch/csrc/contact_sweep.cu"
     print(json.dumps({"kernels": [
         {"name": "contact_sweep_kernel", "route": "cuda", "source": source,

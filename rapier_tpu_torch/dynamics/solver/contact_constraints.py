@@ -343,13 +343,97 @@ def warmstart(c: ContactConstraints, sb: SolverBodies,
     return sb._replace(v_lin=vw[:, 0:3], v_ang=vw[:, 3:6])
 
 
+def _normal_row(c, kk, pm, imp, v1, w1, v2, w2, rhs, cfm):
+    """Point `kk`'s normal row on the lanes of ``pm [B, K]`` (0 or 1): the
+    new impulse and velocities."""
+    dvel = (dot_cl(c.dir1, v1) + dot_cl(c.torque_dir1[:, kk], w1)
+            - dot_cl(c.dir1, v2) + dot_cl(c.torque_dir2[:, kk], w2)
+            + rhs[:, kk])
+    new_imp = cfm * torch.clamp(imp - c.r[:, kk] * dvel, min=0.0)
+    dl = ((new_imp - imp) * pm).unsqueeze(1)
+    return (imp + dl[:, 0], v1 + c.dir1 * c.im1 * dl, w1 + c.ii_torque_dir1[:, kk] * dl,
+            v2 - c.dir1 * c.im2 * dl, w2 + c.ii_torque_dir2[:, kk] * dl)
+
+
+def _block_pair(c, mask, imp_rows, v1, w1, v2, w2, rhs, cfm):
+    """Points 0 and 1 of the lanes in `mask` (contact_constraint_element.rs
+    :290-319, solve_mlcp_two_constraints; reference contact_constraints.py
+    :676-760): where both points are active, one coupled 2x2 MLCP whose
+    cases are tried in the reference's order (both impulses positive, only
+    point 0's, only point 1's, both zero, else the old impulses kept); a
+    singular pair (det <= 0) solves point 0 alone.  Elsewhere the two
+    points are solved one after the other.  Returns (impulses of points 0
+    and 1, v1, w1, v2, w2)."""
+    pair_ok = mask & c.point_mask[:, 0] & c.point_mask[:, 1]
+
+    # Sequential candidates for points 0 and 1 on the lanes not paired.
+    seq = [imp_rows[0], imp_rows[1], v1, w1, v2, w2]
+    for kk in range(2):
+        pm = (mask & c.point_mask[:, kk] & ~pair_ok).to(torch.float32)
+        seq[kk], *seq[2:] = _normal_row(c, kk, pm, seq[kk], *seq[2:], rhs, cfm)
+
+    # The block candidate on the paired lanes.
+    dvel_lin = dot_cl(c.dir1, v1) - dot_cl(c.dir1, v2)
+    dva = (dvel_lin + dot_cl(c.torque_dir1[:, 0], w1)
+           + dot_cl(c.torque_dir2[:, 0], w2) + rhs[:, 0])
+    dvb = (dvel_lin + dot_cl(c.torque_dir1[:, 1], w1)
+           + dot_cl(c.torque_dir2[:, 1], w2) + rhs[:, 1])
+    r0, r1 = c.r[:, 0], c.r[:, 1]
+    m11 = 1.0 / torch.clamp(r0, min=1e-12)
+    m22 = 1.0 / torch.clamp(r1, min=1e-12)
+    m12 = (dot_cl(c.dir1 * (c.im1 + c.im2), c.dir1)
+           + dot_cl(c.ii_torque_dir1[:, 0], c.torque_dir1[:, 1])
+           + dot_cl(c.ii_torque_dir2[:, 0], c.torque_dir2[:, 1]))
+    det = m11 * m22 - m12 * m12
+    invertible = det > 0.0
+    safe_det = torch.where(invertible, det, torch.ones_like(det))
+    zero = torch.zeros_like(det)
+    # A singular pair keeps point 0's row alone (the reference zeroes the
+    # redundant row's matrix elements).
+    inv11 = torch.where(invertible, m22 / safe_det, r0)
+    inv22 = torch.where(invertible, m11 / safe_det, zero)
+    inv12 = torch.where(invertible, -m12 / safe_det, zero)
+    k12 = torch.where(invertible, m12, zero)
+
+    prev0, prev1 = imp_rows[0], imp_rows[1]
+    n0x = prev0 - (inv11 * dva + inv12 * dvb)
+    n0y = prev1 - (inv12 * dva + inv22 * dvb)
+    n1x = prev0 - r0 * dva
+    n2y = prev1 - r1 * dvb
+    keep0 = (n0x >= 0.0) & (n0y >= 0.0)
+    keep1 = (n1x >= 0.0) & (dvb + k12 * n1x >= 0.0)
+    keep2 = (n2y >= 0.0) & (dva + k12 * n2y >= 0.0)
+    keep3 = (dva >= 0.0) & (dvb >= 0.0)
+    selx = torch.where(keep0, cfm * n0x, torch.where(
+        keep1, cfm * n1x, torch.where(keep2 | keep3, zero, prev0)))
+    sely = torch.where(keep0, cfm * n0y, torch.where(
+        keep1, zero, torch.where(keep2, cfm * n2y, torch.where(keep3, zero, prev1))))
+    fpair = pair_ok.to(torch.float32)
+    dl0 = ((selx - prev0) * fpair).unsqueeze(1)
+    dl1 = ((sely - prev1) * fpair).unsqueeze(1)
+    blk = (v1 + c.dir1 * c.im1 * (dl0 + dl1),
+           w1 + c.ii_torque_dir1[:, 0] * dl0 + c.ii_torque_dir1[:, 1] * dl1,
+           v2 - c.dir1 * c.im2 * (dl0 + dl1),
+           w2 + c.ii_torque_dir2[:, 0] * dl0 + c.ii_torque_dir2[:, 1] * dl1)
+
+    sel = fpair.unsqueeze(1)
+    v1, w1, v2, w2 = (b * sel + s * (1.0 - sel) for b, s in zip(blk, seq[2:]))
+    return (torch.where(pair_ok, prev0 + dl0[:, 0], seq[0]),
+            torch.where(pair_ok, prev1 + dl1[:, 0], seq[1]), v1, w1, v2, w2)
+
+
 def solve_color(c: ContactConstraints, sb: SolverBodies, color_id, *,
-                use_bias: bool, route: RoutePlan = None):
+                use_bias: bool, route: RoutePlan = None, block_2x2: bool = False):
     """One Gauss-Seidel pass over the lanes of one color
     (contact_with_twist_friction.rs:395-460): normal points in order, then
     the coupled tangent pair, then twist.  Lanes of one color share no
     dynamic body, so the scatter-add of their deltas is conflict-free; in the
-    overflow color it accumulates (Jacobi), as in the reference."""
+    overflow color it accumulates (Jacobi), as in the reference.
+
+    `block_2x2` solves points 0 and 1 as one coupled 2x2 MLCP
+    (`_block_pair`), the 2D block solver (BLOCK_SOLVER_ENABLED,
+    integration_parameters.rs:9) that PhysicsWorld2D turns on; points 2-3
+    follow one at a time."""
     mask = c.valid & (c.color == color_id)
     fmask = mask.to(torch.float32)
 
@@ -363,18 +447,15 @@ def solve_color(c: ContactConstraints, sb: SolverBodies, color_id, *,
     rhs = c.rhs if use_bias else c.rhs_wo_bias
 
     imp_rows = [c.impulse[:, kk] for kk in range(4)]
-    for kk in range(4):
+    start_k = 0
+    if block_2x2:
+        start_k = 2
+        imp_rows[0], imp_rows[1], v1, w1, v2, w2 = _block_pair(
+            c, mask, imp_rows, v1, w1, v2, w2, rhs, cfm)
+    for kk in range(start_k, 4):
         pm = (mask & c.point_mask[:, kk]).to(torch.float32)
-        dvel = (dot_cl(c.dir1, v1) + dot_cl(c.torque_dir1[:, kk], w1)
-                - dot_cl(c.dir1, v2) + dot_cl(c.torque_dir2[:, kk], w2)
-                + rhs[:, kk])
-        new_imp = cfm * torch.clamp(imp_rows[kk] - c.r[:, kk] * dvel, min=0.0)
-        dl = ((new_imp - imp_rows[kk]) * pm).unsqueeze(1)
-        imp_rows[kk] = imp_rows[kk] + dl[:, 0]
-        v1 = v1 + c.dir1 * c.im1 * dl
-        w1 = w1 + c.ii_torque_dir1[:, kk] * dl
-        v2 = v2 - c.dir1 * c.im2 * dl
-        w2 = w2 + c.ii_torque_dir2[:, kk] * dl
+        imp_rows[kk], v1, w1, v2, w2 = _normal_row(c, kk, pm, imp_rows[kk], v1, w1, v2, w2,
+                                                   rhs, cfm)
     impulses = torch.stack(imp_rows, dim=1)
 
     # Friction limits scale with the solved normal impulses.

@@ -180,14 +180,14 @@ def integrate_poses(sb: SolverBodies, move_mask, dt_sub) -> SolverBodies:
 
 
 def _substeps(bodies, sb, constraints, active, params: SimParams, route, sweep,
-              joints: JointSolve = None):
+              joints: JointSolve = None, cc_mod=cc):
     """The TGS-soft substep loop around `sweep(constraints, sb, use_bias)`:
     external increments, the joint rows rebuilt from the current poses
-    (joint_constraint_builder.rs:66-106), the soft-rhs update, warmstart
-    (through `route`), the biased sweeps, pose integration, the bias-free
-    sweeps; in each iteration the joint sweep runs before the contact
-    sweep.  Returns (sb, constraints, the last substep's joint rows or
-    None)."""
+    (joint_constraint_builder.rs:66-106), the soft-rhs update and warmstart
+    of the friction model `cc_mod` (warmstart through `route`), the biased
+    sweeps, pose integration, the bias-free sweeps; in each iteration the
+    joint sweep runs before the contact sweep.  Returns (sb, constraints,
+    the last substep's joint rows or None)."""
     si = substep_inputs(bodies, sb, active, params)
     n = bodies.body_type.shape[-1]
     rows = jroute = None
@@ -206,13 +206,13 @@ def _substeps(bodies, sb, constraints, active, params: SimParams, route, sweep,
                                      si["inv_dt_sub"], n, params.joint_slots)
                 if jroute is None:
                     jroute = jc.segment_route(rows.b1, rows.b2, n)
-        constraints = cc.update(
+        constraints = cc_mod.update(
             constraints, sb, cfm_factor=si["cfm_factor"], inv_dt=si["inv_dt_sub"],
             allowed_lin_err=float(params.allowed_linear_error()),
             erp_inv_dt=si["erp_inv_dt"],
             max_corrective_velocity=float(params.max_corrective_velocity()),
             warmstart_coeff=float(params.warmstart_coefficient))
-        sb = cc.warmstart(constraints, sb, route)
+        sb = cc_mod.warmstart(constraints, sb, route)
         for _ in range(params.num_internal_pgs_iterations):
             if joints is not None:
                 rows, sb = joint_sweep(rows, sb, True)
@@ -226,21 +226,24 @@ def _substeps(bodies, sb, constraints, active, params: SimParams, route, sweep,
 
 
 def solve(bodies, sb: SolverBodies, constraints, num_colors, active,
-          params: SimParams, route, joints: JointSolve = None):
+          params: SimParams, route, joints: JointSolve = None, cc_mod=cc):
     """The masked sweep (velocity_solver.py:178-254): each pass solves one
     color over every lane, masked; with `joints`, the joint colors' passes
-    precede the contact passes of every iteration.  Every scene sweeps the
-    batch's largest color count; colors past a scene's own are empty and
-    change nothing.  Returns (sb, constraints, the last substep's joint
-    rows or None)."""
+    precede the contact passes of every iteration.  `cc_mod` is the friction
+    model's module (`contact_constraints`, or `contact_constraints_coulomb`
+    for FrictionModel.COULOMB); the 2x2 block solve applies to the twist
+    model only (:199-211).  Every scene sweeps the batch's largest color
+    count; colors past a scene's own are empty and change nothing.  Returns
+    (sb, constraints, the last substep's joint rows or None)."""
     ncol = int(torch.max(num_colors)) if num_colors.numel() else 0
+    block = {"block_2x2": True} if params.block_solver_2x2 and cc_mod is cc else {}
 
     def sweep(cons, s, use_bias):
         for ci in range(ncol):
-            cons, s = cc.solve_color(cons, s, ci, use_bias=use_bias, route=route)
+            cons, s = cc_mod.solve_color(cons, s, ci, use_bias=use_bias, route=route, **block)
         return cons, s
 
-    return _substeps(bodies, sb, constraints, active, params, route, sweep, joints)
+    return _substeps(bodies, sb, constraints, active, params, route, sweep, joints, cc_mod)
 
 
 def _slice_lanes(c: cc.ContactConstraints, start: int, width: int):
@@ -255,13 +258,18 @@ def solve_blocked(bodies, sb: SolverBodies, constraints, blocks, route, active,
     (velocity_solver.py:257-322).  `blocks` lists (color id, start, width,
     RoutePlan) of contiguous static blocks covering the lanes in order; a
     pass solves one block's lanes and scatters through its plan.  `route`
-    routes the warmstart over all lanes.  Returns (sb, constraints)."""
+    routes the warmstart over all lanes.  A 2D scene (block_solver_2x2)
+    solves its passes with the 2x2 block solve, as `solve` does: the
+    reference's blocked passes drop the flag (velocity_solver.py:291-293,
+    ROADMAP R10), which the port does not copy.  Returns (sb,
+    constraints)."""
 
     def sweep(cons, s, use_bias):
         parts = []
         for ci, s0, width, route_c in blocks:
             c_sl, s = cc.solve_color(_slice_lanes(cons, s0, width), s, ci,
-                                     use_bias=use_bias, route=route_c)
+                                     use_bias=use_bias, route=route_c,
+                                     block_2x2=params.block_solver_2x2)
             parts.append(c_sl)
         # A pass reads only its own block's impulses, so the blocks' new
         # impulses join once the sweep is done.

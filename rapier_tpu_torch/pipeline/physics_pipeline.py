@@ -16,11 +16,13 @@ physics_pipeline.py:554-562, :664-667): the contact-sweep kernel (the
 reference's Pallas kernel; a CUDA kernel on the card) where its gate holds;
 otherwise, above DENSE_ROUTE_ELEMS lane x body elements, the blocked solve of
 large scenes, and below it the masked color sweep.  solver_backend="jax"
-never takes the kernel.  A scene with impulse joints takes the masked sweep
-at any size: the joints' colored passes run before the contact passes.
+never takes the kernel, nor does a scene with the 2x2 block solve
+(PhysicsWorld2D).  A scene with impulse joints, or with the Coulomb friction
+model, takes the masked sweep at any size: the joints' colored passes run
+before the contact passes.
 
 Not ported (NotImplementedError): multibody dof couplings, meshes, convex
-hulls, CCD, hooks, FrictionModel.COULOMB, the 2x2 block solver, f64.
+hulls, CCD, hooks, f64.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 from rapier_tpu_torch.dynamics import multibody as mbmod
 from rapier_tpu_torch.dynamics.solver import velocity_solver as vs
 from rapier_tpu_torch.dynamics.solver import contact_constraints as cc
+from rapier_tpu_torch.dynamics.solver import contact_constraints_coulomb as ccc
 from rapier_tpu_torch.dynamics.solver import joint_constraints as jc
 from rapier_tpu_torch.dynamics.solver.coloring import (
     color_constraints,
@@ -101,18 +104,24 @@ def _match_previous(prev: Contacts, man: ManifoldBatch):
     reference's sort + searchsorted form; keys are unique, so it equals the
     dense join).  Returns matched warmstart impulses, previous totals (for
     is_bouncy), previous `touching`, the match mask and `still` (old pairs
-    still touching)."""
+    still touching).  The tangent warmstart is a manifold's pair ``[B, 2,
+    P]`` (twist model), or under FrictionModel.COULOMB a pair per point
+    ``[B, 4, 2, P]`` routed by the same feature match as the normal
+    impulses (:105-107, :171-176)."""
     new_keys = torch.where(man.valid, man.pair_key, -1).contiguous()
     old_keys = torch.where(prev.pair_key >= 0, prev.pair_key, -2)
-    pn, po = new_keys.shape[-1], old_keys.shape[-1]
+    bsz, pn, po = new_keys.shape[0], new_keys.shape[-1], old_keys.shape[-1]
+    per_point = prev.warmstart_tangent_impulse.dim() == 4
+    tan_rows = prev.warmstart_tangent_impulse.reshape(bsz, -1, po).float()
+    nt = tan_rows.shape[1]
     stacked = torch.cat([
         prev.feature_id.float(),                       # 0:4
         prev.point_active.float(),                     # 4:8
         prev.warmstart_impulse.float(),                # 8:12
         prev.impulse.float(),                          # 12:16
-        prev.warmstart_tangent_impulse.float(),        # 16:18
-        prev.warmstart_twist_impulse.float().unsqueeze(1),   # 18
-        prev.touching.float().unsqueeze(1),            # 19
+        tan_rows,                                      # 16:16+nt
+        prev.warmstart_twist_impulse.float().unsqueeze(1),   # 16+nt
+        prev.touching.float().unsqueeze(1),            # 17+nt
     ], dim=1)
 
     sk, order = torch.sort(old_keys, dim=-1, stable=True)
@@ -146,9 +155,13 @@ def _match_previous(prev: Contacts, man: ManifoldBatch):
 
     ws_normal = take(J[:, 8:12])
     prev_impulse = take(J[:, 12:16])
-    ws_tan = J[:, 16:18] * matched.float().unsqueeze(1)
-    ws_twist = torch.where(matched, J[:, 18], 0.0)
-    prev_touching = matched & (J[:, 19] > 0)
+    if per_point:
+        old_tan = J[:, 16:16 + nt].reshape(bsz, 4, 2, pn)   # [B, 4old, 2, P]
+        ws_tan = (first.unsqueeze(3) * old_tan.unsqueeze(1)).sum(dim=2)
+    else:
+        ws_tan = J[:, 16:18] * matched.float().unsqueeze(1)
+    ws_twist = torch.where(matched, J[:, 16 + nt], 0.0)
+    prev_touching = matched & (J[:, 17 + nt] > 0)
     return ws_normal, ws_tan, ws_twist, prev_impulse, prev_touching, matched, still
 
 
@@ -158,22 +171,24 @@ def solve_path(state: SceneState, params: SimParams) -> str:
     does not carry.  Returns "kernel" (the contact-sweep kernel, the
     reference's Pallas path), "blocked" (the blocked solve, above the dense
     routing limit) or "masked" (the masked color sweep, and every scene
-    with impulse joints)."""
+    with impulse joints or the Coulomb friction model)."""
     if params.enable_ccd:
         raise NotImplementedError("CCD is not ported")
-    if params.friction_model == int(FrictionModel.COULOMB):
-        raise NotImplementedError("FrictionModel.COULOMB is not ported")
-    if params.block_solver_2x2:
-        raise NotImplementedError("the 2x2 block solver (block_solver_2x2) is not ported")
     if state.bodies.pos.dtype != torch.float32:
         raise NotImplementedError(f"{state.bodies.pos.dtype} scenes are not ported "
                                   "(the port is float32, like the reference's kernels)")
-    if state.joints is not None:
+    coulomb = params.friction_model == int(FrictionModel.COULOMB)
+    if coulomb != (state.contacts.warmstart_tangent_impulse.dim() == 4):
+        raise ValueError("the contact cache's tangent layout does not match the friction "
+                         "model (empty_contacts(per_point_tangent=...))")
+    if state.joints is not None or coulomb:
         return "masked"
     n = state.bodies.body_type.shape[-1]
     p_lanes = state.contacts.max_pairs
-    # "auto" takes the kernel, as the reference does on its TPU.
-    if params.solver_backend != "jax" and vmem_feasible(p_lanes, n + 1):
+    # "auto" takes the kernel, as the reference does on its TPU; the kernel
+    # has no 2x2 block solve.
+    if (params.solver_backend != "jax" and not params.block_solver_2x2
+            and vmem_feasible(p_lanes, n + 1)):
         return "kernel"
     return "blocked" if p_lanes * (n + 1) > DENSE_ROUTE_ELEMS else "masked"
 
@@ -210,9 +225,16 @@ def _scatter_back(imp, src, kvalid, default):
 
 
 def _impulse_block(c):
-    return torch.cat([c.impulse, c.impulse_acc, c.tan_impulse, c.tan_impulse_acc,
-                      c.twist_impulse.unsqueeze(1), c.twist_impulse_acc.unsqueeze(1)],
-                     dim=1)
+    """``[B, 10 + 2T, K]``: the normal impulses and their accumulators, the T
+    tangent rows of each (2, or 8 under the Coulomb model), the twist impulse
+    and its accumulator (zero under the Coulomb model, which has none)."""
+    bsz, k = c.valid.shape
+    if isinstance(c, ccc.CoulombConstraints):
+        twist = torch.zeros_like(c.impulse[:, :2])
+    else:
+        twist = torch.stack([c.twist_impulse, c.twist_impulse_acc], dim=1)
+    return torch.cat([c.impulse, c.impulse_acc, c.tan_impulse.reshape(bsz, -1, k),
+                      c.tan_impulse_acc.reshape(bsz, -1, k), twist], dim=1)
 
 
 def _solve_kernel(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_n,
@@ -337,15 +359,17 @@ def _solve_blocked(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_
 def _solve_masked(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_n,
                   ws_t, ws_tw, joints=None):
     """The masked sweep (physics_pipeline.py:798-936): the touching lanes
-    compacted to max_solver_pairs, Luby colors, and one masked pass over
-    every lane per color, after the passes of the joint colors where
-    `joints` (a `velocity_solver.JointSolve`) is given.  Returns (sb,
-    impulse block ``[B, 14, P]``, solver_overflow ``[B]``, the last
-    substep's joint rows or None)."""
+    compacted to max_solver_pairs (not under the Coulomb model, :804), Luby
+    colors, the friction model's constraints (:861-872), and one masked
+    pass over every lane per color, after the passes of the joint colors
+    where `joints` (a `velocity_solver.JointSolve`) is given.  Returns (sb,
+    impulse block (`_impulse_block`) over the P lanes, solver_overflow
+    ``[B]``, the last substep's joint rows or None)."""
     n = bodies.body_type.shape[-1]
     p_lanes = man.body1.shape[-1]
     cap = params.max_solver_pairs
-    compact = 0 < cap < p_lanes
+    coulomb = params.friction_model == int(FrictionModel.COULOMB)
+    compact = not coulomb and 0 < cap < p_lanes
     fields = ("body1", "body2", "rel_dominance", "solver_pair", "normal", "point",
               "point_active", "dist", "friction", "restitution")
     if compact:
@@ -369,12 +393,20 @@ def _solve_masked(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_n
 
     color, num_colors = color_constraints(
         man_s.body1, man_s.body2, dyn1_s, dyn2_s, man_s.solver_pair, n, params.max_colors)
-    cons = cc.generate(man_s, sb, prev_imp_s, color, n)
-    cons = cons._replace(impulse=ws_n_s * cons.point_mask.float(), tan_impulse=ws_t_s,
-                         twist_impulse=ws_tw_s)
+    if coulomb:
+        cc_mod = ccc
+        cons = ccc.generate(man_s, sb, prev_imp_s, color, n)
+        pmask = cons.point_mask.float()
+        cons = cons._replace(impulse=ws_n_s * pmask, tan_impulse=ws_t_s * pmask.unsqueeze(2))
+    else:
+        cc_mod = cc
+        cons = cc.generate(man_s, sb, prev_imp_s, color, n)
+        cons = cons._replace(impulse=ws_n_s * cons.point_mask.float(), tan_impulse=ws_t_s,
+                             twist_impulse=ws_tw_s)
     route = cc.RoutePlan(seg_pair=make_segment_plan(torch.cat([cons.b1, cons.b2], dim=-1),
                                                     n + 1))
-    sb, cons, rows = vs.solve(bodies, sb, cons, num_colors, active, params, route, joints)
+    sb, cons, rows = vs.solve(bodies, sb, cons, num_colors, active, params, route, joints,
+                              cc_mod)
     imp = _impulse_block(cons)
     if compact:
         imp = _scatter_back(imp, src, kvalid, _unsolved(man, ws_n, ws_t, ws_tw))
@@ -609,9 +641,13 @@ def step(state: SceneState, params: SimParams):
                 linvel=torch.where(ns, 0.0, bodies.linvel),
                 angvel=torch.where(ns, 0.0, bodies.angvel))
 
-    # 9. Persist the contact cache; events.
+    # 9. Persist the contact cache; events.  The tangent rows keep the
+    #    cache's layout: a pair a manifold, or (Coulomb) a pair a point.
+    tan_shape = state.contacts.warmstart_tangent_impulse.shape
+    nt = (imp.shape[1] - 10) // 2
     impulse, impulse_acc = imp[:, 0:4], imp[:, 4:8]
-    tan_impulse, tan_impulse_acc = imp[:, 8:10], imp[:, 10:12]
+    tan_impulse = imp[:, 8:8 + nt].reshape(tan_shape)
+    tan_impulse_acc = imp[:, 8 + nt:8 + 2 * nt].reshape(tan_shape)
     total_normal = impulse_acc + impulse
     pmask = man.point_active.float()
     contacts = Contacts(
@@ -624,7 +660,7 @@ def step(state: SceneState, params: SimParams):
         active=man.valid, touching=man.touching,
         warmstart_impulse=impulse,
         warmstart_tangent_impulse=tan_impulse,
-        warmstart_twist_impulse=imp[:, 12],
+        warmstart_twist_impulse=imp[:, 8 + 2 * nt],
         impulse=total_normal * pmask,
         tangent_impulse=tan_impulse_acc + tan_impulse,
         friction=man.friction, restitution=man.restitution,

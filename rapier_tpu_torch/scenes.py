@@ -220,6 +220,102 @@ def joints3_world(**world_kw):
     return w, {"chain": chain, "slider": slider, "rope": rope}
 
 
+def _s2d_pyramid(w, base_count: int, half: float = 0.5, friction: float = 0.6):
+    """The 2D box pyramid of tests/test_s2d.py:18-36 into `w`: a ground
+    cuboid (100, 1) at y = -1, rows of half-`half` boxes 1.002 box widths
+    apart, each row 1.002 box heights above the last.  Returns the boxes'
+    handles."""
+    from rapier_tpu_torch.world2d import ColliderBuilder2D, RigidBodyBuilder2D
+
+    ground = w.insert_body(RigidBodyBuilder2D.fixed().with_translation((0.0, -1.0)))
+    w.insert_collider(ColliderBuilder2D.cuboid(100.0, 1.0).with_friction(friction), ground)
+    gap = half * 2.0 * 1.002
+    boxes = []
+    for row in range(base_count):
+        n = base_count - row
+        y = half * 1.002 + row * half * 2.004
+        x0 = -(n - 1) * gap / 2.0
+        for i in range(n):
+            b = w.insert_body(RigidBodyBuilder2D.dynamic().with_translation((x0 + i * gap, y)))
+            w.insert_collider(ColliderBuilder2D.cuboid(half, half).with_friction(friction), b)
+            boxes.append(b)
+    return boxes
+
+
+def s2d_pyramid_world(base_count: int = 10, **world_kw):
+    """s2d_pyramid (examples2d/s2d_pyramid.rs:13-38; SURVEY.md's full-size
+    scene is base 100, 5,050 boxes) on `PhysicsWorld2D`, built as
+    tests/test_s2d.py builds it.  Returns (world, {"boxes": handles}), the
+    top box last."""
+    from rapier_tpu_torch.world2d import PhysicsWorld2D
+
+    w = PhysicsWorld2D(**world_kw)
+    return w, {"boxes": _s2d_pyramid(w, base_count)}
+
+
+def s2d_far_pyramid_world(**world_kw):
+    """s2d_far_pyramid.rs as tests/test_s2d.py:227-259 builds it: a 10-row
+    pyramid of half-0.5 boxes 1.25 box widths apart, far from the origin
+    at (1e5, -8e4), where a float32 ulp is ~0.0078 (ROADMAP R2).  Returns
+    (world, {"boxes": handles, "origin": (x, y)})."""
+    from rapier_tpu_torch.world2d import ColliderBuilder2D, PhysicsWorld2D, RigidBodyBuilder2D
+
+    w = PhysicsWorld2D(**world_kw)
+    origin = np.array([100_000.0, -80_000.0])
+    ground = w.insert_body(RigidBodyBuilder2D.fixed().with_translation(
+        tuple((0, -1) + origin)))
+    w.insert_collider(ColliderBuilder2D.cuboid(100.0, 1.0).with_friction(0.6), ground)
+    base, h = 10, 0.5
+    shift = 1.25 * h
+    boxes = []
+    for i in range(base):
+        y = (2.0 * i + 1.0) * shift + 0.5
+        for j in range(i, base):
+            x = (i + 1.0) * shift + 2.0 * (j - i) * shift - h * base
+            b = w.insert_body(RigidBodyBuilder2D.dynamic().with_translation(
+                tuple(np.array([x, y]) + origin)))
+            w.insert_collider(ColliderBuilder2D.cuboid(h, h).with_friction(0.6), b)
+            boxes.append(b)
+    return w, {"boxes": boxes, "origin": tuple(origin)}
+
+
+def s2d_high_mass_ratio_world(**world_kw):
+    """The heavy-on-light scene of tests/test_s2d.py:50-73 (the
+    s2d_high_mass_ratio family): a box of density 25 resting on two light
+    boxes.  Returns (world, {"heavy": handle, "light": [handles]})."""
+    from rapier_tpu_torch.world2d import ColliderBuilder2D, PhysicsWorld2D, RigidBodyBuilder2D
+
+    w = PhysicsWorld2D(**world_kw)
+    ground = w.insert_body(RigidBodyBuilder2D.fixed().with_translation((0, -1)))
+    w.insert_collider(ColliderBuilder2D.cuboid(50.0, 1.0).with_friction(0.5), ground)
+    light = []
+    for x in (-0.6, 0.6):
+        b = w.insert_body(RigidBodyBuilder2D.dynamic().with_translation((x, 0.5)))
+        w.insert_collider(ColliderBuilder2D.cuboid(0.3, 0.5).with_friction(0.5), b)
+        light.append(b)
+    heavy = w.insert_body(RigidBodyBuilder2D.dynamic().with_translation((0.0, 1.5)))
+    w.insert_collider(
+        ColliderBuilder2D.cuboid(1.2, 0.5).with_friction(0.5).with_density(25.0), heavy)
+    return w, {"heavy": heavy, "light": light}
+
+
+def s2d_coulomb_stack_world(**world_kw):
+    """The Coulomb-friction scene of tests/test_s2d.py:310-334: a 6-row 2D
+    pyramid under FrictionModel.COULOMB, and a box kicked along the ground
+    at 6 m/s that friction brings to rest.  Returns (world, {"boxes":
+    handles, "slider": handle})."""
+    from rapier_tpu_torch.types import FrictionModel
+    from rapier_tpu_torch.world2d import ColliderBuilder2D, PhysicsWorld2D, RigidBodyBuilder2D
+
+    w = PhysicsWorld2D(**world_kw)
+    w.params = w.params.replace(friction_model=int(FrictionModel.COULOMB))
+    boxes = _s2d_pyramid(w, 6)
+    slider = w.insert_body(RigidBodyBuilder2D.dynamic().with_translation((20.0, 0.55))
+                           .with_linvel((6.0, 0.0)))
+    w.insert_collider(ColliderBuilder2D.cuboid(0.5, 0.5).with_friction(0.4), slider)
+    return w, {"boxes": boxes, "slider": slider}
+
+
 def replicate_scene(state, batch: int):
     """Copy one scene state `batch` times along a new leading scene axis.
     Numpy leaves stay numpy (host); tensor leaves are copied on their

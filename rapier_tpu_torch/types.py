@@ -96,8 +96,13 @@ ACTIVE_COLLISION_TYPES_DEFAULT = int(
     | ActiveCollisionTypes.DYNAMIC_FIXED
 )
 
+# Locked-axes bits (LockedAxes, rigid_body_components.rs:271).
 LOCK_TRANSLATION_X = 1 << 0
+LOCK_TRANSLATION_Y = 1 << 1
+LOCK_TRANSLATION_Z = 1 << 2
 LOCK_ROTATION_X = 1 << 3
+LOCK_ROTATION_Y = 1 << 4
+LOCK_ROTATION_Z = 1 << 5
 
 # Joint axis bits (JointAxesMask): three linear axes, then three angular.
 JOINT_LIN_AXES = 0b000111
@@ -202,10 +207,10 @@ class Contacts:
     active: Any                     # [P] bool
     touching: Any                   # [P] bool
     warmstart_impulse: Any          # [4, P]
-    warmstart_tangent_impulse: Any  # [2, P]
+    warmstart_tangent_impulse: Any  # [2, P]; [4, 2, P] under COULOMB
     warmstart_twist_impulse: Any    # [P]
     impulse: Any                    # [4, P]
-    tangent_impulse: Any            # [2, P]
+    tangent_impulse: Any            # [2, P]; [4, 2, P] under COULOMB
     friction: Any                   # [P]
     restitution: Any                # [P]
     events_or: Any                  # [P] int32
@@ -319,16 +324,20 @@ def empty_colliders(c: int) -> Colliders:
     )
 
 
-def empty_contacts(p: int) -> Contacts:
+def empty_contacts(p: int, per_point_tangent: bool = False) -> Contacts:
+    """`per_point_tangent` widens the tangent caches to ``[4, 2, P]`` for
+    FrictionModel.COULOMB (a tangent pair per contact point, contact_pair.rs
+    :34-51); the twist model keeps one pair a manifold, ``[2, P]``."""
+    tan_shape = (4, 2, p) if per_point_tangent else (2, p)
     return Contacts(
         pair_key=_i((p,), -1), body1=_i((p,), -1), body2=_i((p,), -1),
         collider1=_i((p,), -1), collider2=_i((p,), -1),
         normal=_f((3, p)), point=_f((4, 3, p)), dist=_f((4, p)),
         feature_id=_i((4, p), -1), point_active=_b((4, p)),
         num_points=_i((p,)), active=_b((p,)), touching=_b((p,)),
-        warmstart_impulse=_f((4, p)), warmstart_tangent_impulse=_f((2, p)),
+        warmstart_impulse=_f((4, p)), warmstart_tangent_impulse=_f(tan_shape),
         warmstart_twist_impulse=_f((p,)),
-        impulse=_f((4, p)), tangent_impulse=_f((2, p)),
+        impulse=_f((4, p)), tangent_impulse=_f(tan_shape),
         friction=_f((p,)), restitution=_f((p,)),
         events_or=_i((p,)),
     )

@@ -9,9 +9,11 @@ one Python call and nothing else.  Two measurement paths turn it on:
    `torch.cuda.synchronize()` before and after every stage and returns the
    host milliseconds of each (`StageTimings`).  The synchronisations add
    their own cost, so the stages sum to more than an unmeasured step.
-2. `trace_step(state, params)` runs steps under `torch.profiler` with each
-   stage as a named range, and returns the step's wall time, its kernel
-   count, the time the card was busy and the kernels of most device time.
+2. `trace_step(state, params)` runs steps under `torch.profiler`, recording
+   the card's activity only (a host-side record of every op would cost the
+   profiler tens of seconds a step on the launch-bound paths), and returns
+   the step's wall time, its kernel count, the time the card was busy and
+   the kernels of most device time.
 
 Both time the card only: a state on another device raises, so no number
 from the CPU is ever reported as the card's.
@@ -25,25 +27,17 @@ from dataclasses import dataclass, field
 
 import torch
 
-# "joints" (the impulse joints' row builds and sweeps) runs inside "solve".
-STAGES = ("broad_phase", "narrow_phase", "contact_match", "wake", "solve", "joints",
-          "sleep")
 PROFILE_ITERS = 3   # steps `profile_step` averages over
 TOP_KERNELS = 8     # kernel names `trace_step` ranks by device time
 
 _timings: dict | None = None   # stage -> summed ms, while profile_step runs
-_trace = False                 # stages open profiler ranges, while trace_step runs
 
 
 @contextlib.contextmanager
 def stage(name: str):
-    """Mark one stage of the step (a no-op outside a measurement)."""
-    if _timings is None and not _trace:
+    """Mark one stage of the step (a no-op outside `profile_step`)."""
+    if _timings is None:
         yield
-        return
-    if _trace:
-        with torch.profiler.record_function(name):
-            yield
         return
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -113,7 +107,6 @@ def trace_step(state, params, steps: int = 3) -> dict:
     wall_ms, and `top`: the TOP_KERNELS names of most device time, each with
     its count and milliseconds a step.  The device entries are None where
     the profiler saw no device activity."""
-    global _trace
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -122,19 +115,14 @@ def trace_step(state, params, steps: int = 3) -> dict:
     _on_card(state)
     step(state, params)
     torch.cuda.synchronize()
-    _trace = True
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                step(state, params)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / steps
-    finally:
-        _trace = False
-    # The stage ranges appear on the device's timeline too; they are not work.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(state, params)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and e.name not in STAGES
+                   if e.device_type == DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False))
     if not spans:
         return dict(wall_ms=wall, kernels=0, device_ms=None, device_share=None, top=None)

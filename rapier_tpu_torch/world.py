@@ -1,7 +1,7 @@
 """Host-side scene construction + a convenience stepping facade.
 
 Counterpart of rapier_tpu.world: the `RigidBodyBuilder` / `ColliderBuilder`
-builders (ball, cuboid, capsule, halfspace), `GenericJointBuilder` with its
+builders (ball, cuboid, capsules, halfspace), `GenericJointBuilder` with its
 typed forms for impulse joints and reduced-coordinate multibody joints, and
 `PhysicsWorld`.  Building is plain
 numpy and gives the same `SceneState` leaves as the reference's `build()`;
@@ -27,6 +27,7 @@ from rapier_tpu_torch.types import (
     BodyType,
     CoefficientCombineRule,
     Colliders,
+    FrictionModel,
     Joints,
     SceneState,
     ShapeType,
@@ -151,6 +152,12 @@ class ColliderBuilder:
     @staticmethod
     def cuboid(hx, hy, hz) -> "ColliderBuilder":
         return ColliderBuilder(ShapeType.CUBOID, (float(hx), float(hy), float(hz)))
+
+    @staticmethod
+    def capsule_x(half_height, radius) -> "ColliderBuilder":
+        hh = float(half_height)
+        return ColliderBuilder(
+            ShapeType.CAPSULE, (-hh, 0.0, 0.0, hh, 0.0, 0.0, float(radius)))
 
     @staticmethod
     def capsule_y(half_height, radius) -> "ColliderBuilder":
@@ -535,7 +542,9 @@ class PhysicsWorld:
         mb_state = self._build_multibodies(bodies) if self._pending_mb_joints else None
         state = SceneState(
             bodies=Bodies(**bodies), colliders=Colliders(**colliders),
-            contacts=empty_contacts(p_cap), multibodies=mb_state,
+            contacts=empty_contacts(p_cap, per_point_tangent=(
+                self.params.friction_model == int(FrictionModel.COULOMB))),
+            multibodies=mb_state,
             joints=self._build_joints(bodies) if self._pending_joints else None)
         census = Counter(int(cb.shape_type) for cb, _ in self._pending_colliders)
         self.params = self.params.replace(

@@ -227,6 +227,21 @@ def assert_trajectories_agree(ref, port):
     return touching
 
 
+CONTACT_IMPULSES = ("impulse", "tangent_impulse", "warmstart_impulse",
+                    "warmstart_tangent_impulse", "warmstart_twist_impulse")
+
+
+def assert_contact_impulses_agree(rs, ps, what):
+    """The contact cache's impulses of one step within 1e-3 of the step's
+    largest (reference state `rs`, port state `ps`, numpy leaves)."""
+    scale = max(float(np.abs(np.asarray(getattr(rs.contacts, f))).max())
+                for f in CONTACT_IMPULSES)
+    assert scale > 0.0, f"{what}: no contact impulse"
+    for f in CONTACT_IMPULSES:
+        assert_close(getattr(ps.contacts, f), getattr(rs.contacts, f), 1e-3 * scale,
+                     f"{what} contacts.{f}")
+
+
 def assert_joint_impulses_agree(ref, port):
     """`joints.impulses` (the last substep's row impulses) within 1e-3 of
     the step's largest impulse, at every step."""
@@ -304,3 +319,113 @@ def joint_rollouts(starts, n_steps, jax_step):
     return {name: rollouts(batch, params, n_steps, jax_step=jax_step,
                            joint_slots=used_slots(from_numpy(batch).joints))
             for name, (batch, params) in starts.items()}
+
+
+# ---------------------------------------------------------------------------
+# Seeded contact lanes for the solve-function tests (tests/test_torch_block
+# _solve.py, tests/test_torch_coulomb.py).
+# ---------------------------------------------------------------------------
+
+SEED_N, SEED_K = 8, 64      # bodies (a sentinel column N after them), lanes
+
+
+def _random_quat(rng, shape):
+    q = rng.normal(size=shape + (4,))
+    return q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+
+def seeded_lanes(seed):
+    """(manifold fields ``[B, ...]``, solver-body tables ``[B, d, N+1]``,
+    previous impulses, colors) as float64 numpy arrays: B scenes of SEED_N
+    bodies (body 0 fixed) and SEED_K manifold lanes, lanes of one color
+    sharing bodies (a Jacobi pass), point patterns from one to four active
+    points with most lanes having points 0 and 1, normal impulses of both
+    signs' worth of velocity and rhs.  Point 1 of the lanes listed in
+    "twin" repeats point 0."""
+    rng = np.random.default_rng(seed)
+    n, k, n1 = SEED_N, SEED_K, SEED_N + 1
+    m = rng.normal(size=(B, 3, 3, n1))
+    ii = np.einsum("bijn,bkjn->bikn", m, m) * 0.5
+    im = np.repeat(rng.uniform(0.2, 2.0, (B, 1, n1)), 3, axis=1)
+    im[..., 0], ii[..., 0] = 0.0, 0.0
+    sb = dict(v_lin=rng.normal(size=(B, 3, n1)), v_ang=rng.normal(size=(B, 3, n1)),
+              com=rng.normal(0, 2.0, (B, 3, n1)),
+              rot=np.moveaxis(_random_quat(rng, (B, n1)), -1, 1), im=im, ii=ii)
+    for key, v in sb.items():
+        v[..., n] = 0.0
+        if key == "rot":
+            v[:, 3, n] = 1.0
+    body1 = rng.integers(0, n, (B, k))
+    body2 = (body1 + rng.integers(1, n, (B, k))) % n
+    body2 = np.where(rng.random((B, k)) < 0.2, -1, body2)        # static environment
+    normal = rng.normal(size=(B, 3, k))
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+    c1 = np.take_along_axis(sb["com"], np.broadcast_to(body1[:, None], (B, 3, k)), -1)
+    point = c1[:, None] + rng.normal(0, 0.5, (B, 4, 3, k))
+    twin = np.arange(0, k, 7)
+    point[:, 1, :, twin] = point[:, 0, :, twin]
+    pattern = rng.choice(4, (B, k), p=[0.55, 0.15, 0.15, 0.15])
+    active = np.stack([pattern != 2, pattern != 3, pattern == 1, pattern == 1], axis=1)
+    man = dict(
+        body1=body1.astype(np.int32), body2=body2.astype(np.int32),
+        rel_dominance=np.zeros((B, k), np.int32), normal=normal, point=point,
+        point_active=active, dist=rng.uniform(-0.05, 0.02, (B, 4, k)),
+        friction=rng.uniform(0.2, 1.0, (B, k)),
+        restitution=np.where(rng.random((B, k)) < 0.3, 0.5, 0.0),
+        solver_pair=rng.random((B, k)) < 0.9)
+    prev = np.where(rng.random((B, 4, k)) < 0.3, 0.0, rng.uniform(0, 1, (B, 4, k)))
+    color = rng.integers(0, 4, (B, k)).astype(np.int32)
+    return man, sb, prev, color, twin
+
+
+def reference_manifolds(man, s, cast):
+    """Scene `s` of `seeded_lanes`' manifold fields as the reference's
+    ManifoldBatch (fields the solve does not read zeroed)."""
+    import jax.numpy as jnp
+    from rapier_tpu.geometry.dispatch import ManifoldBatch
+
+    k = man["body1"].shape[-1]
+    fill = dict(collider1=np.zeros(k, np.int32), collider2=np.zeros(k, np.int32),
+                active_events_or=np.zeros(k, np.int32), active_hooks_or=np.zeros(k, np.int32),
+                force_threshold=np.zeros(k), dyn1=np.ones(k, bool), dyn2=np.ones(k, bool),
+                pair_key=np.arange(k, dtype=np.int32), fid=np.zeros((4, k), np.int32),
+                point_valid=man["point_active"][s], valid=man["solver_pair"][s],
+                unsupported=np.int32(0), touching=man["solver_pair"][s],
+                sensor=np.zeros(k, bool))
+    fields = {**fill, **{key: v[s] for key, v in man.items()}}
+    return ManifoldBatch(**{key: jnp.asarray(cast(np.asarray(v)))
+                            for key, v in fields.items()})
+
+
+def port_manifolds(man, cast):
+    """`seeded_lanes`' manifold fields as the port's ManifoldBatch."""
+    import torch
+    from rapier_tpu_torch.geometry.dispatch import ManifoldBatch
+
+    b, k = man["body1"].shape
+    fill = dict(collider1=np.zeros((b, k), np.int32), collider2=np.zeros((b, k), np.int32),
+                active_events_or=np.zeros((b, k), np.int32),
+                active_hooks_or=np.zeros((b, k), np.int32), force_threshold=np.zeros((b, k)),
+                dyn1=np.ones((b, k), bool), dyn2=np.ones((b, k), bool),
+                pair_key=np.tile(np.arange(k, dtype=np.int32), (b, 1)),
+                fid=np.zeros((b, 4, k), np.int32), point_valid=man["point_active"],
+                valid=man["solver_pair"], unsupported=np.zeros(b, np.int32),
+                touching=man["solver_pair"], sensor=np.zeros((b, k), bool))
+    fields = {**fill, **man}
+    return ManifoldBatch(**{key: torch.from_numpy(cast(np.asarray(v)))
+                            for key, v in fields.items()})
+
+
+def cast_float(dtype):
+    """Cast float arrays to `dtype`, leave the others."""
+    return lambda v: v.astype(dtype) if np.issubdtype(v.dtype, np.floating) else v
+
+
+def assert_scaled(actual, desired, what, tol):
+    """max |actual - desired| within `tol` times the largest |desired| (at
+    least 1)."""
+    a, d = np.asarray(actual, np.float64), np.asarray(desired, np.float64)
+    assert a.shape == d.shape, (what, a.shape, d.shape)
+    scale = max(1.0, float(np.max(np.abs(d)))) if d.size else 1.0
+    err = float(np.max(np.abs(a - d))) if a.size else 0.0
+    assert err <= tol * scale, f"{what}: max |diff| {err:.3e} > {tol} x {scale:.3f}"
