@@ -6,7 +6,7 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; each prints its wall time), run in the
-order 1-6, 10, 7-9:
+order 1-6, 10, 11, 7-9:
 
 1. Build the contact-sweep kernels from ``rapier_tpu_torch/csrc`` (one nvcc
    call, sm_90a) and print the compiler's register / shared-memory report.
@@ -58,9 +58,11 @@ order 1-6, 10, 7-9:
    scenes, 2 joints3 scenes, 2 impulse-joint quadrupeds and 2
    high-mass-ratio 2D scenes for 10 steps each (with the joints' row
    impulses within 1e-3 of the largest); the stack-16 pyramid after 30
-   steps on the card (mid-landing) and after phase 6's 150 (at rest), 2
-   10-row 2D pyramids and 2 Coulomb stacks after 3, 10 steps each, and
-   phase 10's 5,050-box 2D pile after its 90, 3 steps, stepped on the CPU
+   steps on the card (mid-landing) and after phase 6's 150 (at rest), 3
+   steps each, 2 10-row 2D pyramids and 2 Coulomb stacks after 3, 10 steps
+   each, and phase 10's 5,050-box 2D pile after its 70, 2 steps, 2 heightfield3
+   scenes after 60 steps (in contact), 5 steps, and 2 trimesh3 scenes after
+   50 (the ball on the valley floor), 10 steps, stepped on the CPU
    from the card's state, bodies and contact cache (pair keys, touching
    flags, impulses) compared; the 2D pile's bodies and impulses to the
    larger of CPU_TOL and twice the gap of two CPU steps whose starts differ
@@ -71,13 +73,14 @@ order 1-6, 10, 7-9:
    prints the free card-vs-CPU gap and, as its witness, the gap between two
    free CPU runs whose start differs by 1 ulp in one body's height.
 8. Determinism: 10 steps run twice from one state are bitwise equal, for a
-   bench batch, a quadruped batch, the stack-16 pyramid and a joints3 batch;
-   5 steps for a 10-row 2D pyramid batch and a Coulomb-stack batch.
+   bench batch, a quadruped batch, a joints3 batch and a heightfield3 batch;
+   3 steps for the stack-16 pyramid; 5 steps for a 10-row 2D pyramid batch
+   and a Coulomb-stack batch.
 9. The impulse joints: 4096 replicas of the joint zoo (`scenes.joints3_world`,
    examples/joints3.py: revolute chain, prismatic slider with a position
    motor and limits, fixed-joint lattice, spherical rope with swing limits)
    and 4096 impulse-joint quadrupeds (`quadruped_world(use_multibody=False)`),
-   each 240 steps, then 50 timed steps.  Both take the masked sweep (the
+   each 240 steps, then 25 timed steps.  Both take the masked sweep (the
    reference's gate sends scenes with joints there), so neither may launch a
    contact-sweep kernel.  Checks zero overflow, finite state, every scene
    bitwise equal to scene 0, and for joints3 after 240 steps the example's
@@ -94,13 +97,13 @@ order 1-6, 10, 7-9:
    Luby rounds leave ~1,000 lanes to the Jacobi tail and the pile explodes,
    as the reference's blocked solve does with such a tail (ROADMAP F6; each
    reading prints the tail 16 colors would leave).  The blocked solve with
-   the 2x2 flag on every pass, 80 steps, then 10 timed (examples/s2d_pyramid.py
+   the 2x2 flag on every pass, 60 steps, then 10 timed (examples/s2d_pyramid.py
    runs 600; cut for the run's time limit), the top box and the tail read
    every 10 steps; checks zero overflow, finite state, z and the x / y spins
    exactly 0, and that the pile holds (after its top row lands at step ~30
    no box faster than that row's free fall, none above its start, the top
    box above 0.9 x 99 and within 1.5 of rest, its swing shrinking); prints
-   whether it is at rest (it still swings after 90 steps: F6), steps/s, the
+   whether it is at rest (it still swings after 70 steps: F6), steps/s, the
    largest row-height deviation, how far the boxes sank and one traced step.
    (b) 4096 replicas of the 10-row pyramid, 10 steps, then 10 timed, and (c)
    4096 of the Coulomb stack with its kicked slider
@@ -110,15 +113,38 @@ order 1-6, 10, 7-9:
    tests/test_s2d.py's own checks on every scene (boxes within 0.15 of their
    starts; the slider at rest between x = 20.5 and 30); prints env-steps/s,
    and for (c) one traced step.
+11. The meshes (the mesh narrow phase: per-triangle lanes after the pair
+   lanes).  (a) `contact_sweep_kernel` at heightfield3's K = 640 lanes (128
+   pair lanes and 64 x 8 mesh lanes) against the plain version on a capture
+   of 256 scenes after 60 steps, timed at 4096 scenes and at one, with the
+   valid lanes per scene and the scenes that keep them on chip; then 4096
+   replicas of `scenes.heightfield3_world` (examples/heightfield3.py: 12
+   balls, cuboids and capsules dropped on a 12 x 12 heightfield) take 90
+   steps (the example runs 300; every body has landed by ~81), then 50
+   timed.  Checks zero broad-phase / solver
+   overflow, no (convex, mesh) pair past max_mesh_pairs (the reference drops
+   those uncounted, ROADMAP R12: counted here on the 90 steps and the step
+   after the timed run), finite state, exactly one `contact_sweep_kernel`
+   launch per step and no folded one, every scene bitwise equal to scene 0,
+   and the example's own checks on every scene (every body above -2.5 and
+   below 3.0); prints env-steps/s, the peak device memory of the timed
+   steps, the stage breakdown (with `mesh_narrow_phase`), kernels a step and
+   the device-busy share.  (d) With ``--heightfield-full``: upstream's
+   heightfield3 at its size (`scenes.heightfield3_full_world`, 1,280 bodies
+   on a 20 x 20-subdivision field, max_mesh_pairs 1,280), one scene, 60
+   steps, then 10 timed; checks zero overflow, no mesh pair dropped, finite
+   state, and that the bottom layer landed on the field and above it;
+   prints steps/s and one traced step.
 
 The line before the last is the kernels' JSON record (with `bound_share`,
 bound over time, and each kernel's resources); the last line is
 ``{"ok": true, "device": {...}}``.
 
-With ``--s2d-only`` the script builds the kernels and runs phase 10 alone;
+With ``--s2d-only`` the script builds the kernels and runs phase 10 alone,
+with ``--meshes-only`` phase 11 (and (d) under ``--heightfield-full``);
 with ``--rest-steps STEPS`` it steps the ``--pyramid`` stacks (default 31)
 STEPS steps each and prints the top box's distance from rest and vertical
-velocity every 50 steps.  Neither prints the ok line.
+velocity every 50 steps.  None of these prints the ok line.
 
 With ``--earlier DIR [DIR ...]`` (each DIR an unpacked checkout of another
 commit, e.g. ``git archive <commit> | tar -x -C build/earlier``) the script
@@ -164,7 +190,7 @@ TRUNK = 1                       # body handle of the trunk
 # beside the port's, not checked.
 IMPULSE_TRUNK_Z_REF = 0.188
 JOINT_SETTLE = 240
-JOINT_TIMED = 50                # timed steps after the settle (launch-bound: ~0.2-0.6 s each)
+JOINT_TIMED = 25                # timed steps after the settle (launch-bound: ~0.2-0.6 s each)
 JOINT_CPU_SETTLE = 30
 # bench.py's default stack.  pyramid3.rs's stack 24 is opt-in (--pyramid 24),
 # as 31 is: its ~150 steps and ~36 s trace made room for phase 10 within the
@@ -178,6 +204,10 @@ PYRAMID_STACKS = (16,)
 PYRAMID_SETTLE = 120
 PYRAMID_TIMED = 30
 PYRAMID_CPU_SETTLE = 30
+# Single steps of the card against the CPU from each pyramid state, and
+# steps of its rerun: each single step takes a card step and three CPU
+# steps of the 1,496-box pile.
+PYRAMID_CPU_STEPS = 3
 # Steps traced under torch.profiler for the launch-bound paths (pyramid and
 # joints): each of their steps launches the same kernels, and the profiler's
 # processing grows with the 15,000-51,000 launches a step.
@@ -227,7 +257,7 @@ STATIC_ARGS = ("n_sub", "pgs_iters", "stab_iters", "max_colors")
 # then S2D_TIMED timed.  Both masked.
 S2D_BIG_BASE = 100
 S2D_BIG_COLORS = 24
-S2D_BIG_SETTLE = 80
+S2D_BIG_SETTLE = 60
 S2D_BIG_TIMED = 10
 S2D_READ_EVERY = 10
 S2D_BIG_LANDING = 30
@@ -249,6 +279,29 @@ SLIDER_X = (20.5, 30.0)
 SLIDER_VX = 0.1
 # --rest-steps: the pyramid's top box printed every REST_EVERY steps.
 REST_EVERY = 50
+# Phase 11, the meshes.  (a) 4096 replicas of heightfield3 (examples/
+# heightfield3.py): HF_SETTLE steps (the example runs 300; cut for the
+# script's time limit: every body has landed by step ~81), then HF_TIMED
+# timed, and the example's checks on every scene (every body above HF_Y[0]
+# and below HF_Y[1]).  Its K = 640 solver lanes (128 pair lanes and 64 x 8 mesh lanes)
+# go to contact_sweep_kernel, held to the plain version on a capture of
+# N_CHECK scenes after HF_CHECK_STEPS steps (in contact).  (b), (c) The
+# card against the CPU and the reruns start HF_CHECK_STEPS steps in
+# (trimesh3's ball lands at ~45: TRIMESH_SETTLE).  (d) --heightfield-full:
+# upstream's heightfield3 at its size, one scene, HF_FULL_SETTLE +
+# HF_FULL_TIMED steps; its bottom layer must land on the field: every body
+# of it above the field's surface at its (x, z) and its centre within
+# HF_FULL_NEAR of it (the largest half-extent is 2, a capsule on end).
+HF_SETTLE = 90
+HF_TIMED = 50
+HF_Y = (-2.5, 3.0)
+HF_K = 640
+HF_CHECK_STEPS = 60
+HF_CPU_STEPS = 5
+TRIMESH_SETTLE = 50
+HF_FULL_SETTLE = 60
+HF_FULL_TIMED = 10
+HF_FULL_NEAR = 3.0
 
 
 def _fail(msg: str, code: int = 1):
@@ -446,7 +499,7 @@ def _storage(what, folded: bool, packed, kw, must_fit: bool):
     return out
 
 
-def _next_step_storage(what, state, params, folded: bool):
+def _next_step_storage(what, state, params, folded: bool, must_fit: bool = True):
     """`_storage` for the solve of the step after `state` (its inputs
     captured from one more step, which the launch counts do not see)."""
     from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
@@ -455,7 +508,7 @@ def _next_step_storage(what, state, params, folded: bool):
     inp = capture_solve_inputs(state, params)
     cs.KERNEL.launches, cs.KERNEL.launches_folded = launches
     packed, kw = _packed(inp.pop("sb"), inp)
-    return _storage(what, folded, packed, kw, True)
+    return _storage(what, folded, packed, kw, must_fit)
 
 
 def _compare(name, sb, inp, sb_k, imp_k):
@@ -974,9 +1027,11 @@ def phase_cpu_agreement(device, pyramid, s2d_big):
     ("landing") and after phase 6's timed run ("settled"), `s2d_big` the
     2D pyramid (with its params) after phase 10's timed run."""
     from rapier_tpu_torch.scenes import (
+        heightfield3_world,
         s2d_coulomb_stack_world,
         s2d_high_mass_ratio_world,
         s2d_pyramid_world,
+        trimesh3_world,
     )
 
     _cpu_agreement("bench", *bench_world(device, 2), 100)
@@ -986,7 +1041,8 @@ def phase_cpu_agreement(device, pyramid, s2d_big):
                    ROBOT_CHECK_STEPS)
     for name, steps in (("landing", PYRAMID_CPU_SETTLE),
                         ("settled", PYRAMID_SETTLE + PYRAMID_TIMED)):
-        _cpu_step_agreement(f"the stack-16 pyramid after {steps} steps", *pyramid[name])
+        _cpu_step_agreement(f"the stack-16 pyramid after {steps} steps", *pyramid[name],
+                            steps=PYRAMID_CPU_STEPS)
     # The 2D piles, as the stack-16 pyramid: a free run amplifies rounding
     # (2 scenes of the 10-row pyramid part by ~9e-04 in position after 10
     # free steps on an H100, PERF.md), so single steps from the card's state.
@@ -999,8 +1055,16 @@ def phase_cpu_agreement(device, pyramid, s2d_big):
         _cpu_step_agreement(f"2 scenes of the {name} after {S2D_CPU_SETTLE} steps", state,
                             params, witness=witness)
     _cpu_step_agreement(f"the base-{S2D_BIG_BASE} 2D pyramid after "
-                        f"{S2D_BIG_SETTLE + S2D_BIG_TIMED} steps", *s2d_big, steps=3,
+                        f"{S2D_BIG_SETTLE + S2D_BIG_TIMED} steps", *s2d_big, steps=2,
                         witness="step")
+    # The meshes: heightfield3 in contact, single steps from the card's
+    # state; trimesh3's ball on the valley floor.
+    for make, settle, steps in ((heightfield3_world, HF_CHECK_STEPS, HF_CPU_STEPS),
+                                (trimesh3_world, TRIMESH_SETTLE, 10)):
+        state, params, _ = mesh_batch(device, make, 2)
+        state, _ = run(state, params, settle)
+        _cpu_step_agreement(f"2 {make.__name__[:-6]} scenes after {settle} steps", state,
+                            params, steps=steps, witness=None)
 
 
 def _rerun_equal(what, state, params, parts, steps: int = 10):
@@ -1019,7 +1083,11 @@ def _rerun_equal(what, state, params, parts, steps: int = 10):
 
 def phase_determinism(device, pyramid):
     """Phase 8: bitwise reruns."""
-    from rapier_tpu_torch.scenes import s2d_coulomb_stack_world, s2d_pyramid_world
+    from rapier_tpu_torch.scenes import (
+        heightfield3_world,
+        s2d_coulomb_stack_world,
+        s2d_pyramid_world,
+    )
 
     state, params = bench_world(device, 64)
     state, _ = run(state, params, 60)
@@ -1027,7 +1095,8 @@ def phase_determinism(device, pyramid):
     state, params = quadruped_batch(device, N_CHECK, seed=5)
     state, _ = run(state, params, ROBOT_CHECK_STEPS)
     _rerun_equal("quadruped", state, params, ("bodies", "contacts", "multibodies"))
-    _rerun_equal("stack-16 pyramid", *pyramid["landing"], ("bodies", "contacts"))
+    _rerun_equal("stack-16 pyramid", *pyramid["landing"], ("bodies", "contacts"),
+                 PYRAMID_CPU_STEPS)
     state, params, _ = joints3_batch(device, N_CHECK)
     state, _ = run(state, params, JOINT_CPU_SETTLE)
     _rerun_equal("joints3", state, params, ("bodies", "contacts", "joints"))
@@ -1036,6 +1105,9 @@ def phase_determinism(device, pyramid):
         state, params, _ = s2d_batch(device, make, N_CHECK)
         state, _ = run(state, params, S2D_CPU_SETTLE)
         _rerun_equal(name, state, params, ("bodies", "contacts"), S2D_RERUN)
+    state, params, _ = mesh_batch(device, heightfield3_world, N_CHECK)
+    state, _ = run(state, params, HF_CHECK_STEPS)
+    _rerun_equal("heightfield3", state, params, ("bodies", "contacts"))
 
 
 def _replicas_equal(what, state, parts):
@@ -1359,6 +1431,258 @@ def phase_2d(device, card):
     return rows, big
 
 
+def mesh_batch(device, make, n_scenes: int):
+    """A mesh scene of `rapier_tpu_torch.scenes` (`make`: heightfield3_world,
+    trimesh3_world or heightfield3_full_world) replicated to `n_scenes` on
+    `device`: (state, params, handles)."""
+    from rapier_tpu_torch.scenes import replicate_scene
+    from rapier_tpu_torch.types import from_numpy
+
+    world, handles = make(device=device)
+    return replicate_scene(from_numpy(world.build(), device), n_scenes), world.params, handles
+
+
+class _MeshPairs:
+    """While installed, counts each step's (convex, mesh) broad-phase pairs
+    per scene, and those past max_mesh_pairs: the reference drops these
+    without a count (ROADMAP R12), and so does the port.  Read once, after
+    the run (`most`, `dropped`)."""
+
+    def __enter__(self):
+        import torch
+        from rapier_tpu_torch.geometry import narrowphase_mesh as npm
+        from rapier_tpu_torch.pipeline import physics_pipeline as pp
+
+        self.original, self.count, self.over = pp.compute_mesh_manifolds, None, None
+
+        def record(bodies, colliders, meshes, c1, c2, pair_valid, prediction,
+                   max_mesh_pairs, tris_per_pair, **kw):
+            def mesh(c):
+                return npm.is_mesh_type(torch.gather(colliders.shape_type, 1,
+                                                     c.clamp(min=0).long()))
+
+            n = (pair_valid & (mesh(c1) ^ mesh(c2))).sum(dim=-1)
+            over = torch.clamp(n - max_mesh_pairs, min=0)
+            self.count = n if self.count is None else torch.maximum(self.count, n)
+            self.over = over if self.over is None else torch.maximum(self.over, over)
+            return self.original(bodies, colliders, meshes, c1, c2, pair_valid, prediction,
+                                 max_mesh_pairs, tris_per_pair, **kw)
+
+        pp.compute_mesh_manifolds = record
+        return self
+
+    def __exit__(self, *exc):
+        from rapier_tpu_torch.pipeline import physics_pipeline as pp
+
+        pp.compute_mesh_manifolds = self.original
+
+    def most(self) -> int:
+        return int(self.count.max())
+
+    def dropped(self) -> int:
+        return int(self.over.max())
+
+
+def _heightfield_kernel(device, card):
+    """contact_sweep_kernel at the heightfield's K = 640 lanes: a capture of
+    N_CHECK scenes after HF_CHECK_STEPS steps held to the plain version,
+    then timed at 4096 scenes (the batched path, the reference's
+    `_kernel_fold_gather`) and at one scene (`PhysicsWorld.step`, the
+    reference's `_kernel`), with the valid lanes per scene and the scenes
+    that keep them on chip.  The comparison launches are not counted."""
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.dynamics.solver.contact_constraints import SolverBodies
+    from rapier_tpu_torch.scenes import heightfield3_world
+
+    state, params, _ = mesh_batch(device, heightfield3_world, N_CHECK)
+    state, _ = run(state, params, HF_CHECK_STEPS)
+    counts = cs.KERNEL.launches, cs.KERNEL.launches_folded
+    inp = capture_solve_inputs(state, params)
+    sb = inp.pop("sb")
+    k_lanes = inp["b1"].shape[-1]
+    if k_lanes != HF_K:
+        _fail(f"expected K = {HF_K} solver lanes on heightfield3, got {k_lanes}")
+    launched = cs.KERNEL.launches
+    sb_k, imp_k = cs.solve_from_manifolds(sb, **inp)
+    if cs.KERNEL.launches != launched + 1:
+        _fail("the heightfield shape did not launch contact_sweep_kernel")
+    err = _compare(f"contact_sweep_kernel at K={HF_K} (heightfield3)", sb, inp, sb_k, imp_k)
+    _resources(f"contact_sweep_kernel (heightfield3)", False, inp, sb, card)
+    out = dict(max_abs_err=err)
+    for reps, key in ((N_SCENES // N_CHECK, ""), (0, "one_scene_")):
+        sb_t = SolverBodies(*[_scenes(x, reps) for x in sb])
+        inp_t = {k: _scenes(v, reps) for k, v in inp.items()}
+        packed, kw = _packed(sb_t, inp_t)
+        ms = _time_ms(lambda: cs.KERNEL.launch(*packed, **kw), 20)
+        plain_ms = _time_ms(lambda: cs.solve_plain(sb_t, **inp_t), 3)
+        bound = _bound(packed, cs.KERNEL.launch(*packed, **kw), inp_t)
+        storage = _storage(f"contact_sweep_kernel at {sb_t.v_lin.shape[0]} heightfield3 "
+                           f"scene(s)", False, packed, kw, False)
+        print(f"heightfield3 contact solve at {sb_t.v_lin.shape[0]} scene(s) x K={k_lanes}: "
+              f"launch alone {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound[0]:.3g} ms "
+              f"({bound[1]}), {bound[0] / ms:.1%} of the bound ({card})")
+        out.update({f"{key}ms": ms, f"{key}plain_ms": plain_ms, f"{key}bound_ms": bound[0],
+                    f"{key}bound_by": bound[1]})
+        out.update({f"{key}{k}": v for k, v in storage.items()})
+    cs.KERNEL.launches, cs.KERNEL.launches_folded = counts
+    return out
+
+
+def phase_meshes(device, card):
+    """Phase 11(a): 4096 heightfield3 scenes through the port's step, on
+    contact_sweep_kernel at K = 640.  Returns (the row for the JSON record,
+    the kernel's numbers at K = 640)."""
+    import torch
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.pipeline.physics_pipeline import solve_path
+    from rapier_tpu_torch.scenes import heightfield3_world
+
+    kernel = _heightfield_kernel(device, card)
+    state, params, handles = mesh_batch(device, heightfield3_world, N_SCENES)
+    bodies = torch.tensor(handles["bodies"], device=device)
+    path = solve_path(state, params)
+    print(f"heightfield3: {len(handles['bodies'])} bodies on a "
+          f"{state.meshes.triangles.shape[1]}-row triangle table, P={state.contacts.max_pairs} "
+          f"lanes ({params.max_mesh_pairs} x {params.tris_per_pair} of them mesh lanes), "
+          f"N+1={state.bodies.pos.shape[1] + 1}, solve path {path}")
+    if path != "kernel" or state.contacts.max_pairs != HF_K:
+        _fail(f"heightfield3 takes the {path} path at P={state.contacts.max_pairs}, not the "
+              f"contact kernel at K={HF_K}")
+    t0 = time.time()
+    with _MeshPairs() as pairs:
+        state, worst = run(state, params, HF_SETTLE)
+    torch.cuda.synchronize()
+    settle_s = time.time() - t0
+    _finite(state)
+    y = state.bodies.pos[:, bodies, 1]
+    print(f"heightfield3 after {HF_SETTLE} steps ({settle_s:.1f} s): heights in scene 0 "
+          f"min {float(y[0].min()):.4f}, max {float(y[0].max()):.4f}; the example's checks "
+          f"(every body above {HF_Y[0]} and below {HF_Y[1]}) in all {N_SCENES} scenes: "
+          f"{bool(((y > HF_Y[0]) & (y < HF_Y[1])).all())}; (convex, mesh) pairs at most "
+          f"{pairs.most()} a scene, past max_mesh_pairs {pairs.dropped()}")
+    if not bool(((y > HF_Y[0]) & (y < HF_Y[1])).all()):
+        _fail("heightfield3: the example's checks fail")
+    if pairs.dropped():
+        _fail(f"heightfield3 dropped {pairs.dropped()} mesh pairs past max_mesh_pairs")
+    torch.cuda.reset_peak_memory_stats()
+    cs.KERNEL.launches = cs.KERNEL.launches_folded = 0
+    t0 = time.time()
+    state, worst_t = run(state, params, HF_TIMED)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    launches = cs.KERNEL.launches, cs.KERNEL.launches_folded
+    peak = torch.cuda.max_memory_allocated()
+    for k in worst:
+        worst[k] = max(worst[k], worst_t[k])
+    rate = N_SCENES * HF_TIMED / elapsed
+    print(f"heightfield3: {rate:.1f} env-steps/s ({N_SCENES} scenes x {HF_TIMED} steps in "
+          f"{elapsed:.3f} s; {card}); peak device memory in the timed steps "
+          f"{peak / 2**30:.3f} GiB; overflow {worst}; launches in the timed run: "
+          f"contact_sweep_kernel {launches[0]}, folded {launches[1]}")
+    if worst["broadphase_overflow"] or worst["solver_overflow"]:
+        _fail(f"heightfield3 overflows: {worst}")
+    if launches != (HF_TIMED, 0):
+        _fail(f"expected {HF_TIMED} contact_sweep_kernel launches and no folded one, "
+              f"counted {launches[0]} and {launches[1]}")
+    with _MeshPairs() as after:
+        storage = _next_step_storage("heightfield3, the step after the timed run", state,
+                                     params, False, must_fit=False)
+    if after.dropped():
+        _fail(f"heightfield3 dropped {after.dropped()} mesh pairs after the timed run")
+    _finite(state)
+    _replicas_equal("heightfield3", state, ("bodies", "contacts"))
+    print(f"heightfield3: all {N_SCENES} scenes bitwise equal to scene 0 after "
+          f"{HF_SETTLE + HF_TIMED} steps; no mesh pair dropped")
+    row = dict(env_steps_per_s=rate, peak_memory_bytes=peak, mesh_pairs_most=pairs.most(),
+               **storage, **worst,
+               **_stages(f"heightfield3 step, {N_SCENES} scenes", state, params, card,
+                         trace_steps=TRACE_STEPS_LONG))
+    return launches[0], row, kernel
+
+
+def _field_height(meshes, xz):
+    """The heightfield's surface height under the points ``xz [M, 2]``
+    (scene 0's triangle table; the triangle whose xz-projection holds the
+    point, interpolated)."""
+    import torch
+
+    v = meshes.vertices[0].double()
+    t = meshes.triangles[0]
+    t = t[t[:, 0] >= 0].long()
+    a, b, c = v[t[:, 0]], v[t[:, 1]], v[t[:, 2]]
+    p = xz.double().unsqueeze(1)                                 # [M, 1, 2]
+
+    def cross(u, w):
+        return u[..., 0] * w[..., 1] - u[..., 1] * w[..., 0]
+
+    ab, ac, ap = (b - a)[:, [0, 2]], (c - a)[:, [0, 2]], p - a[:, [0, 2]]
+    det = cross(ab, ac)
+    u = cross(ap, ac) / det
+    w = cross(ab, ap) / det
+    inside = (u >= -1e-9) & (w >= -1e-9) & (u + w <= 1 + 1e-9)
+    h = a[:, 1] + u * (b - a)[:, 1] + w * (c - a)[:, 1]
+    first = torch.argmax(inside.int(), dim=1)
+    return torch.gather(h, 1, first.unsqueeze(1)).squeeze(1)
+
+
+def phase_heightfield_full(device, card):
+    """Phase 11(d), with --heightfield-full: upstream's heightfield3 at its
+    size as one scene (1,280 bodies, max_mesh_pairs 1,280)."""
+    import torch
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.pipeline.physics_pipeline import solve_path
+    from rapier_tpu_torch.scenes import heightfield3_full_world
+
+    state, params, handles = mesh_batch(device, heightfield3_full_world, 1)
+    bottom = torch.tensor(handles["bodies"][:handles["layer"]], device=device)
+    y0 = state.bodies.pos[0, bottom, 1].clone()
+    path = solve_path(state, params)
+    print(f"heightfield3 at upstream's size: {len(handles['bodies'])} bodies, "
+          f"{int((state.meshes.triangles[0, :, 0] >= 0).sum())} triangles, "
+          f"P={state.contacts.max_pairs} lanes ({params.max_mesh_pairs} x "
+          f"{params.tris_per_pair} mesh lanes), N+1={state.bodies.pos.shape[1] + 1}, solve "
+          f"path {path}")
+    cs.KERNEL.launches = cs.KERNEL.launches_folded = 0
+    t0 = time.time()
+    with _MeshPairs() as pairs:
+        state, worst = run(state, params, HF_FULL_SETTLE)
+    torch.cuda.synchronize()
+    settle_s = time.time() - t0
+    t0 = time.time()
+    state, worst_t = run(state, params, HF_FULL_TIMED)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    with _MeshPairs() as after:
+        state, worst_a = run(state, params, 1)
+    for k in worst:
+        worst[k] = max(worst[k], worst_t[k], worst_a[k])
+    launches = cs.KERNEL.launches, cs.KERNEL.launches_folded
+    rate = HF_FULL_TIMED / elapsed
+    _finite(state)
+    pos = state.bodies.pos[0, bottom]
+    gap = pos[:, 1].double() - _field_height(state.meshes, pos[:, [0, 2]])
+    landed = bool(((gap > 0) & (gap < HF_FULL_NEAR)).all())
+    print(f"heightfield3 at upstream's size: {rate:.3f} steps/s ({HF_FULL_TIMED} steps in "
+          f"{elapsed:.3f} s after {HF_FULL_SETTLE} in {settle_s:.1f} s; {card}); overflow "
+          f"{worst}; contact-sweep launches {launches[0]} + folded {launches[1]}; (convex, "
+          f"mesh) pairs at most {max(pairs.most(), after.most())}, past max_mesh_pairs "
+          f"{max(pairs.dropped(), after.dropped())}; the bottom layer's {len(bottom)} bodies "
+          f"{float((y0 - pos[:, 1]).min()):.3f} to {float((y0 - pos[:, 1]).max()):.3f} below "
+          f"their start, their centres {float(gap.min()):.4f} to {float(gap.max()):.4f} above "
+          f"the field (landed on it and above it: {landed})")
+    if worst["broadphase_overflow"] or worst["solver_overflow"]:
+        _fail(f"heightfield3 at upstream's size overflows: {worst}")
+    if pairs.dropped() or after.dropped():
+        _fail("heightfield3 at upstream's size dropped mesh pairs")
+    if not landed:
+        _fail("heightfield3 at upstream's size: the bottom layer did not land on the field")
+    return dict(bodies=len(handles["bodies"]), path=path, steps_per_s=rate,
+                mesh_pairs_most=max(pairs.most(), after.most()),
+                bottom_gap_min=float(gap.min()), bottom_gap_max=float(gap.max()), **worst,
+                **_stages("heightfield3 at upstream's size, one step", state, params, card,
+                          trace_steps=TRACE_STEPS_LONG))
+
+
 LANE_KEYS = ("b1", "b2", "valid", "color", "normal", "point", "point_active", "dist",
              "friction", "restitution", "prev_impulse", "ws_n", "ws_t", "ws_tw",
              "dyn1", "dyn2")
@@ -1504,6 +1828,12 @@ def main():
                          "nothing else")
     ap.add_argument("--s2d-only", action="store_true",
                     help="run the build and phase 10 (the 2D slice) only")
+    ap.add_argument("--heightfield-full", action="store_true",
+                    help="also run phase 11(d): upstream's heightfield3 at its size, one "
+                         "scene of 1,280 bodies")
+    ap.add_argument("--meshes-only", action="store_true",
+                    help="run the build and phase 11(a) (with (d) under "
+                         "--heightfield-full) only")
     args = ap.parse_args()
     try:
         import torch
@@ -1545,6 +1875,12 @@ def main():
         print(json.dumps({"s2d": phase(phase_2d, device, card)[0],
                           "card": card}))
         return
+    if args.meshes_only:
+        rows = {"heightfield3": phase(phase_meshes, device, card)[1:]}
+        if args.heightfield_full:
+            rows["heightfield3_full"] = phase(phase_heightfield_full, device, card)
+        print(json.dumps({"meshes": rows, "card": card}))
+        return
 
     block = phase(phase_kernel, device, card)
     folded = phase(phase_folded_kernel, device, card)
@@ -1553,13 +1889,22 @@ def main():
     stacks = tuple(sorted(set(PYRAMID_STACKS) | set(args.pyramid)))
     pyramids, pyramid16 = phase(phase_pyramid, device, card, stacks)
     s2d, s2d_big = phase(phase_2d, device, card)
+    hf_launches, meshes, hf_kernel = phase(phase_meshes, device, card)
+    meshes = {"heightfield3": meshes}
+    if args.heightfield_full:
+        meshes["heightfield3_full"] = phase(phase_heightfield_full, device, card)
     phase(phase_cpu_agreement, device, pyramid16, s2d_big)
     phase(phase_determinism, device, pyramid16)
     joints = phase(phase_joints, device, card)
     print(f"[all phases, the build included: {time.time() - start:.1f} s of the 1,200 allowed]")
 
     print(json.dumps({"pyramid": pyramids, "s2d": s2d, "bench_step": bench_stages,
-                      "joints": joints, "card": card}))
+                      "joints": joints, "meshes": meshes, "card": card}))
+    # Each path's launches, its counts set to 0 just before it and read just
+    # after; `launches` is the bench's, the contract's main path.
+    block["launches_by_path"] = {"bench": block["launches"], "heightfield3": hf_launches}
+    block["heightfield3_k640"] = hf_kernel
+    folded["launches_by_path"] = {"robots": folded["launches"]}
     source = "rapier_tpu_torch/csrc/contact_sweep.cu"
     print(json.dumps({"kernels": [
         {"name": "contact_sweep_kernel", "route": "cuda", "source": source,

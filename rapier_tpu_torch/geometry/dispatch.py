@@ -9,8 +9,10 @@ in `unsupported` exactly as the reference does.
 
 Ported pair kernels: ball-ball, ball-cuboid, ball-capsule, capsule-capsule,
 cuboid-capsule and cuboid-cuboid, and ball, capsule and cuboid against a
-halfspace (always put in slot B).  Any other shape type in the scene census
-raises NotImplementedError.
+halfspace (always put in slot B).  Pairs with a trimesh or heightfield leave
+this path: `compute_mesh_manifolds` expands each (convex, mesh) pair into
+per-triangle sub-lanes, and `concat_manifolds` appends them to the pair
+lanes.  Any other shape type in the scene census raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from typing import NamedTuple
 import torch
 
 from rapier_tpu_torch.geometry import narrowphase as nph
+from rapier_tpu_torch.geometry import narrowphase_mesh as npm
+from rapier_tpu_torch.geometry import shapes
 from rapier_tpu_torch.geometry.narrowphase_boxbox import cuboid_cuboid_cl
 from rapier_tpu_torch.math import quat
 from rapier_tpu_torch.types import BodyType, CoefficientCombineRule, ShapeType
@@ -108,7 +112,8 @@ _PAIR_KERNELS = {
     (ShapeType.CUBOID, ShapeType.CUBOID): cuboid_cuboid_cl,
 }
 _PORTED_TYPES = {int(ShapeType.BALL), int(ShapeType.CUBOID), int(ShapeType.CAPSULE),
-                 int(ShapeType.HALFSPACE)}
+                 int(ShapeType.HALFSPACE), int(ShapeType.TRIMESH),
+                 int(ShapeType.HEIGHTFIELD)}
 # Shape types the generic convex-halfspace kernel covers in the port (the
 # reference's _HALFSPACE_CONVEX less ball and capsule, which have analytic
 # kernels, and less the types the port does not carry).
@@ -142,7 +147,8 @@ def _census(present):
     missing = set(counts) - _PORTED_TYPES
     if missing:
         names = ", ".join(ShapeType(t).name for t in sorted(missing))
-        raise NotImplementedError(f"narrow phase for {names} is not ported")
+        raise NotImplementedError(f"narrow phase for {names} is not ported (the generic "
+                                  "convex shapes: ROADMAP queue 1, item 3)")
     return counts
 
 
@@ -350,6 +356,12 @@ def compute_manifolds(bodies, colliders, c1, c2, pair_valid, prediction,
     dyn2 = (b2 >= 0) & T2["sdyn"]
     solver_pair = (pair_valid & matched & ~sensor & solver_groups_ok
                    & (dyn1 | dyn2) & any_active)
+    pair_key = torch.where(pair_valid, s1 * n_coll + s2, -1).to(torch.int32)
+    # Pairs with a mesh go to compute_mesh_manifolds: they leave this batch
+    # after the fields above were taken, as in the reference (dispatch.py
+    # :573-578), so their lanes keep bodies and pair keys but no collider.
+    if any(has(t) for t in npm.MESH_TYPES):
+        pair_valid = pair_valid & ~(npm.is_mesh_type(T1["type"]) | npm.is_mesh_type(T2["type"]))
     pv = pair_valid.unsqueeze(1)
     return ManifoldBatch(
         collider1=torch.where(pair_valid, s1, -1).to(torch.int32),
@@ -359,7 +371,7 @@ def compute_manifolds(bodies, colliders, c1, c2, pair_valid, prediction,
         force_threshold=torch.minimum(T1["thr"], T2["thr"]),
         dyn1=dyn1, dyn2=dyn2,
         body1=b1.to(torch.int32), body2=b2.to(torch.int32),
-        pair_key=torch.where(pair_valid, s1 * n_coll + s2, -1).to(torch.int32),
+        pair_key=pair_key,
         normal=normal, point=point, dist=dist, fid=fid,
         point_valid=pvalid & pv,
         point_active=point_active & pv,
@@ -372,3 +384,186 @@ def compute_manifolds(bodies, colliders, c1, c2, pair_valid, prediction,
         friction=friction, restitution=restitution,
         rel_dominance=(dom1 - dom2).to(torch.int32),
     )
+
+
+def compute_mesh_manifolds(bodies, colliders, meshes, c1, c2, pair_valid, prediction,
+                           max_mesh_pairs: int, tris_per_pair: int):
+    """Expand the (convex, mesh) broad-phase pairs into per-triangle
+    manifolds (reference dispatch.py:607-794).
+
+    The mesh pairs are compacted in pair order to `max_mesh_pairs` (those
+    beyond are dropped, uncounted, as in the reference); each takes the
+    `tris_per_pair` triangles of its mesh whose local AABBs overlap the
+    convex shape's most (ties to the lower triangle index, as `lax.top_k`
+    orders them).  Returns a ManifoldBatch of ``max_mesh_pairs *
+    tris_per_pair`` lanes, row-major by (mesh pair, rank).  A lane's pair key
+    encodes its triangle, ``lo * C + hi + (tri + 1) * C**2``, so the
+    warmstart join matches it across steps (`PhysicsWorld.build` refuses a
+    scene whose keys would pass int32, the reference's range)."""
+    pm, k = max_mesh_pairs, tris_per_pair
+    bsz = c1.shape[0]
+    n_coll = colliders.parent.shape[-1]
+    w_pos, w_rot = collider_world_poses(bodies, colliders)
+    s1 = c1.clamp(min=0).long()
+    s2 = c2.clamp(min=0).long()
+    m1 = npm.is_mesh_type(torch.gather(colliders.shape_type, 1, s1))
+    m2 = npm.is_mesh_type(torch.gather(colliders.shape_type, 1, s2))
+    is_mesh_pair = pair_valid & (m1 ^ m2)
+
+    # The mesh pairs in pair order: convex side cA, mesh side cM; flip marks
+    # the mesh as collider1 of the pair.
+    src, lane_valid, _dropped = compact_indices(is_mesh_pair, pm)
+    cA = torch.where(lane_valid, torch.gather(torch.where(m1, s2, s1), 1, src), 0)
+    cM = torch.where(lane_valid, torch.gather(torch.where(m1, s1, s2), 1, src), 0)
+    flip = lane_valid & torch.gather(m1, 1, src)
+
+    # Mid-phase: rank the triangles by AABB overlap with the convex shape,
+    # in the mesh collider's local frame.
+    tris = meshes.triangles.long()                           # [B, T, 3]
+    t_total = tris.shape[1]
+    tv = [_rows(meshes.vertices, tris[..., i].clamp(min=0)) for i in range(3)]
+    tri_min = torch.minimum(torch.minimum(tv[0], tv[1]), tv[2])    # [B, T, 3]
+    tri_max = torch.maximum(torch.maximum(tv[0], tv[1]), tv[2])
+    tri_ok = tris[..., 0] >= 0
+
+    a_min, a_max = shapes.compute_aabbs(
+        _rows(colliders.shape_type, cA), _rows(colliders.shape_params, cA),
+        _rows(w_pos, cA), _rows(w_rot, cA))
+    a_min = a_min - prediction
+    a_max = a_max + prediction
+    mp, mr = _rows(w_pos, cM), _rows(w_rot, cM)              # [B, pm, 3|4]
+    ctr = quat.inv_rotate(mr, 0.5 * (a_min + a_max) - mp)
+    he_l = shapes._absm_vec(torch.abs(quat.to_matrix(quat.conj(mr))), 0.5 * (a_max - a_min))
+    lo = ctr - he_l
+    hi = ctr + he_l
+    prm_m = _rows(colliders.shape_params, cM)
+    start = prm_m[..., 0].to(torch.int32).unsqueeze(-1)
+    count = prm_m[..., 1].to(torch.int32).unsqueeze(-1)
+    idx = torch.arange(t_total, dtype=torch.int32, device=c1.device)
+    in_range = (idx >= start) & (idx < start + count) & tri_ok.unsqueeze(1)
+    ok = torch.ones_like(in_range)
+    score = torch.zeros(in_range.shape, dtype=lo.dtype, device=lo.device)
+    for ax in range(3):                                      # [B, pm, T] each
+        per_axis = (torch.minimum(hi[..., ax:ax + 1], tri_max[..., ax].unsqueeze(1))
+                    - torch.maximum(lo[..., ax:ax + 1], tri_min[..., ax].unsqueeze(1)))
+        # A planar mesh overlaps with exactly zero extent on one axis: the
+        # test is >= 0 and the score sums the other overlaps.
+        ok = ok & (per_axis >= 0.0)
+        score = score + torch.clamp(per_axis, min=0.0) if ax else torch.clamp(per_axis, min=0.0)
+        del per_axis
+    score = torch.where(in_range & lane_valid.unsqueeze(-1) & ok, score, -1e10)
+    # A stable descending sort keeps equal scores in index order, as
+    # lax.top_k does; torch.topk promises no order among ties.
+    top_score, top = torch.sort(score, dim=-1, descending=True, stable=True)
+    del score, in_range, ok
+    top, top_valid = top[..., :k], top_score[..., :k] > -1e9
+
+    # Flatten to [pm * k] sub-lanes, row-major by (mesh pair, rank).
+    lane_cA = cA.repeat_interleave(k, dim=1)
+    lane_cM = cM.repeat_interleave(k, dim=1)
+    lane_flip = flip.repeat_interleave(k, dim=1)
+    lane_tri = top.reshape(bsz, pm * k)
+    lane_ok = lane_valid.repeat_interleave(k, dim=1) & top_valid.reshape(bsz, pm * k)
+
+    def lanes(x, c):
+        """Per-collider ``[B, C, d]`` at lane colliders -> ``[B, d, L]``."""
+        return _rows(x, c).transpose(1, 2)
+
+    mpos, mrot = _rows(w_pos, lane_cM), _rows(w_rot, lane_cM)
+    wv = [quat.transform_point(mpos, mrot, _rows(v, lane_tri)).transpose(1, 2) for v in tv]
+    pA, rA = lanes(w_pos, lane_cA), lanes(w_rot, lane_cA)
+    stA = _rows(colliders.shape_type, lane_cA)
+    prmA = lanes(colliders.shape_params, lane_cA)
+
+    dev = c1.device
+    n_l = pm * k
+    normal = torch.zeros((bsz, 3, n_l), device=dev)
+    normal[:, 1] = 1.0
+    point = torch.zeros((bsz, 4, 3, n_l), device=dev)
+    dist = torch.full((bsz, 4, n_l), 1e10, device=dev)
+    fid = torch.full((bsz, 4, n_l), -1, dtype=torch.int32, device=dev)
+    pvalid = torch.zeros((bsz, 4, n_l), dtype=torch.bool, device=dev)
+    # Each kernel over every lane, the lane's shape type selecting (the
+    # cuboid, and any other type, takes the convex kernel).
+    is_ball, is_cap = stA == ShapeType.BALL, stA == ShapeType.CAPSULE
+    for mask, kern in (
+            (~is_ball & ~is_cap, lambda: npm.convex_triangle(pA, rA, stA, prmA, *wv)),
+            (is_cap, lambda: npm.capsule_triangle(pA, rA, prmA, *wv)),
+            (is_ball, lambda: npm.ball_triangle(pA, rA, prmA, *wv))):
+        man = kern()
+        m2 = mask.unsqueeze(1)
+        normal = torch.where(m2, man.normal, normal)
+        point = torch.where(m2.unsqueeze(1), man.point, point)
+        dist = torch.where(m2, man.dist, dist)
+        fid = torch.where(m2, man.fid, fid)
+        pvalid = torch.where(m2, man.valid, pvalid)
+        del man
+
+    # The kernels' normal points convex -> triangle: back to collider1 ->
+    # collider2.
+    normal = torch.where(lane_flip.unsqueeze(1), -normal, normal)
+    dist = dist - (_rows(colliders.contact_skin, lane_cA)
+                   + _rows(colliders.contact_skin, lane_cM)).unsqueeze(1)
+    pvalid = pvalid & lane_ok.unsqueeze(1)
+    point_active = pvalid & (dist < prediction)
+    any_active = torch.any(point_active, dim=1)
+    touching = lane_ok & any_active
+
+    lo_c = torch.where(lane_flip, lane_cM, lane_cA)
+    hi_c = torch.where(lane_flip, lane_cA, lane_cM)
+
+    def both(x):
+        return _rows(x, lo_c), _rows(x, hi_c)
+
+    friction = _combine_material(*both(colliders.friction), *both(colliders.friction_combine))
+    restitution = _combine_material(*both(colliders.restitution),
+                                    *both(colliders.restitution_combine))
+    p1, p2 = both(colliders.parent)
+    b1 = torch.where(lane_ok, p1, -1)
+    b2 = torch.where(lane_ok, p2, -1)
+
+    def body_cols(b):
+        has, safe = b >= 0, b.clamp(min=0)
+        bt = torch.where(has, _rows(bodies.body_type, safe), int(BodyType.FIXED))
+        sd = (bt == BodyType.DYNAMIC) | (has & _rows(bodies.mb_link, safe))
+        dom = torch.where(sd, _rows(bodies.dominance, safe), 127)
+        return sd, torch.where(has, dom, 127)
+
+    sd1, dom1 = body_cols(b1)
+    sd2, dom2 = body_cols(b2)
+    sen1, sen2 = both(colliders.sensor)
+    sensor = sen1 | sen2
+    sg1, sg2 = both(colliders.solver_groups)
+    solver_ok = (((sg1 >> 16) & (sg2 & 0xFFFF)) != 0) & (((sg2 >> 16) & (sg1 & 0xFFFF)) != 0)
+    solver_pair = lane_ok & ~sensor & solver_ok & (sd1 | sd2) & any_active
+    pair_key = torch.where(lane_ok, lo_c * n_coll + hi_c + (lane_tri + 1) * (n_coll * n_coll),
+                           -1)
+    ev1, ev2 = both(colliders.active_events)
+    hk1, hk2 = both(colliders.active_hooks)
+    th1, th2 = both(colliders.contact_force_event_threshold)
+    return ManifoldBatch(
+        collider1=torch.where(lane_ok, lo_c, -1).to(torch.int32),
+        collider2=torch.where(lane_ok, hi_c, -1).to(torch.int32),
+        active_events_or=(ev1 | ev2).to(torch.int32),
+        active_hooks_or=(hk1 | hk2).to(torch.int32),
+        force_threshold=torch.minimum(th1, th2),
+        dyn1=(b1 >= 0) & sd1, dyn2=(b2 >= 0) & sd2,
+        body1=b1.to(torch.int32), body2=b2.to(torch.int32),
+        pair_key=pair_key.to(torch.int32),
+        normal=normal, point=point, dist=dist, fid=fid,
+        point_valid=pvalid, point_active=point_active,
+        valid=lane_ok,
+        unsupported=torch.zeros((bsz,), dtype=torch.int32, device=dev),
+        solver_pair=solver_pair, touching=touching,
+        sensor=sensor & lane_ok,
+        friction=friction, restitution=restitution,
+        rel_dominance=(dom1 - dom2).to(torch.int32),
+    )
+
+
+def concat_manifolds(a: ManifoldBatch, b: ManifoldBatch) -> ManifoldBatch:
+    """Two manifold batches joined along the (last) pair-lane axis; their
+    `unsupported` counts add."""
+    return ManifoldBatch(*[
+        x + y if name == "unsupported" else torch.cat([x, y], dim=-1)
+        for name, x, y in zip(ManifoldBatch._fields, a, b)])

@@ -1,8 +1,11 @@
 """Host-side (numpy) analytic mass properties per shape.
 
 Counterpart of rapier_tpu.geometry.mass_properties for the shapes the port
-covers (ball, cuboid, capsule at any endpoints; a halfspace has no mass).  Runs at scene-build time; the results are
-accumulated onto the parent bodies by `combine`.
+covers: ball, cuboid, capsule at any endpoints, and triangle meshes by the
+divergence theorem (`mesh_mass_properties`; a heightfield's open surface
+included, as the reference computes it); a halfspace has no mass.  Runs at
+scene-build time; the results are accumulated onto the parent bodies by
+`combine`.
 """
 
 from __future__ import annotations
@@ -44,9 +47,10 @@ def _quat_from_two_vectors(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 def shape_mass_properties(shape_type: int, params: np.ndarray,
                           density: float) -> MassProperties:
     """Analytic mass properties of a ball, cuboid or capsule; a halfspace
-    contributes no mass."""
+    contributes no mass, nor does a mesh's parameter row (`PhysicsWorld.build` calls
+    `mesh_mass_properties` with its geometry)."""
     st = ShapeType(shape_type)
-    if st == ShapeType.HALFSPACE:
+    if st in (ShapeType.HALFSPACE, ShapeType.TRIMESH, ShapeType.HEIGHTFIELD):
         return MassProperties(0.0, np.zeros(3), np.zeros(3), _identity_quat())
     if st == ShapeType.BALL:
         r = float(params[0])
@@ -79,7 +83,101 @@ def shape_mass_properties(shape_type: int, params: np.ndarray,
         else:
             frame = _identity_quat()
         return MassProperties(m, com, np.array([i_perp, i_axis, i_perp]), frame)
-    raise NotImplementedError(f"mass properties of {st.name} are not ported")
+    raise NotImplementedError(f"mass properties of {st.name} are not ported (the generic "
+                              "convex shapes: ROADMAP queue 1, item 3)")
+
+
+def mesh_mass_properties(vertices: np.ndarray, triangles: np.ndarray,
+                         density: float, assume_convex: bool = False) -> MassProperties:
+    """Mass properties of a triangle mesh by the divergence theorem (the
+    reference's mesh_mass_properties, parry's MassProperties::from_trimesh):
+    signed tetrahedra against the origin, so the winding must be consistent
+    and the surface closed for a physical result; an open surface (a
+    heightfield) gives what the same sums give.  `assume_convex` reorients
+    each face outward from the centroid."""
+    v = np.asarray(vertices, np.float64)
+    t = np.asarray(triangles, np.int64).copy()
+    if assume_convex:
+        centroid = v[np.unique(t)].mean(axis=0)
+        a0, b0, c0 = v[t[:, 0]], v[t[:, 1]], v[t[:, 2]]
+        n = np.cross(b0 - a0, c0 - a0)
+        flip = np.einsum("ij,ij->i", n, (a0 + b0 + c0) / 3.0 - centroid) < 0
+        t[flip] = t[flip][:, [0, 2, 1]]
+    a, b, c = v[t[:, 0]], v[t[:, 1]], v[t[:, 2]]
+
+    # Signed volume of each origin tetrahedron: det([a b c]) / 6.
+    d6 = np.einsum("ij,ij->i", a, np.cross(b, c))
+    vol = d6.sum() / 6.0
+    if vol < 0:   # inward winding: flip
+        a, c = c, a
+        d6 = -d6
+        vol = -vol
+    if vol < 1e-12:
+        return MassProperties(0.0, np.zeros(3), np.zeros(3), _identity_quat())
+
+    com = (d6[:, None] * (a + b + c)).sum(axis=0) / (4.0 * d6.sum())
+    mass = density * vol
+
+    # Inertia by the canonical tetrahedron integrals (Blow & Binstock 2004).
+    def subexp(w0, w1, w2):
+        f1 = w0 + w1 + w2
+        f2 = w0 * w0 + w1 * (w0 + w1) + w2 * f1
+        f3 = w0 * w0 * w0 + w0 * w0 * w1 + w0 * w1 * w1 + w1 * w1 * w1 + w2 * f2
+        g0 = f2 + w0 * (f1 + w0)
+        g1 = f2 + w1 * (f1 + w1)
+        g2 = f2 + w2 * (f1 + w2)
+        return f1, f2, f3, g0, g1, g2
+
+    x0, y0, z0 = (a - com).T
+    x1, y1, z1 = (b - com).T
+    x2, y2, z2 = (c - com).T
+    _, _, fx3, gx0, gx1, gx2 = subexp(x0, x1, x2)
+    _, _, fy3, gy0, gy1, gy2 = subexp(y0, y1, y2)
+    _, _, fz3, gz0, gz1, gz2 = subexp(z0, z1, z2)
+    d0 = (y1 - y0) * (z2 - z0) - (y2 - y0) * (z1 - z0)
+    d1 = (z1 - z0) * (x2 - x0) - (z2 - z0) * (x1 - x0)
+    d2 = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+
+    intg_x2 = (d0 * fx3).sum() / 60.0
+    intg_y2 = (d1 * fy3).sum() / 60.0
+    intg_z2 = (d2 * fz3).sum() / 60.0
+    intg_xy = (d0 * (y0 * gx0 + y1 * gx1 + y2 * gx2)).sum() / 120.0
+    intg_yz = (d1 * (z0 * gy0 + z1 * gy1 + z2 * gy2)).sum() / 120.0
+    intg_zx = (d2 * (x0 * gz0 + x1 * gz1 + x2 * gz2)).sum() / 120.0
+
+    ixx = density * (intg_y2 + intg_z2)
+    iyy = density * (intg_x2 + intg_z2)
+    izz = density * (intg_x2 + intg_y2)
+    ixy = -density * intg_xy
+    iyz = -density * intg_yz
+    izx = -density * intg_zx
+    i_mat = np.array([[ixx, ixy, izx], [ixy, iyy, iyz], [izx, iyz, izz]])
+    evals, evecs = np.linalg.eigh(i_mat)
+    if np.linalg.det(evecs) < 0:
+        evecs[:, 0] = -evecs[:, 0]
+    m = evecs
+    tr = np.trace(m)
+    if tr > 0:
+        s = math.sqrt(tr + 1.0) * 2
+        qw = 0.25 * s
+        qx = (m[2, 1] - m[1, 2]) / s
+        qy = (m[0, 2] - m[2, 0]) / s
+        qz = (m[1, 0] - m[0, 1]) / s
+    else:
+        i = int(np.argmax(np.diag(m)))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        s = math.sqrt(max(1.0 + m[i, i] - m[j, j] - m[k, k], 1e-12)) * 2
+        q = np.zeros(4)
+        q[i] = 0.25 * s
+        q[j] = (m[j, i] + m[i, j]) / s
+        q[k] = (m[k, i] + m[i, k]) / s
+        qw = (m[k, j] - m[j, k]) / s
+        qx, qy, qz = q[0], q[1], q[2]
+    frame = np.array([qx, qy, qz, qw], np.float32)
+    n = np.linalg.norm(frame)
+    frame = frame / n if n > 1e-9 else _identity_quat()
+    return MassProperties(float(mass), com.astype(np.float32),
+                          np.maximum(evals, 0.0).astype(np.float32), frame)
 
 
 def _quat_rotate(q: np.ndarray, v: np.ndarray) -> np.ndarray:

@@ -4,7 +4,8 @@ rapier_tpu.pipeline.physics_pipeline.step).
 `step(state, params)` takes a `SceneState` whose every leaf has a leading
 scene axis ``[B, ...]`` and advances all B scenes by ``params.dt``: multibody
 forward dynamics (phase A), kinematic velocities, AABBs with margins, the
-broad phase (all pairs, SAP or the grid), the narrow phase, the warmstart
+broad phase (all pairs, SAP or the grid), the narrow phase (with the mesh
+narrow phase's per-triangle lanes after the pair lanes), the warmstart
 join against the contact cache, the contact filter of impulse joints and
 link-parent pairs, started/stopped events, wake propagation over contacts
 and joints, the link mobility install (phase B), the joint and contact
@@ -21,8 +22,8 @@ never takes the kernel, nor does a scene with the 2x2 block solve
 model, takes the masked sweep at any size: the joints' colored passes run
 before the contact passes.
 
-Not ported (NotImplementedError): multibody dof couplings, meshes, convex
-hulls, CCD, hooks, f64.
+Not ported (NotImplementedError): multibody dof couplings, convex hulls (and
+the other generic convex shapes), CCD, hooks, f64.
 """
 
 from __future__ import annotations
@@ -52,6 +53,8 @@ from rapier_tpu_torch.geometry.dispatch import (
     ManifoldBatch,
     collider_world_poses,
     compute_manifolds,
+    compute_mesh_manifolds,
+    concat_manifolds,
     parent_body_cols,
 )
 from rapier_tpu_torch.math import quat
@@ -463,16 +466,31 @@ def step(state: SceneState, params: SimParams):
                   + soft_margin).unsqueeze(-1)
         mins = mins - margin
         maxs = maxs + margin
+        # The mesh narrow phase's sub-lanes take the last max_mesh_pairs x
+        # tris_per_pair lanes of the pair buffer (:261-265).
+        mesh_lanes = (params.max_mesh_pairs * params.tris_per_pair
+                      if state.meshes is not None else 0)
+        convex_pairs = state.contacts.max_pairs - mesh_lanes
+        if convex_pairs <= 0:
+            raise ValueError(f"max_pairs {state.contacts.max_pairs} leaves no lane beside "
+                             f"the {mesh_lanes} mesh lanes")
         bp_body_type = torch.where(bodies.mb_link, int(BodyType.DYNAMIC), bodies.body_type)
         c1, c2, pair_valid, bp_overflow = broadphase.find_pairs(
-            mins, maxs, colliders, bp_body_type, state.contacts.max_pairs,
+            mins, maxs, colliders, bp_body_type, convex_pairs,
             params.broad_phase, params.sap_window)
 
-    # 3. Narrow phase.
+    # 3. Narrow phase: the convex pairs, then the (convex, mesh) pairs'
+    #    per-triangle lanes (:277-289).
+    prediction = float(params.prediction_distance())
     with stage("narrow_phase"):
         man = compute_manifolds(
-            bodies, colliders, c1, c2, pair_valid, float(params.prediction_distance()),
+            bodies, colliders, c1, c2, pair_valid, prediction,
             present=params.shape_types_present, dt=params.dt)
+    if state.meshes is not None:
+        with stage("mesh_narrow_phase"):
+            man = concat_manifolds(man, compute_mesh_manifolds(
+                bodies, colliders, state.meshes, c1, c2, pair_valid, prediction,
+                params.max_mesh_pairs, params.tris_per_pair))
 
     # 4. Warmstart matching + events bookkeeping.
     with stage("contact_match"):
@@ -671,7 +689,7 @@ def step(state: SceneState, params: SimParams):
     force_gate = (man.active_events_or & ACTIVE_EVENTS_CONTACT_FORCE) != 0
     new_state = SceneState(bodies=bodies, colliders=colliders, contacts=contacts,
                            step_count=state.step_count + 1, multibodies=multibodies,
-                           joints=joints)
+                           joints=joints, meshes=state.meshes)
     zero_b = torch.zeros((bsz,), dtype=torch.int32, device=dev)
     events = StepEvents(
         started_pairs=started & collision_gate,

@@ -316,6 +316,102 @@ def s2d_coulomb_stack_world(**world_kw):
     return w, {"boxes": boxes, "slider": slider}
 
 
+def heightfield3_world(**world_kw):
+    """examples/heightfield3.py's scene (reference examples3d/heightfield3.rs,
+    cut to size): a 12 x 12 sin/cos heightfield over 16 x 1 x 16 on a fixed
+    body, and 12 bodies cycling ball 0.4 / cuboid 0.35 / capsule_y(0.25,
+    0.25), placed from RandomState(0).  Returns (world, {"bodies":
+    handles})."""
+    w = PhysicsWorld(**world_kw)
+    n = 12
+    xs = np.linspace(-8.0, 8.0, n)
+    zs = np.linspace(-8.0, 8.0, n)
+    heights = np.sin(xs[None, :]) + np.cos(zs[:, None])
+    ground = w.insert_body(RigidBodyBuilder.fixed())
+    w.insert_collider(ColliderBuilder.heightfield(heights, (16.0, 1.0, 16.0)), ground)
+    bodies = []
+    rng = np.random.RandomState(0)
+    for i in range(12):
+        x, z = rng.uniform(-4, 4, 2)
+        b = w.insert_body(RigidBodyBuilder.dynamic().with_translation((x, 4.0 + (i % 4), z)))
+        w.insert_collider(_mixed_shape(i, 0.4, 0.35, 0.25), b)
+        bodies.append(b)
+    return w, {"bodies": bodies}
+
+
+def _mixed_shape(i: int, ball: float, half: float, cap: float):
+    """The example's cycle: a ball, a cuboid, a capsule_y."""
+    return (ColliderBuilder.ball(ball) if i % 3 == 0 else
+            ColliderBuilder.cuboid(half, half, half) if i % 3 == 1 else
+            ColliderBuilder.capsule_y(cap, cap))
+
+
+def trimesh3_world(**world_kw):
+    """The trimesh3 scene of tests/test_example_scenes.py:241-263 (reference
+    examples3d/trimesh3.rs, cut to size): a 4-triangle valley, its floor line
+    y = 0 along z at x = 0 and its walls rising to 0.5 at |x| = 2, and a ball
+    of radius 0.3 dropped at (0.6, 3, 0), which rolls to the floor.  Returns
+    (world, {"ball": handle})."""
+    w = PhysicsWorld(**world_kw)
+    verts = np.array([
+        [-2, 0.5, -2], [0, 0, -2], [2, 0.5, -2],
+        [-2, 0.5, 2], [0, 0, 2], [2, 0.5, 2],
+    ], np.float32)
+    tris = np.array([[0, 1, 4], [0, 4, 3], [1, 2, 5], [1, 5, 4]], np.int32)
+    g = w.insert_body(RigidBodyBuilder.fixed())
+    w.insert_collider(ColliderBuilder.trimesh(verts, tris), g)
+    b = w.insert_body(RigidBodyBuilder.dynamic().with_translation((0.6, 3, 0)))
+    w.insert_collider(ColliderBuilder.ball(0.3), b)
+    return w, {"ball": b}
+
+
+# The full-size heightfield3: upstream's 20 x 20 subdivisions and 20 layers
+# of 8 x 8 bodies.
+HF_FULL_SUBDIVS = 20
+HF_FULL_LAYERS = 20
+HF_FULL_GRID = 8
+
+
+def heightfield3_full_world(**world_kw):
+    """SURVEY.md's upstream heightfield3 (examples3d/heightfield3.rs:14-60) at
+    its size: a 20 x 20-subdivision heightfield over 100 x 1 x 100 on a fixed
+    body, heights sin(x) + cos(z) with x = 5 i, z = 5 j at row i, column j,
+    and 10 on the border rows and columns; above it 20 layers of 8 x 8 bodies
+    of radius 1, 3 apart, the bottom layer at y = 4.5.  1,280 bodies, 1,281
+    colliders, 800 triangles.
+
+    Upstream cycles six shapes by layer: cuboid, ball, round cylinder, cone,
+    capsule_y and a compound.  This scene uses the shapes the port carries,
+    cycled by body as examples/heightfield3.py does: ball(1), cuboid(1, 1,
+    1), capsule_y(1, 1).  Cylinders, cones and compounds wait for the
+    generic convex shapes (ROADMAP queue 1, item 3).  max_mesh_pairs is
+    1,280 so that no body can lose its terrain pair (the reference drops
+    the mesh pairs beyond it, ROADMAP R12).  Returns (world, {"bodies":
+    handles, "layer": bodies per layer})."""
+    w = PhysicsWorld(**world_kw)
+    n = HF_FULL_SUBDIVS
+    i, j = np.meshgrid(np.arange(n + 1), np.arange(n + 1), indexing="ij")
+    heights = np.sin(i * 100.0 / n) + np.cos(j * 100.0 / n)
+    border = (i == 0) | (i == n) | (j == 0) | (j == n)
+    heights = np.where(border, 10.0, heights)
+    ground = w.insert_body(RigidBodyBuilder.fixed())
+    w.insert_collider(ColliderBuilder.heightfield(heights, (100.0, 1.0, 100.0)), ground)
+    rad, grid = 1.0, HF_FULL_GRID
+    shift = 3.0 * rad
+    center = shift * (grid // 2)
+    bodies = []
+    for layer in range(HF_FULL_LAYERS):
+        for gi in range(grid):
+            for gk in range(grid):
+                b = w.insert_body(RigidBodyBuilder.dynamic().with_translation(
+                    (gi * shift - center, layer * shift + shift / 2.0 + 3.0,
+                     gk * shift - center)))
+                w.insert_collider(_mixed_shape(len(bodies), rad, rad, rad), b)
+                bodies.append(b)
+    w.params = w.params.replace(max_mesh_pairs=len(bodies))
+    return w, {"bodies": bodies, "layer": grid * grid}
+
+
 def replicate_scene(state, batch: int):
     """Copy one scene state `batch` times along a new leading scene axis.
     Numpy leaves stay numpy (host); tensor leaves are copied on their

@@ -9,15 +9,18 @@ component-leading, lane-last layout (``[3, P]``, ``[4, 3, P]``).
 `from_numpy` / `to_numpy` carry a reference `SceneState` or `SimParams`
 (numpy leaves, e.g. from `rapier_tpu.world.PhysicsWorld.build()`) into the
 port and back by field name, so the two packages exchange state without this
-one importing JAX.  The `joints` slot (impulse joints, `Joints`) and the
+one importing JAX.  The `joints` slot (impulse joints, `Joints`), the
 `multibodies` slot (reduced-coordinate articulations,
-`dynamics.multibody.Multibodies`) cross the same way.
+`dynamics.multibody.Multibodies`) and the `meshes` slot (`MeshData`) cross
+the same way.
 
 ``Colliders.shape_params`` rows follow the reference's table
 (rapier_tpu.geometry.shapes): BALL ``[r]``, CUBOID ``[hx, hy, hz]``, CAPSULE
 ``[ax, ay, az, bx, by, bz, r]`` (segment endpoints in the collider frame),
 HALFSPACE ``[nx, ny, nz]`` (outward unit normal of the plane through the
-collider origin).
+collider origin), TRIMESH and HEIGHTFIELD ``[tri_start, tri_count, lo(3),
+hi(3)]`` (a range of the shared `MeshData` triangle table and the mesh's
+local AABB).
 """
 
 from __future__ import annotations
@@ -256,11 +259,29 @@ class Joints:
 
 
 @dataclass
+class MeshData:
+    """The shared mesh tables of TRIMESH and HEIGHTFIELD colliders (the
+    reference's MeshData): vertices in each collider's LOCAL frame, and
+    triangles as vertex indices, padded rows -1.  A mesh collider holds its
+    range ``(tri_start, tri_count)`` in shape_params[0:2].  Heightfields are
+    triangulated when the scene is built.  Batched, the tables take the
+    scene axis as every other leaf: ``[B, V, 3]``, ``[B, T, 3]``."""
+
+    vertices: Any    # [V, 3]
+    triangles: Any   # [T, 3] int32 (padded rows = -1)
+
+
+def empty_meshes(v: int, t: int) -> MeshData:
+    return MeshData(vertices=np.zeros((v, 3), _f32), triangles=np.full((t, 3), -1, np.int32))
+
+
+@dataclass
 class SceneState:
-    """Full simulation state.  `joints` holds the impulse joints and
-    `multibodies` the reduced-coordinate articulations (None without any);
-    the reference's other feature slots (meshes, hulls) are not ported:
-    `from_numpy` refuses a reference state that sets them."""
+    """Full simulation state.  `joints` holds the impulse joints,
+    `multibodies` the reduced-coordinate articulations and `meshes` the
+    triangle tables of mesh colliders (None without any); the reference's
+    `hulls` slot is not ported: `from_numpy` refuses a reference state that
+    sets it."""
 
     bodies: Bodies
     colliders: Colliders
@@ -268,6 +289,7 @@ class SceneState:
     step_count: Any = field(default_factory=lambda: np.int32(0))
     multibodies: Any = None
     joints: Any = None
+    meshes: Any = None
 
 
 def _f(shape):
@@ -391,6 +413,10 @@ class SimParams:
     sap_window: int = 64
     max_colors: int = 16
     max_solver_pairs: int = 0
+    # Mesh narrow phase: lanes reserved for (convex, mesh) pairs and the
+    # candidate triangles of each (geometry/narrowphase_mesh.py).
+    max_mesh_pairs: int = 64
+    tris_per_pair: int = 8
     enable_ccd: bool = False
     sleep_propagation_iters: int = 16
     sleeping_enabled: bool = True
@@ -451,8 +477,8 @@ def spring_cfm_factor(natural_frequency, damping_ratio, dt):
 _STATE_TYPES = {
     "bodies": Bodies, "colliders": Colliders, "contacts": Contacts,
 }
-_UNSUPPORTED_SLOTS = ("meshes", "hulls")
-_OPTIONAL_TYPES = {"joints": Joints, "multibodies": Multibodies}
+_UNSUPPORTED_SLOTS = ("hulls",)
+_OPTIONAL_TYPES = {"joints": Joints, "multibodies": Multibodies, "meshes": MeshData}
 
 
 def _leaf_to_tensor(x, device):

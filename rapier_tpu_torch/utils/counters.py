@@ -50,7 +50,8 @@ def stage(name: str):
 class StageTimings:
     """Milliseconds a step, per stage (the reference's Counters schema);
     `solver_ms` is the solve without the impulse joints, and `extra` holds
-    the joints, the contact join, wake, sleep and the rest."""
+    the mesh narrow phase (the (convex, mesh) pairs' triangle lanes), the
+    joints, the contact join, wake, sleep and the rest."""
 
     broad_phase_ms: float = 0.0
     narrow_phase_ms: float = 0.0
@@ -91,7 +92,8 @@ def profile_step(state, params) -> StageTimings:
     finally:
         _timings = None
     joints = ms.pop("joints", 0.0)
-    extra = {f"{k}_ms": ms.get(k, 0.0) for k in ("contact_match", "wake", "sleep")}
+    extra = {f"{k}_ms": ms.get(k, 0.0)
+             for k in ("mesh_narrow_phase", "contact_match", "wake", "sleep")}
     extra["joints_ms"] = joints
     extra["rest_ms"] = total - sum(ms.values())
     return StageTimings(broad_phase_ms=ms.get("broad_phase", 0.0),

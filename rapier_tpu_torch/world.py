@@ -1,7 +1,8 @@
 """Host-side scene construction + a convenience stepping facade.
 
 Counterpart of rapier_tpu.world: the `RigidBodyBuilder` / `ColliderBuilder`
-builders (ball, cuboid, capsules, halfspace), `GenericJointBuilder` with its
+builders (ball, cuboid, capsules, halfspace, trimesh and heightfield: the
+meshes gather into one shared `MeshData` table), `GenericJointBuilder` with its
 typed forms for impulse joints and reduced-coordinate multibody joints, and
 `PhysicsWorld`.  Building is plain
 numpy and gives the same `SceneState` leaves as the reference's `build()`;
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import math
 from collections import Counter
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -29,6 +30,7 @@ from rapier_tpu_torch.types import (
     Colliders,
     FrictionModel,
     Joints,
+    MeshData,
     SceneState,
     ShapeType,
     SimParams,
@@ -144,6 +146,8 @@ class ColliderBuilder:
     enabled: bool = True
     user_data: int = 0
     active_collision_types: int = ACTIVE_COLLISION_TYPES_DEFAULT
+    # (vertices [V, 3] float32, triangles [T, 3] int32) of a mesh collider.
+    mesh: Optional[tuple] = field(default=None, repr=False, compare=False)
 
     @staticmethod
     def ball(radius) -> "ColliderBuilder":
@@ -181,6 +185,39 @@ class ColliderBuilder:
     def halfspace(normal) -> "ColliderBuilder":
         n = np.asarray(normal, dtype=np.float64)
         return ColliderBuilder(ShapeType.HALFSPACE, tuple(n / np.linalg.norm(n)))
+
+    @staticmethod
+    def trimesh(vertices, indices) -> "ColliderBuilder":
+        """Triangle mesh collider: vertices ``(V, 3)``, indices ``(T, 3)``, in
+        the collider's frame."""
+        return ColliderBuilder(ShapeType.TRIMESH, (), mesh=(
+            np.asarray(vertices, np.float32), np.asarray(indices, np.int32)))
+
+    @staticmethod
+    def heightfield(heights, scale) -> "ColliderBuilder":
+        """Heightfield collider, triangulated here (the reference's
+        HeightField::to_trimesh path): heights ``(nrows, ncols)``; scale
+        ``(sx, sy, sz)`` the full extents.  The field spans [-sx/2, sx/2] x
+        [-sz/2, sz/2] about the collider origin, rows along z and columns
+        along x, at y = height * sy; each cell is two triangles."""
+        h = np.asarray(heights, np.float64)
+        nr, nc = h.shape
+        sx, sy, sz = (float(v) for v in scale)
+        xs = np.linspace(-sx / 2, sx / 2, nc)
+        zs = np.linspace(-sz / 2, sz / 2, nr)
+        verts = np.zeros((nr * nc, 3), np.float32)
+        for r in range(nr):
+            for c in range(nc):
+                verts[r * nc + c] = (xs[c], h[r, c] * sy, zs[r])
+        tris = []
+        for r in range(nr - 1):
+            for c in range(nc - 1):
+                i00, i01 = r * nc + c, r * nc + c + 1
+                i10, i11 = (r + 1) * nc + c, (r + 1) * nc + c + 1
+                tris.append((i00, i10, i01))
+                tris.append((i01, i10, i11))
+        return ColliderBuilder(ShapeType.HEIGHTFIELD, (),
+                               mesh=(verts, np.asarray(tris, np.int32)))
 
     def _set(self, **kw):
         for k, v in kw.items():
@@ -446,7 +483,10 @@ class PhysicsWorld:
         nc = len(self._pending_colliders)
         n_cap = self._body_capacity or _round_up(nb, 8)
         c_cap = self._collider_capacity or _round_up(nc, 8)
-        p_cap = self._max_pairs or _round_up(max(8 * nc, 64), 128)
+        has_meshes = any(cb.mesh is not None for cb, _ in self._pending_colliders)
+        mesh_lanes = (self.params.max_mesh_pairs * self.params.tris_per_pair
+                      if has_meshes else 0)
+        p_cap = self._max_pairs or _round_up(max(8 * nc, 64), 128) + mesh_lanes
         if any(bb.ccd_enabled for bb in self._pending_bodies):
             raise NotImplementedError("CCD is not ported")
 
@@ -468,10 +508,16 @@ class PhysicsWorld:
         bodies = {k: np.asarray(v).copy() for k, v in vars(b0).items()}
         colliders = {k: np.asarray(v).copy() for k, v in vars(c0).items()}
         body_parts: dict[int, list] = {i: [] for i in range(nb)}
+        meshes, mesh_ranges = self._build_meshes(c_cap)
 
         for i, (cb, parent) in enumerate(self._pending_colliders):
             prm = np.zeros(12, np.float32)
             prm[: len(cb.shape_params)] = cb.shape_params
+            if i in mesh_ranges:
+                start, count, lo, hi = mesh_ranges[i]
+                prm[0], prm[1] = start, count
+                prm[2:5] = lo
+                prm[5:8] = hi
             colliders["parent"][i] = parent
             colliders["local_pos"][i] = cb.translation
             colliders["local_rot"][i] = _as_quat(cb.rotation)
@@ -493,7 +539,10 @@ class PhysicsWorld:
             colliders["user_data"][i] = cb.user_data
             colliders["active_collision_types"][i] = cb.active_collision_types
             if parent >= 0 and not cb.sensor:
-                smp = mp.shape_mass_properties(int(cb.shape_type), prm, cb.density)
+                if cb.mesh is not None:
+                    smp = mp.mesh_mass_properties(*cb.mesh, cb.density)
+                else:
+                    smp = mp.shape_mass_properties(int(cb.shape_type), prm, cb.density)
                 if cb.mass is not None and smp.mass > 0:
                     scale = cb.mass / smp.mass
                     smp = mp.MassProperties(
@@ -545,7 +594,8 @@ class PhysicsWorld:
             contacts=empty_contacts(p_cap, per_point_tangent=(
                 self.params.friction_model == int(FrictionModel.COULOMB))),
             multibodies=mb_state,
-            joints=self._build_joints(bodies) if self._pending_joints else None)
+            joints=self._build_joints(bodies) if self._pending_joints else None,
+            meshes=meshes)
         census = Counter(int(cb.shape_type) for cb, _ in self._pending_colliders)
         self.params = self.params.replace(
             shape_types_present=tuple(sorted(census.items())))
@@ -556,6 +606,39 @@ class PhysicsWorld:
         if state.joints is not None:
             self.params = self.params.replace(joint_slots=used_slots(self.state.joints))
         return state
+
+    def _build_meshes(self, c_cap: int):
+        """The mesh colliders' shared tables (vertices and triangles each
+        padded to a multiple of 8, triangle rows -1) and each mesh collider's
+        (tri_start, tri_count, local lo, local hi); (None, {}) without a
+        mesh.  Refuses a scene whose mesh pair keys, ``lo * C + hi + (tri +
+        1) * C**2``, would pass int32: the reference computes them in int32
+        (dispatch.py:611-613) and the two packages would part there."""
+        verts, tris, ranges = [], [], {}
+        tri_cursor = vert_cursor = 0
+        for i, (cb, _parent) in enumerate(self._pending_colliders):
+            if cb.mesh is None:
+                continue
+            v, t = cb.mesh
+            verts.append(v)
+            tris.append(t + vert_cursor)
+            ranges[i] = (tri_cursor, len(t), v.min(axis=0), v.max(axis=0))
+            tri_cursor += len(t)
+            vert_cursor += len(v)
+        if not verts:
+            return None, ranges
+        all_v, all_t = np.concatenate(verts), np.concatenate(tris)
+        t_cap = _round_up(len(all_t), 8)
+        if c_cap * c_cap * (t_cap + 1) >= 2**31:
+            raise NotImplementedError(
+                f"{c_cap} colliders and {t_cap} triangles: mesh pair keys would pass int32 "
+                f"(C**2 * (T + 1) = {c_cap * c_cap * (t_cap + 1)} >= 2**31), the reference's "
+                "range")
+        vpad = np.zeros((_round_up(len(all_v), 8), 3), np.float32)
+        vpad[: len(all_v)] = all_v
+        tpad = np.full((t_cap, 3), -1, np.int32)
+        tpad[: len(all_t)] = all_t
+        return MeshData(vertices=vpad, triangles=tpad), ranges
 
     def _build_joints(self, bodies) -> Joints:
         """The impulse-joint table, J rounded up to 8, with the local anchors

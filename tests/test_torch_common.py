@@ -61,8 +61,9 @@ def initial_batch():
 
 
 def to_reference(state):
-    """A port state (numpy or tensor leaves; with or without joints) as a
-    reference SceneState with numpy leaves of the reference's dtypes."""
+    """A port state (numpy or tensor leaves; with or without joints and
+    meshes) as a reference SceneState with numpy leaves of the reference's
+    dtypes."""
     import rapier_tpu.types as jt
     from rapier_tpu_torch.types import to_numpy
 
@@ -71,7 +72,8 @@ def to_reference(state):
     for name, cls, empty in (("bodies", jt.Bodies, jt.empty_bodies),
                              ("colliders", jt.Colliders, jt.empty_colliders),
                              ("contacts", jt.Contacts, jt.empty_contacts),
-                             ("joints", jt.Joints, jt.empty_joints)):
+                             ("joints", jt.Joints, jt.empty_joints),
+                             ("meshes", jt.MeshData, lambda n: jt.empty_meshes(n, n))):
         part = getattr(np_state, name)
         if part is None:
             continue

@@ -328,3 +328,82 @@ def test_joint_step_on_the_card(device, scene):
     assert float((a.bodies.linvel.cpu() - cpu.bodies.linvel).abs().max()) <= 1e-3
     scale = float(cpu.joints.impulses.abs().max())
     assert float((a.joints.impulses.cpu() - cpu.joints.impulses).abs().max()) <= 1e-3 * scale
+
+
+@pytest.fixture(scope="module")
+def heightfield_capture(device):
+    """heightfield3 (K = 640 solver lanes: 128 pair lanes and 64 x 8 mesh
+    lanes) as 8 scenes after 60 steps on the card, in contact: the state and
+    the next step's solve inputs."""
+    from rapier_tpu_torch.pipeline import physics_pipeline as pp
+    from rapier_tpu_torch.scenes import heightfield3_world, replicate_scene
+    from rapier_tpu_torch.types import from_numpy
+
+    w, _ = heightfield3_world(device=device)
+    params = w.params
+    state = replicate_scene(from_numpy(w.build(), device), 8)
+    for _ in range(60):
+        state, _ = pp.step(state, params)
+    captured = {}
+    original = pp.solve_from_manifolds
+
+    def record(sb, **kw):
+        captured.update(sb=sb, **kw)
+        return original(sb, **kw)
+
+    pp.solve_from_manifolds = record
+    try:
+        pp.step(state, params)
+    finally:
+        pp.solve_from_manifolds = original
+    assert captured["b1"].shape[-1] == 640 and int(captured["valid"].sum()) > 0
+    return state, params, captured
+
+
+def test_kernel_matches_plain_on_heightfield(heightfield_capture):
+    """contact_sweep_kernel at the heightfield's K = 640 against the plain
+    version (bodies 1e-4, impulses 1e-3 atol)."""
+    _check(heightfield_capture[2])
+
+
+def test_mesh_narrow_phase_on_the_card(heightfield_capture):
+    """compute_mesh_manifolds on the card against the CPU on the same
+    state: lanes, keys and flags exact, geometry within 1e-4 (the capsule's
+    ternary search at its rounding ties moves within 2.4e-3 at most,
+    tests/test_torch_mesh.py: its lanes are held to that)."""
+    from rapier_tpu_torch.geometry import broadphase, shapes
+    from rapier_tpu_torch.geometry.dispatch import (
+        collider_world_poses,
+        compute_mesh_manifolds,
+    )
+    from rapier_tpu_torch.types import ShapeType, tree_map
+
+    state, params, _ = heightfield_capture
+    outs = []
+    for st in (state, tree_map(lambda x: x.cpu(), state)):
+        b, c = st.bodies, st.colliders
+        pos, rot = collider_world_poses(b, c)
+        mins, maxs = shapes.compute_aabbs(c.shape_type, c.shape_params, pos, rot)
+        c1, c2, pv, _ = broadphase.find_pairs_all(mins - 0.1, maxs + 0.1, c, b.body_type, 128)
+        outs.append(compute_mesh_manifolds(
+            b, c, st.meshes, c1, c2, pv, float(params.prediction_distance()),
+            params.max_mesh_pairs, params.tris_per_pair))
+    gpu, cpu = outs
+    for name in ("collider1", "collider2", "pair_key", "valid", "touching", "solver_pair",
+                 "point_valid", "point_active"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+    assert int(cpu.touching.sum()) > 0
+    pv = cpu.point_valid
+    assert torch.equal(torch.where(pv, gpu.fid.cpu(), -1), torch.where(pv, cpu.fid, -1))
+    st = torch.gather(state.colliders.shape_type.cpu(), 1,
+                      torch.where(cpu.collider1 == 0, cpu.collider2, cpu.collider1)
+                      .clamp(min=0).long())
+    tol = torch.where(st == ShapeType.CAPSULE, 2.5e-3, 1e-4)
+    ok = cpu.valid.unsqueeze(1)
+    for name, x, y in (("normal", torch.where(ok, gpu.normal.cpu(), 0.0),
+                        torch.where(ok, cpu.normal, 0.0)),
+                       ("dist", torch.where(pv, gpu.dist.cpu(), 0.0), torch.where(pv, cpu.dist, 0.0)),
+                       ("point", torch.where(pv.unsqueeze(2), gpu.point.cpu(), 0.0),
+                        torch.where(pv.unsqueeze(2), cpu.point, 0.0))):
+        err = (x - y).abs().reshape(x.shape[0], -1, x.shape[-1]).amax(dim=1)
+        assert bool((err <= tol).all()), (name, float(err.max()))
