@@ -6,7 +6,7 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; each prints its wall time), run in the
-order 1-6, 10, 11, 7-9:
+order 1-6, 10, 11, 12, 9, 7, 8:
 
 1. Build the contact-sweep kernels from ``rapier_tpu_torch/csrc`` (one nvcc
    call, sm_90a) and print the compiler's register / shared-memory report.
@@ -35,7 +35,7 @@ order 1-6, 10, 11, 7-9:
    lanes on chip at the step after the timed run, bodies resting above the
    ground.
 5. The robots path: 4096 replicas of `quadruped_world(use_multibody=True)`,
-   240 steps, then 50 timed steps.  Checks finite state, zero overflow,
+   60 steps (the trunk is down by ~40), then 50 timed steps.  Checks finite state, zero overflow,
    exactly one folded launch per step and no block launch, every scene's
    lanes on chip at the step after the timed run, every scene bitwise equal
    to scene 0, and the trunk at the reference's height (R5).
@@ -46,47 +46,53 @@ order 1-6, 10, 11, 7-9:
    limit; stack 24 left the default run to make room for phase 10, whose
    5,050-box 2D pile keeps a blocked scene of that size in it).  Checks the
    blocked solve's path, zero broad-phase / solver overflow, finite state,
-   and that stacks 16 and 24 have come to rest (the top box within
-   PYRAMID_TOP_TOL of its resting height) and any other stands (not below
-   it); prints steps/s, the top box's distance from rest and its vertical
+   and that stack 16 has come to rest (the top box within PYRAMID_TOP_TOL
+   of its resting height and slower than PYRAMID_REST_VY) and any other
+   stands (not below it); prints steps/s, the top box's distance from rest and its vertical
    velocity, the lanes the reference's layout would drop (R7), and for a
    stack after the first the per-stage breakdown of a step (host
    milliseconds between synchronisations, `utils/counters.profile_step`)
    with its kernel count and device-busy share (`trace_step`,
    torch.profiler).  The bench step's breakdown is printed in phase 4.
-7. The card against the CPU (plain) path: 2 bench scenes, 2 quadruped
-   scenes, 2 joints3 scenes, 2 impulse-joint quadrupeds and 2
+7. The card against the CPU (plain) path: 2 bench scenes (of phase 4's
+   batch after its timed run), 2 quadruped scenes (of phase 3's capture
+   batch), 2 joints3 scenes (of phase 9's batch after its timed run), 2
+   impulse-joint quadrupeds and 2
    high-mass-ratio 2D scenes for 10 steps each (with the joints' row
    impulses within 1e-3 of the largest); the stack-16 pyramid after 30
-   steps on the card (mid-landing) and after phase 6's 150 (at rest), 3
-   steps each, 2 10-row 2D pyramids and 2 Coulomb stacks after 3, 10 steps
-   each, and phase 10's 5,050-box 2D pile after its 70, 2 steps, 2 heightfield3
-   scenes after 60 steps (in contact), 5 steps, and 2 trimesh3 scenes after
+   steps on the card (mid-landing) and after phase 6's 150 (at rest), 2
+   steps each, 2 10-row 2D pyramids and 2 Coulomb stacks after 3, 5 steps
+   each, and phase 10's 5,050-box 2D pile after its 60, 1 step, 2 heightfield3
+   scenes of phase 11's capture batch (after 60 steps, in contact), 5 steps,
+   and 2 trimesh3 scenes after
    50 (the ball on the valley floor), 10 steps, stepped on the CPU
    from the card's state, bodies and contact cache (pair keys, touching
    flags, impulses) compared; the 2D pile's bodies and impulses to the
    larger of CPU_TOL and twice the gap of two CPU steps whose starts differ
    by 1 ulp in every body's height (within one step the 100-row pile
-   amplifies rounding past CPU_TOL, PERF.md).  A free run of a
+   amplifies rounding past CPU_TOL, PERF.md).  Each line prints its wall
+   time.  A free run of a
    pile amplifies rounding about twofold a step, so beside the stack-16 and
    10-row 2D checks it
    prints the free card-vs-CPU gap and, as its witness, the gap between two
    free CPU runs whose start differs by 1 ulp in one body's height.
-8. Determinism: 10 steps run twice from one state are bitwise equal, for a
-   bench batch, a quadruped batch, a joints3 batch and a heightfield3 batch;
-   3 steps for the stack-16 pyramid; 5 steps for a 10-row 2D pyramid batch
-   and a Coulomb-stack batch.
+8. Determinism: 10 steps run twice from one state are bitwise equal, for
+   64 scenes of phase 4's bench batch, phase 3's quadruped capture batch,
+   256 scenes of phase 9's joints3 batch and phase 11's heightfield3 capture
+   batch; 2 steps for the stack-16 pyramid; 3 steps for a 10-row 2D pyramid
+   batch and a Coulomb-stack batch.
 9. The impulse joints: 4096 replicas of the joint zoo (`scenes.joints3_world`,
    examples/joints3.py: revolute chain, prismatic slider with a position
    motor and limits, fixed-joint lattice, spherical rope with swing limits)
    and 4096 impulse-joint quadrupeds (`quadruped_world(use_multibody=False)`),
-   each 240 steps, then 25 timed steps.  Both take the masked sweep (the
+   30 and 120 steps, then 25 timed steps.  Both take the masked sweep (the
    reference's gate sends scenes with joints there), so neither may launch a
    contact-sweep kernel.  Checks zero overflow, finite state, every scene
-   bitwise equal to scene 0, and for joints3 after 240 steps the example's
+   bitwise equal to scene 0, and for joints3 after 30 steps the example's
    own checks on every scene (the chain tip below y = 8, the slider within
-   0.3 of y = 7.5); prints the quadruped's trunk height after 240 steps
-   beside the reference's 0.188 (R5),
+   0.3 of y = 7.5); prints the quadruped's trunk height after 120 steps
+   beside the reference's 0.188 after 240 (R5; the port's is within 0.003
+   of it from step 120 on),
    env-steps/s, the stage breakdown (with the `joints` stage: row builds and
    sweeps), kernels a step and the device-busy share.
 10. The 2D slice (`PhysicsWorld2D`: plane-locked bodies, the 2x2 block
@@ -97,13 +103,13 @@ order 1-6, 10, 11, 7-9:
    Luby rounds leave ~1,000 lanes to the Jacobi tail and the pile explodes,
    as the reference's blocked solve does with such a tail (ROADMAP F6; each
    reading prints the tail 16 colors would leave).  The blocked solve with
-   the 2x2 flag on every pass, 60 steps, then 10 timed (examples/s2d_pyramid.py
+   the 2x2 flag on every pass, 50 steps, then 10 timed (examples/s2d_pyramid.py
    runs 600; cut for the run's time limit), the top box and the tail read
    every 10 steps; checks zero overflow, finite state, z and the x / y spins
    exactly 0, and that the pile holds (after its top row lands at step ~30
    no box faster than that row's free fall, none above its start, the top
    box above 0.9 x 99 and within 1.5 of rest, its swing shrinking); prints
-   whether it is at rest (it still swings after 70 steps: F6), steps/s, the
+   whether it is at rest (it still swings after 60 steps: F6), steps/s, the
    largest row-height deviation, how far the boxes sank and one traced step.
    (b) 4096 replicas of the 10-row pyramid, 10 steps, then 10 timed, and (c)
    4096 of the Coulomb stack with its kicked slider
@@ -131,17 +137,41 @@ order 1-6, 10, 11, 7-9:
    steps, the stage breakdown (with `mesh_narrow_phase`), kernels a step and
    the device-busy share.  (d) With ``--heightfield-full``: upstream's
    heightfield3 at its size (`scenes.heightfield3_full_world`, 1,280 bodies
-   on a 20 x 20-subdivision field, max_mesh_pairs 1,280), one scene, 60
+   of upstream's six shapes, 1,665 colliders, on a 20 x 20-subdivision
+   field, max_mesh_pairs 1,664), one scene, 60
    steps, then 10 timed; checks zero overflow, no mesh pair dropped, finite
    state, and that the bottom layer landed on the field and above it;
    prints steps/s and one traced step.
+12. The convex shapes (the GJK/EPA fallback for every convex pair without
+   an analytic kernel).  (a) `contact_sweep_kernel` at K = 256 against the
+   plain version on a capture of 256 primitives3 scenes after 60 steps (in
+   contact), timed at 4096 scenes and at one, with the valid lanes per
+   scene and the scenes that keep them on chip; (b) 4096 replicas of
+   upstream's primitives3 cut to 5 layers of 5 x 5 (`scenes.primitives3_world`:
+   capsules, balls, round cylinders and cones of radius 1; max_pairs 512,
+   max_solver_pairs 256) take 80 steps (every layer has landed), then 25
+   timed.  Checks zero broad-phase and solver overflow, zero unsupported
+   pairs (no lane dropped by the GJK/EPA bucket), finite state, exactly one
+   `contact_sweep_kernel` launch per step and no folded one, every scene
+   bitwise equal to scene 0, every body above the ground and below its drop
+   height, and after the 80 steps no body faster than twice the
+   reference's fastest on the CPU (tools/primitives3_reference_speed.py);
+   prints env-steps/s, the peak device memory of the timed steps, the stage
+   breakdown (with `gjk_epa`), kernels a step and the device-busy share.
+   Phase 7 adds 2 scenes of (a)'s primitives3 capture batch (after 60
+   steps) and 2 convex zoo scenes (`scenes.convex_zoo_world`) after 20, 5
+   single steps each; phase 8 a 10-step rerun of that 256-scene batch.  (d) With ``--primitives-full``:
+   upstream's primitives3 at its size (20 layers of 8 x 8, 1,280 bodies, one
+   scene, the masked sweep), 60 + 10 steps; checks zero overflow, finite
+   state and no body below the ground; prints steps/s and one traced step.
 
 The line before the last is the kernels' JSON record (with `bound_share`,
 bound over time, and each kernel's resources); the last line is
 ``{"ok": true, "device": {...}}``.
 
 With ``--s2d-only`` the script builds the kernels and runs phase 10 alone,
-with ``--meshes-only`` phase 11 (and (d) under ``--heightfield-full``);
+with ``--meshes-only`` phase 11 (and (d) under ``--heightfield-full``),
+with ``--convex-only`` phase 12 (and (d) under ``--primitives-full``);
 with ``--rest-steps STEPS`` it steps the ``--pyramid`` stacks (default 31)
 STEPS steps each and prints the top box's distance from rest and vertical
 velocity every 50 steps.  None of these prints the ok line.
@@ -170,7 +200,11 @@ N_SCENES = 4096
 N_CHECK = 256
 SETTLE = 150
 TIMED = 50
-ROBOT_SETTLE = 240
+# The quadruped's trunk has fallen to the reference's 0.050 by step ~40 (a
+# CPU run of the port; the reference's is at 0.050 after 240, R5): the
+# robots path settles ROBOT_SETTLE steps (240 until the whole script outran
+# its 1,200 s limit) before its timed run and the trunk check.
+ROBOT_SETTLE = 60
 ROBOT_CHECK_STEPS = 40
 KERNEL_TOL = dict(bodies=1e-4, impulses=1e-3)   # atol, summation order only
 # atol over 10 contact steps; impulses: atol times the largest impulse's
@@ -187,11 +221,14 @@ TRUNK_Z = (0.045, 0.055)
 TRUNK = 1                       # body handle of the trunk
 # The impulse-joint quadruped falls more slowly; the reference's trunk is at
 # 0.188 after 240 steps (ROADMAP R5, a CPU run of the reference): printed
-# beside the port's, not checked.
+# beside the port's, not checked.  The port's own CPU run has its trunk at
+# 0.188-0.191 from step 120 on, and joints3's example checks hold from step
+# 20 on, so each settles its JOINT_SETTLE steps (both 240 until the whole
+# script outran its 1,200 s limit).  Phases 7 and 8 reuse 2 and N_CHECK
+# scenes of the joints3 batch after its timed run.
 IMPULSE_TRUNK_Z_REF = 0.188
-JOINT_SETTLE = 240
+JOINT_SETTLE = {"joints3": 30, "impulse quadruped": 120}
 JOINT_TIMED = 25                # timed steps after the settle (launch-bound: ~0.2-0.6 s each)
-JOINT_CPU_SETTLE = 30
 # bench.py's default stack.  pyramid3.rs's stack 24 is opt-in (--pyramid 24),
 # as 31 is: its ~150 steps and ~36 s trace made room for phase 10 within the
 # script's time limit; the blocked path keeps a ~5,000-body scene in the
@@ -200,26 +237,29 @@ PYRAMID_STACKS = (16,)
 # Steps before and in the timed run: a pyramid step takes ~0.7-1.4 s.
 # bench.py runs 150 and 50; at 150 + 50 the whole script took ~1,140 s of
 # its 1,200 on an H100 80GB HBM3 machine whose host ran ~35% slow, so the
-# piles run 120 + 30 (both are at rest by then: checked below).
+# piles run 120 + 30 (stack 16 is at rest by then: checked below; at 90 + 15
+# its top box still moved at 1.2 m/s).
 PYRAMID_SETTLE = 120
 PYRAMID_TIMED = 30
 PYRAMID_CPU_SETTLE = 30
 # Single steps of the card against the CPU from each pyramid state, and
 # steps of its rerun: each single step takes a card step and three CPU
-# steps of the 1,496-box pile.
-PYRAMID_CPU_STEPS = 3
-# Steps traced under torch.profiler for the launch-bound paths (pyramid and
-# joints): each of their steps launches the same kernels, and the profiler's
-# processing grows with the 15,000-51,000 launches a step.
+# steps of the 1,496-box pile (3 until the script outran its limit).
+PYRAMID_CPU_STEPS = 2
+# Steps traced under torch.profiler, and steps the stage timers average,
+# for the launch-bound paths (pyramid and joints): each of their steps
+# launches the same kernels, and the profiler's processing grows with the
+# 15,000-105,000 launches a step.
 TRACE_STEPS_LONG = 1
 # A settled pyramid's top box rests at 2 * stack - 1 (boxes 2 high, the
 # ground's top at 0); it starts 0.5 m a level higher.  Stacks 16 and 24 have
 # come to rest by the end of the timed run: their top box must lie within
-# PYRAMID_TOP_TOL of rest.  Stack 31's top level lands at ~17 m/s after ~105
+# PYRAMID_TOP_TOL of rest and move slower than PYRAMID_REST_VY.  Stack 31's top level lands at ~17 m/s after ~105
 # steps and may still move then: it must stand (its top box above rest -
 # PYRAMID_TOP_TOL; a lost level would put it a box height lower), and the run
 # prints how far from rest the top box is and how fast it moves.
 PYRAMID_TOP_TOL = 0.1
+PYRAMID_REST_VY = 0.1           # m/s
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -251,13 +291,15 @@ STATIC_ARGS = ("n_sub", "pgs_iters", "stab_iters", "max_colors")
 # tail holds a few lanes.  The top row falls freely until it lands at about
 # step S2D_BIG_LANDING (at 30 steps it falls at S2D_BIG_FALL), then the pile
 # swings about its rest height, the top box at S2D_BIG_REST (100 rows of
-# unit boxes on the ground's top at y = 0).  (b) 4096 replicas of the 10-row
+# unit boxes on the ground's top at y = 0); S2D_BIG_SETTLE was 60 until the
+# whole script outran its limit (the swing's first peak is at step ~50, so the
+# last reading, at 60, still shows it shrinking).  (b) 4096 replicas of the 10-row
 # pyramid: S2D_SETTLE steps, then S2D_TIMED timed; (c) of the Coulomb stack:
 # S2D_SLIDE steps, the kicked slider's ~6 in the air and ~74 sliding to rest,
 # then S2D_TIMED timed.  Both masked.
 S2D_BIG_BASE = 100
 S2D_BIG_COLORS = 24
-S2D_BIG_SETTLE = 60
+S2D_BIG_SETTLE = 50
 S2D_BIG_TIMED = 10
 S2D_READ_EVERY = 10
 S2D_BIG_LANDING = 30
@@ -270,7 +312,11 @@ S2D_SETTLE = 10
 S2D_SLIDE = 75
 S2D_TIMED = 10
 S2D_CPU_SETTLE = 3              # 2D piles touch from their first step
-S2D_RERUN = 5
+# Single steps from the card's state of the 10-row pyramids and the Coulomb
+# stacks, and the 2D reruns' steps (10 and 5 until the whole script outran
+# its 1,200 s limit).
+S2D_CPU_STEPS = 5
+S2D_RERUN = 3
 # tests/test_s2d.py's checks: boxes within 0.15 of their starts; the slider
 # at rest (|vx| < 0.1) between x = 20.5 and 30; the standing pile's top box
 # above (base - 1) x 0.9 (examples/s2d_pyramid.py:33).
@@ -302,6 +348,37 @@ TRIMESH_SETTLE = 50
 HF_FULL_SETTLE = 60
 HF_FULL_TIMED = 10
 HF_FULL_NEAR = 3.0
+
+# Phase 12, the convex shapes.  (a), (b) 4096 replicas of upstream's
+# primitives3 cut to P3_LAYERS layers of P3_GRID x P3_GRID (one j % 5 shape
+# cycle: capsules, balls, round cylinders, cones; the cylinders and cones
+# take the GJK/EPA fallback) at the bench's max_pairs and max_solver_pairs:
+# P3_SETTLE steps (every layer has landed), then P3_TIMED timed, on
+# contact_sweep_kernel at K = P3_K (P3_SETTLE was 120 until the whole
+# script's runs took 1,068.6 and 1,161.5 s of its 1,200: the top layer has
+# landed by step ~70), the kernel held to the plain version on
+# a capture of N_CHECK scenes after P3_CHECK_STEPS steps (in contact).  Every
+# body must stay above the ground's top (y = 0) and below its drop height,
+# and after the P3_SETTLE steps no body may move faster than P3_SPEED_BOUND:
+# the reference's own run of one such scene on the CPU (rapier_tpu,
+# tools/primitives3_reference_speed.py,
+# solver_backend="pallas", the same builders) has its fastest body at
+# P3_REF_SPEED m/s after P3_SETTLE steps, and the bound is twice that.  (c) The
+# card against the CPU: P3_CPU_STEPS single steps from the card's state of 2
+# scenes after P3_CHECK_STEPS steps, and of 2 convex zoo scenes after
+# ZOO_SETTLE.  (d) --primitives-full: upstream's size, one scene,
+# P3_FULL_SETTLE + P3_FULL_TIMED steps.
+P3_LAYERS, P3_GRID = 5, 5
+P3_MAX_PAIRS, P3_K = 512, 256
+P3_SETTLE = 80
+P3_TIMED = 25
+P3_CHECK_STEPS = 60
+P3_CPU_STEPS = 5
+P3_REF_SPEED = 4.49
+P3_SPEED_BOUND = 2 * P3_REF_SPEED
+ZOO_SETTLE = 20
+P3_FULL_SETTLE = 60
+P3_FULL_TIMED = 10
 
 
 def _fail(msg: str, code: int = 1):
@@ -387,14 +464,20 @@ def impulse_quadruped_batch(device, n_scenes: int, seed=None):
 
 
 def run(state, params, n_steps: int):
+    """`n_steps` steps from `state`: (the last state, each overflow count's
+    largest value over the steps).  The counts are kept on the device and
+    read once at the end, so the host never waits for a step to finish."""
+    import torch
     from rapier_tpu_torch.pipeline.physics_pipeline import step
 
-    worst = {"broadphase_overflow": 0, "solver_overflow": 0}
+    keys = ("broadphase_overflow", "solver_overflow", "unsupported_pairs")
+    worst = None
     for _ in range(n_steps):
         state, ev = step(state, params)
-        for k in worst:
-            worst[k] = max(worst[k], int(getattr(ev, k).max()))
-    return state, worst
+        now = torch.stack([getattr(ev, k).max().to(torch.int64) for k in keys])
+        worst = now if worst is None else torch.maximum(worst, now)
+    counts = [0] * len(keys) if worst is None else worst.tolist()
+    return state, dict(zip(keys, counts))
 
 
 def capture_solve_inputs(state, params):
@@ -606,7 +689,9 @@ def phase_kernel(device, card):
 
 def phase_folded_kernel(device, card):
     """Phase 3: contact_sweep_folded_kernel against the plain version and
-    the block kernel (quadruped, K = 128)."""
+    the block kernel (quadruped, K = 128).  Returns the kernel's record and
+    the captured N_CHECK-scene quadruped batch after ROBOT_CHECK_STEPS steps
+    (with its params), which phases 7 and 8 reuse."""
     from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
     from rapier_tpu_torch.dynamics.solver.contact_constraints import SolverBodies
 
@@ -646,11 +731,13 @@ def phase_folded_kernel(device, card):
     cs.KERNEL.launches, cs.KERNEL.launches_folded = counts
     return dict(max_abs_err=err, ms=launch_ms, plain_ms=plain_ms, bound_ms=bound[0],
                 bound_by=bound[1], **_summary("contact_sweep_folded_kernel", launch_ms,
-                                              bound, res, card), **storage)
+                                              bound, res, card), **storage), (state, params)
 
 
 def phase_main_path(device, card):
-    """Phase 4: 4096 bench scenes through the port's step."""
+    """Phase 4: 4096 bench scenes through the port's step.  Returns the
+    kernel's launches, the rate, the stages and the batch after the timed
+    run (with its params), which phases 7 and 8 reuse."""
     import torch
     from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
 
@@ -692,17 +779,18 @@ def phase_main_path(device, card):
     print(f"settled heights: min {float(y.min()):.4f}, max {float(y.max()):.4f}; "
           f"sleeping {int(b.sleeping.sum())} of {N_SCENES * 100}")
     stages = _stages(f"bench step, {N_SCENES} scenes", state, params, card)
-    return launches, rate, stages
+    return launches, rate, stages, (state, params)
 
 
 def _stages(what, state, params, card, trace_steps: int = 3):
     """Print and return the per-stage breakdown of one step from `state`
-    and its profiler trace (kernels a step, device-busy share)."""
+    and its profiler trace (kernels a step, device-busy share), each over
+    `trace_steps` steps (the trace after the stage timers' warm-up step)."""
     from rapier_tpu_torch.utils import counters
 
     t0 = time.time()
-    t = counters.profile_step(state, params).as_dict()
-    tr = counters.trace_step(state, params, steps=trace_steps)
+    t = counters.profile_step(state, params, iters=trace_steps).as_dict()
+    tr = counters.trace_step(state, params, steps=trace_steps, warm=False)
     took = time.time() - t0
     share = "not measured" if tr["device_share"] is None else f"{tr['device_share']:.1%}"
     device_ms = "not measured" if tr["device_ms"] is None else f"{tr['device_ms']:.3f} ms"
@@ -803,7 +891,7 @@ def phase_pyramid(device, card, stacks):
                 _fail(f"stack {stack}: non-finite bodies.{name}")
         top, rest, start = float(b.pos[0, boxes, 1]), 2 * stack - 1, (stack - 1) * 2.5 + 1.0
         top_vy = float(b.linvel[0, boxes, 1])
-        at_rest = abs(top - rest) <= PYRAMID_TOP_TOL
+        at_rest = abs(top - rest) <= PYRAMID_TOP_TOL and abs(top_vy) < PYRAMID_REST_VY
         print(f"pyramid stack {stack}: {rate:.3f} steps/s ({PYRAMID_TIMED} steps in "
               f"{elapsed:.3f} s after {PYRAMID_SETTLE} in {settle_s:.1f} s; {card}); overflow "
               f"{worst}; contact-sweep "
@@ -818,7 +906,8 @@ def phase_pyramid(device, card, stacks):
         print(f"pyramid stack {stack}: the reference's blocked layout would drop {ref_dropped} "
               f"of the {lanes} solver lanes on the next step; this one drops none (R7)")
         if stack in PYRAMID_STACKS and not at_rest:
-            _fail(f"pyramid stack {stack}: the top box is at {top}, not at rest ({rest})")
+            _fail(f"pyramid stack {stack}: the top box is at {top} moving at {top_vy} m/s, "
+                  f"not at rest ({rest})")
         if not top > rest - PYRAMID_TOP_TOL:
             _fail(f"pyramid stack {stack}: the top box is at {top}: the stack does not stand")
         row = dict(stack=stack, boxes=boxes, steps_per_s=rate, top_y=top, top_vy=top_vy,
@@ -916,6 +1005,7 @@ def _multibody_phase_ms(state, params, step_ms, card):
 def _cpu_agreement(what, state, params, settle):
     from rapier_tpu_torch.types import tree_map
 
+    t0 = time.time()
     state, _ = run(state, params, settle)          # bodies in contact
     cpu = tree_map(lambda x: x.cpu(), state)
     gpu, _ = run(state, params, 10)
@@ -932,7 +1022,8 @@ def _cpu_agreement(what, state, params, settle):
         ok = ok and di <= CPU_TOL["imp"] * scale
     print(f"GPU vs CPU path, {state.bodies.pos.shape[0]} {what} scene(s) x 10 "
           f"steps: max |d pos| {dp:.3e} "
-          f"(tol {CPU_TOL['pos']}), max |d linvel| {dv:.3e} (tol {CPU_TOL['vel']}){joints}")
+          f"(tol {CPU_TOL['pos']}), max |d linvel| {dv:.3e} (tol {CPU_TOL['vel']}){joints} "
+          f"[{time.time() - t0:.1f} s]")
     if not ok:
         _fail(f"GPU path disagrees with the CPU path ({what})")
 
@@ -972,6 +1063,7 @@ def _cpu_step_agreement(what, state, params, steps: int = 10, witness: str = "fr
 
     imp = ("impulse", "tangent_impulse", "warmstart_impulse",
            "warmstart_tangent_impulse", "warmstart_twist_impulse")
+    t0 = time.time()
     gpu, dp, dv, di, scale, flips = state, 0.0, 0.0, 0.0, 1.0, 0
     wit = dict(pos=0.0, vel=0.0, imp=0.0)
     free = tree_map(lambda x: x.cpu(), state)
@@ -1016,27 +1108,42 @@ def _cpu_step_agreement(what, state, params, steps: int = 10, witness: str = "fr
           f"{dp:.3e} (tol {tol_p:.3e}), max |d vel| {dv:.3e} (tol {tol_v:.3e}), "
           f"max |d impulse| {di:.3e} (tol {tol_i:.3e}; {CPU_TOL['imp']} x {scale:.3f}, the "
           f"largest impulse), pair keys and touching flags differing in {flips} "
-          f"lanes{free_runs}")
+          f"lanes{free_runs} [{time.time() - t0:.1f} s]")
     if not (dp <= tol_p and dv <= tol_v and di <= tol_i and flips == 0):
         _fail(f"GPU step disagrees with the CPU step ({what})")
 
 
-def phase_cpu_agreement(device, pyramid, s2d_big):
-    """Phase 7: the card's path against the CPU (plain) path; `pyramid`
-    holds the stack-16 pyramid after PYRAMID_CPU_SETTLE steps on the card
-    ("landing") and after phase 6's timed run ("settled"), `s2d_big` the
-    2D pyramid (with its params) after phase 10's timed run."""
+def _first(batch, n: int):
+    """The first `n` scenes of a (state, params) capture, copied."""
+    from rapier_tpu_torch.types import tree_map
+
+    state, params = batch
+    return tree_map(lambda x: x[:n].clone(), state), params
+
+
+def phase_cpu_agreement(device, captures):
+    """Phase 7: the card's path against the CPU (plain) path.  `captures`
+    holds batches (with their params) that earlier phases ran on the card:
+    "bench" after phase 4's timed run, "quadruped" phase 3's capture after
+    ROBOT_CHECK_STEPS steps, "pyramid" the stack-16 pyramid after
+    PYRAMID_CPU_SETTLE steps ("landing") and after phase 6's timed run
+    ("settled"), "s2d_big" the 2D pyramid after phase 10's timed run,
+    "heightfield3" and "primitives3" phases 11's and 12's captures after
+    HF_CHECK_STEPS and P3_CHECK_STEPS steps, "joints3" N_CHECK scenes of
+    phase 9's batch after its timed run (all in contact)."""
     from rapier_tpu_torch.scenes import (
-        heightfield3_world,
         s2d_coulomb_stack_world,
         s2d_high_mass_ratio_world,
         s2d_pyramid_world,
         trimesh3_world,
     )
 
-    _cpu_agreement("bench", *bench_world(device, 2), 100)
-    _cpu_agreement("quadruped", *quadruped_batch(device, 2, seed=3), ROBOT_CHECK_STEPS)
-    _cpu_agreement("joints3", *joints3_batch(device, 2)[:2], JOINT_CPU_SETTLE)
+    pyramid = captures["pyramid"]
+    _cpu_agreement(f"bench (after {SETTLE + TIMED} steps)", *_first(captures["bench"], 2), 0)
+    _cpu_agreement(f"quadruped (after {ROBOT_CHECK_STEPS} steps)",
+                   *_first(captures["quadruped"], 2), 0)
+    _cpu_agreement(f"joints3 (after {JOINT_SETTLE['joints3'] + JOINT_TIMED} steps)",
+                   *_first(captures["joints3"], 2), 0)
     _cpu_agreement("impulse-joint quadruped", *impulse_quadruped_batch(device, 2, seed=3),
                    ROBOT_CHECK_STEPS)
     for name, steps in (("landing", PYRAMID_CPU_SETTLE),
@@ -1053,24 +1160,34 @@ def phase_cpu_agreement(device, pyramid, s2d_big):
         state, params, _ = s2d_batch(device, make, 2)
         state, _ = run(state, params, S2D_CPU_SETTLE)
         _cpu_step_agreement(f"2 scenes of the {name} after {S2D_CPU_SETTLE} steps", state,
-                            params, witness=witness)
+                            params, steps=S2D_CPU_STEPS, witness=witness)
     _cpu_step_agreement(f"the base-{S2D_BIG_BASE} 2D pyramid after "
-                        f"{S2D_BIG_SETTLE + S2D_BIG_TIMED} steps", *s2d_big, steps=2,
-                        witness="step")
+                        f"{S2D_BIG_SETTLE + S2D_BIG_TIMED} steps", *captures["s2d_big"],
+                        steps=1, witness="step")
     # The meshes: heightfield3 in contact, single steps from the card's
     # state; trimesh3's ball on the valley floor.
-    for make, settle, steps in ((heightfield3_world, HF_CHECK_STEPS, HF_CPU_STEPS),
-                                (trimesh3_world, TRIMESH_SETTLE, 10)):
-        state, params, _ = mesh_batch(device, make, 2)
-        state, _ = run(state, params, settle)
-        _cpu_step_agreement(f"2 {make.__name__[:-6]} scenes after {settle} steps", state,
-                            params, steps=steps, witness=None)
+    _cpu_step_agreement(f"2 heightfield3 scenes after {HF_CHECK_STEPS} steps",
+                        *_first(captures["heightfield3"], 2), steps=HF_CPU_STEPS, witness=None)
+    state, params, _ = mesh_batch(device, trimesh3_world, 2)
+    state, _ = run(state, params, TRIMESH_SETTLE)
+    _cpu_step_agreement(f"2 trimesh3 scenes after {TRIMESH_SETTLE} steps", state, params,
+                        steps=10, witness=None)
+    # The convex shapes: 2 scenes of phase 12's primitives3 batch in
+    # contact and 2 convex zoo scenes, single steps from the card's state.
+    _cpu_step_agreement(f"2 primitives3 scenes after {P3_CHECK_STEPS} steps",
+                        *_first(captures["primitives3"], 2), steps=P3_CPU_STEPS,
+                        witness=None)
+    state, params, _ = zoo_batch(device, 2)
+    state, _ = run(state, params, ZOO_SETTLE)
+    _cpu_step_agreement(f"2 convex zoo scenes after {ZOO_SETTLE} steps", state, params,
+                        steps=P3_CPU_STEPS, witness=None)
 
 
 def _rerun_equal(what, state, params, parts, steps: int = 10):
     import torch
     from rapier_tpu_torch.types import tree_map
 
+    t0 = time.time()
     a, _ = run(tree_map(lambda x: x.clone(), state), params, steps)
     b, _ = run(tree_map(lambda x: x.clone(), state), params, steps)
     for part in parts:
@@ -1078,36 +1195,27 @@ def _rerun_equal(what, state, params, parts, steps: int = 10):
         for f in dataclasses.fields(pa):
             if not torch.equal(getattr(pa, f.name), getattr(pb, f.name)):
                 _fail(f"{what} rerun differs in {part}.{f.name}")
-    print(f"determinism: two {steps}-step reruns of the {what} batch are bitwise equal")
+    print(f"determinism: two {steps}-step reruns of the {what} batch are bitwise equal "
+          f"[{time.time() - t0:.1f} s]")
 
 
-def phase_determinism(device, pyramid):
-    """Phase 8: bitwise reruns."""
-    from rapier_tpu_torch.scenes import (
-        heightfield3_world,
-        s2d_coulomb_stack_world,
-        s2d_pyramid_world,
-    )
+def phase_determinism(device, captures):
+    """Phase 8: bitwise reruns, from phase 7's `captures` where an earlier
+    phase left a batch in contact."""
+    from rapier_tpu_torch.scenes import s2d_coulomb_stack_world, s2d_pyramid_world
 
-    state, params = bench_world(device, 64)
-    state, _ = run(state, params, 60)
-    _rerun_equal("bench", state, params, ("bodies", "contacts"))
-    state, params = quadruped_batch(device, N_CHECK, seed=5)
-    state, _ = run(state, params, ROBOT_CHECK_STEPS)
-    _rerun_equal("quadruped", state, params, ("bodies", "contacts", "multibodies"))
-    _rerun_equal("stack-16 pyramid", *pyramid["landing"], ("bodies", "contacts"),
+    _rerun_equal("bench", *_first(captures["bench"], 64), ("bodies", "contacts"))
+    _rerun_equal("quadruped", *captures["quadruped"], ("bodies", "contacts", "multibodies"))
+    _rerun_equal("stack-16 pyramid", *captures["pyramid"]["landing"], ("bodies", "contacts"),
                  PYRAMID_CPU_STEPS)
-    state, params, _ = joints3_batch(device, N_CHECK)
-    state, _ = run(state, params, JOINT_CPU_SETTLE)
-    _rerun_equal("joints3", state, params, ("bodies", "contacts", "joints"))
+    _rerun_equal("joints3", *captures["joints3"], ("bodies", "contacts", "joints"))
     for name, make in (("2D pyramid", s2d_pyramid_world),
                        ("Coulomb stack", s2d_coulomb_stack_world)):
         state, params, _ = s2d_batch(device, make, N_CHECK)
         state, _ = run(state, params, S2D_CPU_SETTLE)
         _rerun_equal(name, state, params, ("bodies", "contacts"), S2D_RERUN)
-    state, params, _ = mesh_batch(device, heightfield3_world, N_CHECK)
-    state, _ = run(state, params, HF_CHECK_STEPS)
-    _rerun_equal("heightfield3", state, params, ("bodies", "contacts"))
+    _rerun_equal("heightfield3", *captures["heightfield3"], ("bodies", "contacts"))
+    _rerun_equal("primitives3", *captures["primitives3"], ("bodies", "contacts"))
 
 
 def _replicas_equal(what, state, parts):
@@ -1123,7 +1231,9 @@ def _replicas_equal(what, state, parts):
 
 def phase_joints(device, card):
     """Phase 9: 4096 joints3 scenes and 4096 impulse-joint quadrupeds
-    through the port's step, on the masked sweep."""
+    through the port's step, on the masked sweep.  Returns the rows for the
+    JSON record and the joints3 batch after its timed run (with its
+    params), which phases 7 and 8 reuse."""
     import torch
     from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
     from rapier_tpu_torch.pipeline.physics_pipeline import solve_path
@@ -1137,18 +1247,19 @@ def phase_joints(device, card):
         if path != "masked":
             _fail(f"{name} takes the {path} path, not the masked sweep")
         cs.KERNEL.launches = cs.KERNEL.launches_folded = 0
+        settle = JOINT_SETTLE[name]
         t0 = time.time()
-        state, worst = run(state, params, JOINT_SETTLE)
+        state, worst = run(state, params, settle)
         torch.cuda.synchronize()
         settle_s = time.time() - t0
-        # The example's checks, and the trunk height, after its 240 steps.
+        # The example's checks, and the trunk height, after the settle.
         _finite(state)
         b = state.bodies
         if name == "joints3":
             handles = joints3[2]
             tip_y = b.pos[:, handles["chain"][-1], 1]
             slider_y = b.pos[:, handles["slider"], 1]
-            print(f"joints3 after {JOINT_SETTLE} steps: chain tip y {float(tip_y[0]):.4f} "
+            print(f"joints3 after {settle} steps: chain tip y {float(tip_y[0]):.4f} "
                   f"(below 8), slider y {float(slider_y[0]):.4f} (within 0.3 of 7.5), rope "
                   f"tip {b.pos[0, handles['rope'][-1]].tolist()} in scene 0; the checks "
                   f"hold in all {N_SCENES} scenes")
@@ -1157,8 +1268,8 @@ def phase_joints(device, card):
             row = dict(chain_tip_y=float(tip_y[0]), slider_y=float(slider_y[0]))
         else:
             z = float(b.pos[0, TRUNK, 2])
-            print(f"impulse-joint quadruped: trunk height {z:.5f} after {JOINT_SETTLE} "
-                  f"steps (the reference's: {IMPULSE_TRUNK_Z_REF}, R5)")
+            print(f"impulse-joint quadruped: trunk height {z:.5f} after {settle} "
+                  f"steps (the reference's after 240: {IMPULSE_TRUNK_Z_REF}, R5)")
             row = dict(trunk_z=z)
         t0 = time.time()
         state, worst_t = run(state, params, JOINT_TIMED)
@@ -1169,7 +1280,7 @@ def phase_joints(device, card):
             worst[k] = max(worst[k], worst_t[k])
         rate = N_SCENES * JOINT_TIMED / elapsed
         print(f"{name}: {rate:.1f} env-steps/s ({N_SCENES} scenes x {JOINT_TIMED} steps in "
-              f"{elapsed:.3f} s after {JOINT_SETTLE} in {settle_s:.1f} s; {card}); "
+              f"{elapsed:.3f} s after {settle} in {settle_s:.1f} s; {card}); "
               f"{state.joints.n} joints a scene (padded to 8), row slots "
               f"{params.joint_slots}; overflow {worst}; contact-sweep "
               f"launches {launches[0]} + folded {launches[1]} (the masked sweep has none)")
@@ -1180,11 +1291,13 @@ def phase_joints(device, card):
         _finite(state)
         _replicas_equal(name, state, ("bodies", "contacts", "joints"))
         print(f"{name}: all {N_SCENES} scenes bitwise equal to scene 0 after "
-              f"{JOINT_SETTLE + JOINT_TIMED} steps")
+              f"{settle + JOINT_TIMED} steps")
         rows[name] = dict(env_steps_per_s=rate, **row, **worst,
                           **_stages(f"{name} step, {N_SCENES} scenes", state, params, card,
                                     trace_steps=TRACE_STEPS_LONG))
-    return rows
+        if name == "joints3":
+            capture = _first((state, params), N_CHECK)
+    return rows, capture
 
 
 def s2d_batch(device, make, n_scenes: int, **kw):
@@ -1483,31 +1596,28 @@ class _MeshPairs:
         return int(self.over.max())
 
 
-def _heightfield_kernel(device, card):
-    """contact_sweep_kernel at the heightfield's K = 640 lanes: a capture of
-    N_CHECK scenes after HF_CHECK_STEPS steps held to the plain version,
-    then timed at 4096 scenes (the batched path, the reference's
-    `_kernel_fold_gather`) and at one scene (`PhysicsWorld.step`, the
-    reference's `_kernel`), with the valid lanes per scene and the scenes
+def _kernel_on_capture(what, state, params, k_expected: int, card):
+    """contact_sweep_kernel at K = `k_expected` lanes on the solve inputs
+    of the step after `state` (N_CHECK scenes, in contact), held to the
+    plain version, then timed at 4096 scenes (the batched path, the
+    reference's `_kernel_fold_gather`) and at one scene (`PhysicsWorld.step`,
+    the reference's `_kernel`), with the valid lanes per scene and the scenes
     that keep them on chip.  The comparison launches are not counted."""
     from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
     from rapier_tpu_torch.dynamics.solver.contact_constraints import SolverBodies
-    from rapier_tpu_torch.scenes import heightfield3_world
 
-    state, params, _ = mesh_batch(device, heightfield3_world, N_CHECK)
-    state, _ = run(state, params, HF_CHECK_STEPS)
     counts = cs.KERNEL.launches, cs.KERNEL.launches_folded
     inp = capture_solve_inputs(state, params)
     sb = inp.pop("sb")
     k_lanes = inp["b1"].shape[-1]
-    if k_lanes != HF_K:
-        _fail(f"expected K = {HF_K} solver lanes on heightfield3, got {k_lanes}")
+    if k_lanes != k_expected:
+        _fail(f"expected K = {k_expected} solver lanes on {what}, got {k_lanes}")
     launched = cs.KERNEL.launches
     sb_k, imp_k = cs.solve_from_manifolds(sb, **inp)
     if cs.KERNEL.launches != launched + 1:
-        _fail("the heightfield shape did not launch contact_sweep_kernel")
-    err = _compare(f"contact_sweep_kernel at K={HF_K} (heightfield3)", sb, inp, sb_k, imp_k)
-    _resources(f"contact_sweep_kernel (heightfield3)", False, inp, sb, card)
+        _fail(f"the {what} shape did not launch contact_sweep_kernel")
+    err = _compare(f"contact_sweep_kernel at K={k_lanes} ({what})", sb, inp, sb_k, imp_k)
+    _resources(f"contact_sweep_kernel ({what})", False, inp, sb, card)
     out = dict(max_abs_err=err)
     for reps, key in ((N_SCENES // N_CHECK, ""), (0, "one_scene_")):
         sb_t = SolverBodies(*[_scenes(x, reps) for x in sb])
@@ -1516,9 +1626,9 @@ def _heightfield_kernel(device, card):
         ms = _time_ms(lambda: cs.KERNEL.launch(*packed, **kw), 20)
         plain_ms = _time_ms(lambda: cs.solve_plain(sb_t, **inp_t), 3)
         bound = _bound(packed, cs.KERNEL.launch(*packed, **kw), inp_t)
-        storage = _storage(f"contact_sweep_kernel at {sb_t.v_lin.shape[0]} heightfield3 "
+        storage = _storage(f"contact_sweep_kernel at {sb_t.v_lin.shape[0]} {what} "
                            f"scene(s)", False, packed, kw, False)
-        print(f"heightfield3 contact solve at {sb_t.v_lin.shape[0]} scene(s) x K={k_lanes}: "
+        print(f"{what} contact solve at {sb_t.v_lin.shape[0]} scene(s) x K={k_lanes}: "
               f"launch alone {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound[0]:.3g} ms "
               f"({bound[1]}), {bound[0] / ms:.1%} of the bound ({card})")
         out.update({f"{key}ms": ms, f"{key}plain_ms": plain_ms, f"{key}bound_ms": bound[0],
@@ -1528,16 +1638,29 @@ def _heightfield_kernel(device, card):
     return out
 
 
+def _heightfield_kernel(device, card):
+    """contact_sweep_kernel at the heightfield's K = 640 lanes, on a capture
+    of N_CHECK scenes after HF_CHECK_STEPS steps (`_kernel_on_capture`).
+    Returns its numbers and the captured batch (with its params)."""
+    from rapier_tpu_torch.scenes import heightfield3_world
+
+    state, params, _ = mesh_batch(device, heightfield3_world, N_CHECK)
+    state, _ = run(state, params, HF_CHECK_STEPS)
+    return _kernel_on_capture("heightfield3", state, params, HF_K, card), (state, params)
+
+
 def phase_meshes(device, card):
     """Phase 11(a): 4096 heightfield3 scenes through the port's step, on
-    contact_sweep_kernel at K = 640.  Returns (the row for the JSON record,
-    the kernel's numbers at K = 640)."""
+    contact_sweep_kernel at K = 640.  Returns (the kernel's launches in
+    the timed run, the row for the JSON record, the kernel's numbers at
+    K = 640, and the capture's N_CHECK-scene batch after HF_CHECK_STEPS
+    steps with its params, which phases 7 and 8 reuse)."""
     import torch
     from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
     from rapier_tpu_torch.pipeline.physics_pipeline import solve_path
     from rapier_tpu_torch.scenes import heightfield3_world
 
-    kernel = _heightfield_kernel(device, card)
+    kernel, in_contact = _heightfield_kernel(device, card)
     state, params, handles = mesh_batch(device, heightfield3_world, N_SCENES)
     bodies = torch.tensor(handles["bodies"], device=device)
     path = solve_path(state, params)
@@ -1597,7 +1720,7 @@ def phase_meshes(device, card):
                **storage, **worst,
                **_stages(f"heightfield3 step, {N_SCENES} scenes", state, params, card,
                          trace_steps=TRACE_STEPS_LONG))
-    return launches[0], row, kernel
+    return launches[0], row, kernel, in_contact
 
 
 def _field_height(meshes, xz):
@@ -1627,7 +1750,7 @@ def _field_height(meshes, xz):
 
 def phase_heightfield_full(device, card):
     """Phase 11(d), with --heightfield-full: upstream's heightfield3 at its
-    size as one scene (1,280 bodies, max_mesh_pairs 1,280)."""
+    size as one scene (1,280 bodies, max_mesh_pairs 1,664)."""
     import torch
     from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
     from rapier_tpu_torch.pipeline.physics_pipeline import solve_path
@@ -1680,6 +1803,155 @@ def phase_heightfield_full(device, card):
                 mesh_pairs_most=max(pairs.most(), after.most()),
                 bottom_gap_min=float(gap.min()), bottom_gap_max=float(gap.max()), **worst,
                 **_stages("heightfield3 at upstream's size, one step", state, params, card,
+                          trace_steps=TRACE_STEPS_LONG))
+
+
+def primitives3_batch(device, n_scenes: int, layers: int = P3_LAYERS, grid: int = P3_GRID):
+    """`scenes.primitives3_world(layers, grid)` at the bench's max_pairs and
+    max_solver_pairs, replicated to `n_scenes` on `device`: (state, params,
+    handles)."""
+    from rapier_tpu_torch.scenes import primitives3_world, replicate_scene
+    from rapier_tpu_torch.types import from_numpy
+
+    world, handles = primitives3_world(layers, grid, max_pairs=P3_MAX_PAIRS, device=device)
+    world.params = world.params.replace(max_solver_pairs=P3_K)
+    return replicate_scene(from_numpy(world.build(), device), n_scenes), world.params, handles
+
+
+def zoo_batch(device, n_scenes: int):
+    """`scenes.convex_zoo_world` replicated to `n_scenes` on `device`."""
+    from rapier_tpu_torch.scenes import convex_zoo_world, replicate_scene
+    from rapier_tpu_torch.types import from_numpy
+
+    world, handles = convex_zoo_world(device=device)
+    return replicate_scene(from_numpy(world.build(), device), n_scenes), world.params, handles
+
+
+def _p3_heights(what, state, bodies, y0):
+    """Fail unless every body lies above the ground's top and below its drop
+    height, in every scene."""
+    y = state.bodies.pos[:, bodies, 1]
+    ok = bool(((y > 0.0) & (y < y0)).all())
+    print(f"{what}: heights in scene 0 min {float(y[0].min()):.4f}, max "
+          f"{float(y[0].max()):.4f}; every body above the ground and below its drop height "
+          f"in all {y.shape[0]} scenes: {ok}")
+    if not ok:
+        _fail(f"{what}: a body left the space between the ground and its drop height")
+
+
+def phase_convex(device, card):
+    """Phase 12(a), (b): 4096 primitives3 scenes (round cylinders and cones
+    on the GJK/EPA fallback) through the port's step, on contact_sweep_kernel
+    at K = 256.  Returns (the kernel's launches in the timed run, the row for
+    the JSON record, the kernel's numbers at this capture, and the capture's
+    N_CHECK-scene batch after P3_CHECK_STEPS steps with its params, which
+    phases 7 and 8 reuse)."""
+    import torch
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.pipeline.physics_pipeline import solve_path
+
+    t_phase = time.time()
+    state, params, handles = primitives3_batch(device, N_CHECK)
+    state, _ = run(state, params, P3_CHECK_STEPS)
+    kernel = _kernel_on_capture("primitives3", state, params, P3_K, card)
+    in_contact = (state, params)
+
+    state, params, handles = primitives3_batch(device, N_SCENES)
+    bodies = torch.tensor(handles["bodies"], device=device)
+    y0 = state.bodies.pos[0, bodies, 1].clone()
+    path = solve_path(state, params)
+    print(f"primitives3: {len(handles['bodies'])} bodies ({P3_LAYERS} layers of {P3_GRID} x "
+          f"{P3_GRID}), P={state.contacts.max_pairs}, K={P3_K}, "
+          f"N+1={state.bodies.pos.shape[1] + 1}, census {params.shape_types_present}, "
+          f"solve path {path}")
+    if path != "kernel":
+        _fail(f"primitives3 takes the {path} path, not the contact kernel")
+    t0 = time.time()
+    state, worst = run(state, params, P3_SETTLE)
+    torch.cuda.synchronize()
+    settle_s = time.time() - t0
+    _finite(state)
+    _p3_heights(f"primitives3 after {P3_SETTLE} steps ({settle_s:.1f} s)", state, bodies, y0)
+    speed = float(torch.linalg.norm(state.bodies.linvel[:, bodies], dim=-1).max())
+    print(f"primitives3 after {P3_SETTLE} steps: fastest body {speed:.4f} m/s in any scene "
+          f"(bound {P3_SPEED_BOUND}: twice the reference's {P3_REF_SPEED} on the CPU)")
+    if not speed <= P3_SPEED_BOUND:
+        _fail(f"primitives3: a body moves at {speed} m/s after {P3_SETTLE} steps")
+    torch.cuda.reset_peak_memory_stats()
+    cs.KERNEL.launches = cs.KERNEL.launches_folded = 0
+    t0 = time.time()
+    state, worst_t = run(state, params, P3_TIMED)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    launches = cs.KERNEL.launches, cs.KERNEL.launches_folded
+    peak = torch.cuda.max_memory_allocated()
+    for k in worst:
+        worst[k] = max(worst[k], worst_t[k])
+    rate = N_SCENES * P3_TIMED / elapsed
+    print(f"primitives3: {rate:.1f} env-steps/s ({N_SCENES} scenes x {P3_TIMED} steps in "
+          f"{elapsed:.3f} s; {card}); peak device memory in the timed steps "
+          f"{peak / 2**30:.3f} GiB; overflow and unsupported pairs {worst}; launches in the "
+          f"timed run: contact_sweep_kernel {launches[0]}, folded {launches[1]}")
+    if any(worst.values()):
+        _fail(f"primitives3 overflows or drops pairs: {worst}")
+    if launches != (P3_TIMED, 0):
+        _fail(f"expected {P3_TIMED} contact_sweep_kernel launches and no folded one, "
+              f"counted {launches[0]} and {launches[1]}")
+    _finite(state)
+    _p3_heights(f"primitives3 after {P3_SETTLE + P3_TIMED} steps", state, bodies, y0)
+    _replicas_equal("primitives3", state, ("bodies", "contacts"))
+    print(f"primitives3: all {N_SCENES} scenes bitwise equal to scene 0 after "
+          f"{P3_SETTLE + P3_TIMED} steps")
+    storage = _next_step_storage("primitives3, the step after the timed run", state, params,
+                                 False, must_fit=False)
+    row = dict(env_steps_per_s=rate, peak_memory_bytes=peak, fastest_body=speed,
+               **storage, **worst,
+               **_stages(f"primitives3 step, {N_SCENES} scenes", state, params, card,
+                         trace_steps=TRACE_STEPS_LONG))
+    print(f"[phase 12 (a), (b): {time.time() - t_phase:.1f} s]")
+    return launches[0], row, kernel, in_contact
+
+
+def phase_primitives_full(device, card):
+    """Phase 12(d), with --primitives-full: upstream's primitives3 at its
+    size (20 layers of 8 x 8, 1,280 bodies) as one scene, on the path the
+    reference's gate picks."""
+    import torch
+    from rapier_tpu_torch.pipeline.physics_pipeline import solve_path
+    from rapier_tpu_torch.scenes import primitives3_world, replicate_scene
+    from rapier_tpu_torch.types import from_numpy
+
+    world, handles = primitives3_world(20, 8, device=device)
+    state = replicate_scene(from_numpy(world.build(), device), 1)
+    params = world.params
+    bodies = torch.tensor(handles["bodies"], device=device)
+    path = solve_path(state, params)
+    print(f"primitives3 at upstream's size: {len(handles['bodies'])} bodies, "
+          f"P={state.contacts.max_pairs}, N+1={state.bodies.pos.shape[1] + 1}, solve path "
+          f"{path}")
+    t0 = time.time()
+    state, worst = run(state, params, P3_FULL_SETTLE)
+    torch.cuda.synchronize()
+    settle_s = time.time() - t0
+    t0 = time.time()
+    state, worst_t = run(state, params, P3_FULL_TIMED)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    for k in worst:
+        worst[k] = max(worst[k], worst_t[k])
+    rate = P3_FULL_TIMED / elapsed
+    _finite(state)
+    y = state.bodies.pos[0, bodies, 1]
+    print(f"primitives3 at upstream's size: {rate:.3f} steps/s ({P3_FULL_TIMED} steps in "
+          f"{elapsed:.3f} s after {P3_FULL_SETTLE} in {settle_s:.1f} s; {card}); overflow "
+          f"and unsupported pairs {worst}; heights min {float(y.min()):.4f}, max "
+          f"{float(y.max()):.4f}")
+    if worst["broadphase_overflow"] or worst["solver_overflow"]:
+        _fail(f"primitives3 at upstream's size overflows: {worst}")
+    if not bool((y > 0.0).all()):
+        _fail("primitives3 at upstream's size: a body fell below the ground")
+    return dict(bodies=len(handles["bodies"]), path=path, steps_per_s=rate, **worst,
+                **_stages("primitives3 at upstream's size, one step", state, params, card,
                           trace_steps=TRACE_STEPS_LONG))
 
 
@@ -1834,6 +2106,12 @@ def main():
     ap.add_argument("--meshes-only", action="store_true",
                     help="run the build and phase 11(a) (with (d) under "
                          "--heightfield-full) only")
+    ap.add_argument("--primitives-full", action="store_true",
+                    help="also run phase 12(d): upstream's primitives3 at its size, one "
+                         "scene of 1,280 bodies")
+    ap.add_argument("--convex-only", action="store_true",
+                    help="run the build and phase 12(a), (b) (with (d) under "
+                         "--primitives-full) only")
     args = ap.parse_args()
     try:
         import torch
@@ -1876,34 +2154,48 @@ def main():
                           "card": card}))
         return
     if args.meshes_only:
-        rows = {"heightfield3": phase(phase_meshes, device, card)[1:]}
+        rows = {"heightfield3": phase(phase_meshes, device, card)[1:3]}
         if args.heightfield_full:
             rows["heightfield3_full"] = phase(phase_heightfield_full, device, card)
         print(json.dumps({"meshes": rows, "card": card}))
         return
+    if args.convex_only:
+        rows = {"primitives3": phase(phase_convex, device, card)[:3]}
+        if args.primitives_full:
+            rows["primitives3_full"] = phase(phase_primitives_full, device, card)
+        print(json.dumps({"convex": rows, "card": card}))
+        return
 
     block = phase(phase_kernel, device, card)
-    folded = phase(phase_folded_kernel, device, card)
-    block["launches"], _, bench_stages = phase(phase_main_path, device, card)
+    folded, quadrupeds = phase(phase_folded_kernel, device, card)
+    block["launches"], _, bench_stages, bench = phase(phase_main_path, device, card)
     folded["launches"], _ = phase(phase_robots, device, card)
     stacks = tuple(sorted(set(PYRAMID_STACKS) | set(args.pyramid)))
     pyramids, pyramid16 = phase(phase_pyramid, device, card, stacks)
     s2d, s2d_big = phase(phase_2d, device, card)
-    hf_launches, meshes, hf_kernel = phase(phase_meshes, device, card)
+    hf_launches, meshes, hf_kernel, hf_in_contact = phase(phase_meshes, device, card)
     meshes = {"heightfield3": meshes}
     if args.heightfield_full:
         meshes["heightfield3_full"] = phase(phase_heightfield_full, device, card)
-    phase(phase_cpu_agreement, device, pyramid16, s2d_big)
-    phase(phase_determinism, device, pyramid16)
-    joints = phase(phase_joints, device, card)
+    p3_launches, convex, p3_kernel, p3_in_contact = phase(phase_convex, device, card)
+    convex = {"primitives3": convex}
+    if args.primitives_full:
+        convex["primitives3_full"] = phase(phase_primitives_full, device, card)
+    joints, joints3 = phase(phase_joints, device, card)
+    captures = dict(bench=bench, quadruped=quadrupeds, pyramid=pyramid16, s2d_big=s2d_big,
+                    heightfield3=hf_in_contact, primitives3=p3_in_contact, joints3=joints3)
+    phase(phase_cpu_agreement, device, captures)
+    phase(phase_determinism, device, captures)
     print(f"[all phases, the build included: {time.time() - start:.1f} s of the 1,200 allowed]")
 
     print(json.dumps({"pyramid": pyramids, "s2d": s2d, "bench_step": bench_stages,
-                      "joints": joints, "meshes": meshes, "card": card}))
+                      "joints": joints, "meshes": meshes, "convex": convex, "card": card}))
     # Each path's launches, its counts set to 0 just before it and read just
     # after; `launches` is the bench's, the contract's main path.
-    block["launches_by_path"] = {"bench": block["launches"], "heightfield3": hf_launches}
+    block["launches_by_path"] = {"bench": block["launches"], "heightfield3": hf_launches,
+                                 "primitives3": p3_launches}
     block["heightfield3_k640"] = hf_kernel
+    block["primitives3_k256"] = p3_kernel
     folded["launches_by_path"] = {"robots": folded["launches"]}
     source = "rapier_tpu_torch/csrc/contact_sweep.cu"
     print(json.dumps({"kernels": [

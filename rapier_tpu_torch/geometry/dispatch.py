@@ -7,12 +7,19 @@ box-box kernel runs on a per-type index bucket whose width is the
 reference's census-derived cap; lanes beyond the cap are dropped and counted
 in `unsupported` exactly as the reference does.
 
-Ported pair kernels: ball-ball, ball-cuboid, ball-capsule, capsule-capsule,
-cuboid-capsule and cuboid-cuboid, and ball, capsule and cuboid against a
-halfspace (always put in slot B).  Pairs with a trimesh or heightfield leave
-this path: `compute_mesh_manifolds` expands each (convex, mesh) pair into
-per-triangle sub-lanes, and `concat_manifolds` appends them to the pair
-lanes.  Any other shape type in the scene census raises NotImplementedError.
+Pair kernels: ball-ball, ball-cuboid, ball-capsule, capsule-capsule,
+cuboid-capsule and cuboid-cuboid analytic; every other pair of convex shapes
+(a cylinder, cone, segment, round shape or hull on either side) takes the
+generic GJK/EPA kernel `narrowphase_convex.convex_convex`, on the lanes that
+reach it only (gathered by index, their manifolds scattered back; the
+reference runs it on a census-capped bucket, and the port drops and counts
+the same lanes past that cap).  Against a halfspace (always put in slot B):
+the analytic ball and capsule kernels, the support-sampling kernel for the
+other convex shapes.  Pairs with a trimesh or heightfield leave this path:
+`compute_mesh_manifolds` expands each (convex, mesh) pair into per-triangle
+sub-lanes, and `concat_manifolds` appends them to the pair lanes.  A pair
+with no kernel (a triangle collider) is counted in `unsupported`, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -22,12 +29,14 @@ from typing import NamedTuple
 import torch
 
 from rapier_tpu_torch.geometry import narrowphase as nph
+from rapier_tpu_torch.geometry import narrowphase_convex as npc
 from rapier_tpu_torch.geometry import narrowphase_mesh as npm
 from rapier_tpu_torch.geometry import shapes
 from rapier_tpu_torch.geometry.narrowphase_boxbox import cuboid_cuboid_cl
 from rapier_tpu_torch.math import quat
 from rapier_tpu_torch.types import BodyType, CoefficientCombineRule, ShapeType
 from rapier_tpu_torch.utils.compaction import compact_indices
+from rapier_tpu_torch.utils.counters import stage
 
 
 class ManifoldBatch(NamedTuple):
@@ -111,13 +120,10 @@ _PAIR_KERNELS = {
     (ShapeType.CUBOID, ShapeType.CAPSULE): nph.swapped(nph.capsule_cuboid),
     (ShapeType.CUBOID, ShapeType.CUBOID): cuboid_cuboid_cl,
 }
-_PORTED_TYPES = {int(ShapeType.BALL), int(ShapeType.CUBOID), int(ShapeType.CAPSULE),
-                 int(ShapeType.HALFSPACE), int(ShapeType.TRIMESH),
-                 int(ShapeType.HEIGHTFIELD)}
-# Shape types the generic convex-halfspace kernel covers in the port (the
-# reference's _HALFSPACE_CONVEX less ball and capsule, which have analytic
-# kernels, and less the types the port does not carry).
-_HALFSPACE_GENERIC = (ShapeType.CUBOID,)
+# Shape types the generic convex-halfspace kernel covers (the reference's
+# _HALFSPACE_CONVEX less ball and capsule, which have analytic kernels).
+_HALFSPACE_GENERIC = tuple(t for t in npc.SUPPORTED
+                           if t not in (ShapeType.BALL, ShapeType.CAPSULE))
 _BUCKETED = cuboid_cuboid_cl
 _BUCKET_PAIR_FACTOR = 8
 
@@ -136,6 +142,8 @@ def bucket_cap(ta, tb, counts, p):
 
 
 def _census(present):
+    """{shape type: colliders} from SimParams.shape_types_present ((type,
+    count) pairs, or plain types of unknown count); None when empty."""
     if not present:
         return None
     counts = {}
@@ -144,12 +152,76 @@ def _census(present):
             counts[int(entry[0])] = int(entry[1])
         else:
             counts[int(entry)] = 1 << 30
-    missing = set(counts) - _PORTED_TYPES
-    if missing:
-        names = ", ".join(ShapeType(t).name for t in sorted(missing))
-        raise NotImplementedError(f"narrow phase for {names} is not ported (the generic "
-                                  "convex shapes: ROADMAP queue 1, item 3)")
     return counts
+
+
+def _any_type(t, types):
+    m = torch.zeros_like(t, dtype=torch.bool)
+    for ty in types:
+        m = m | (t == int(ty))
+    return m
+
+
+def _generic_cap(counts, pair_possible, p):
+    """(need_cc, cap_cc): whether some present convex pair lacks an analytic
+    kernel, and the reference's census-derived width of the GJK/EPA bucket
+    (dispatch.py:422-459): 8 pair slots per collider of a type that meets
+    such a pair, rounded up to 64, at least 64; the full width when unknown
+    or when that is more than half of it."""
+    if counts is None:
+        return True, p
+    pres = [int(t) for t in npc.SUPPORTED if int(t) in counts]
+
+    def generic(a, b):
+        return ((ShapeType(min(a, b)), ShapeType(max(a, b))) not in _PAIR_KERNELS
+                and pair_possible(a, b))
+
+    if not any(generic(a, b) for a in pres for b in pres):
+        return False, p
+    est = sum(counts.get(t, 0) for t in pres if any(generic(t, o) for o in pres))
+    cap = min(p, max(64, -(-est * _BUCKET_PAIR_FACTOR // 64) * 64))
+    return True, (p if cap * 2 > p else cap)
+
+
+def _hull_index(t, prm):
+    """A CONVEX lane's row of the hull table (shape_params[0]); 0 for the
+    other lanes (unused)."""
+    return torch.where(t == ShapeType.CONVEX, prm[..., 0, :].long(), 0)
+
+
+def _convex_lanes(run, pA, rA, tA, prmA, pB, rB, tB, prmB, hull_vertices=None, types=None):
+    """convex_convex on the lanes of `run` ``[B, P]`` only, gathered by
+    index from the lane-last fields (`hull_vertices`: the scene's hull table
+    ``[B, H, V, 3]``, or None; `types` the census's shape types, None for
+    all).  Returns a lane-last Manifold with the reference's defaults on the
+    other lanes (normal +Y, dist 1e10, fid -1, invalid)."""
+    b, p = run.shape
+    dev = run.device
+    normal = torch.zeros((b, 3, p), device=dev)
+    normal[:, 1] = 1.0
+    point = torch.zeros((b, 4, 3, p), device=dev)
+    dist = torch.full((b, 4, p), 1e10, device=dev)
+    fid = torch.full((b, 4, p), -1, dtype=torch.int32, device=dev)
+    valid = torch.zeros((b, 4, p), dtype=torch.bool, device=dev)
+    bi, li = torch.nonzero(run, as_tuple=True)
+    if bi.numel():
+        def rows(x):
+            return x[bi, ..., li] if x.dim() > 2 else x[bi, li]
+
+        def hull(t, prm):
+            if hull_vertices is None:
+                return None
+            return hull_vertices[bi, _hull_index(t, prm)[bi, li]]
+
+        man = npc.convex_convex(rows(pA), rows(rA), rows(tA), rows(prmA),
+                                rows(pB), rows(rB), rows(tB), rows(prmB),
+                                hull(tA, prmA), hull(tB, prmB), types)
+        normal[bi, :, li] = man.normal
+        point[bi, :, :, li] = man.point
+        dist[bi, :, li] = man.dist
+        fid[bi, :, li] = man.fid
+        valid[bi, :, li] = man.valid
+    return nph.Manifold(normal=normal, point=point, dist=dist, fid=fid, valid=valid)
 
 
 def _order_rank(t):
@@ -201,12 +273,14 @@ def _soft_ccd_cols(soft, v, dt):
 
 
 def compute_manifolds(bodies, colliders, c1, c2, pair_valid, prediction,
-                      present: tuple = (), dt=None):
+                      present: tuple = (), hulls=None, dt=None):
     """Contact manifolds for the ``[B, P]`` pair buffer (c1 < c2, -1 empty).
 
     `present` is the static shape-type census (SimParams.shape_types_present):
-    kernels whose pair types cannot occur are skipped, and the box-box bucket
-    width derives from it.  Empty = unknown: every ported kernel runs."""
+    kernels whose pair types cannot occur are skipped, and the box-box and
+    GJK/EPA bucket widths derive from it.  Empty = unknown: every kernel
+    runs.  `hulls` is the scene's `ConvexHulls` table (batched ``[B, H, V,
+    3]``), needed when a CONVEX collider is present."""
     counts = _census(present)
 
     def has(t):
@@ -276,6 +350,9 @@ def compute_manifolds(bodies, colliders, c1, c2, pair_valid, prediction,
     tB = torch.where(flip, T1["type"], T2["type"])
     args = (pA, rA, prmA, pB, rB, prmB)
 
+    hull_vertices = (hulls.vertices if hulls is not None and has(ShapeType.CONVEX)
+                     else None)
+
     dev = c1.device
     normal = torch.zeros((b, 3, p), device=dev)
     normal[:, 1] = 1.0
@@ -308,6 +385,25 @@ def compute_manifolds(bodies, colliders, c1, c2, pair_valid, prediction,
             man = kern(*args)
         merge(mask, man)
 
+    # The generic convex-convex fallback (reference dispatch.py:422-481):
+    # the convex pairs no analytic kernel matched.  Lanes past the census
+    # cap are dropped and counted, as the reference's bucket drops them;
+    # GJK/EPA runs on the others only.
+    need_cc, cap_cc = _generic_cap(counts, pair_possible, p)
+    if need_cc:
+        with stage("gjk_epa"):
+            cc_mask = (pair_valid & ~matched & _any_type(tA, npc.SUPPORTED)
+                       & _any_type(tB, npc.SUPPORTED))
+            run = cc_mask
+            if cap_cc < p:
+                rank = torch.cumsum(cc_mask.to(torch.int32), dim=-1)
+                run = cc_mask & (rank <= cap_cc)
+                bucket_dropped = bucket_dropped + torch.clamp(
+                    rank[:, -1] - cap_cc, min=0).to(torch.int32)
+            merge(cc_mask, _convex_lanes(run, pA, rA, tA, prmA, pB, rB, tB, prmB,
+                                         hull_vertices,
+                                         None if counts is None else set(counts)))
+
     # Halfspace bucket (reference dispatch.py:485-510): analytic ball and
     # capsule kernels, the support-sampling kernel for the other convex
     # types.
@@ -322,8 +418,11 @@ def compute_manifolds(bodies, colliders, c1, c2, pair_valid, prediction,
             conv_ok = torch.zeros_like(hs_mask)
             for t in hs_generic:
                 conv_ok = conv_ok | (tA == t)
+            hull_rows = (None if hull_vertices is None
+                         else _rows(hull_vertices, _hull_index(tA, prmA)))   # [B, P, V, 3]
             merge(hs_mask & conv_ok,
-                  nph.convex_halfspace(pA, rA, tA, prmA, pB, rB, prmB))
+                  nph.convex_halfspace(pA, rA, tA, prmA, pB, rB, prmB, hull_rows,
+                                       None if counts is None else set(counts)))
 
     # Restore the pair orientation: normal points collider1 -> collider2.
     normal = torch.where(f3, -normal, normal)
@@ -387,7 +486,7 @@ def compute_manifolds(bodies, colliders, c1, c2, pair_valid, prediction,
 
 
 def compute_mesh_manifolds(bodies, colliders, meshes, c1, c2, pair_valid, prediction,
-                           max_mesh_pairs: int, tris_per_pair: int):
+                           max_mesh_pairs: int, tris_per_pair: int, present: tuple = ()):
     """Expand the (convex, mesh) broad-phase pairs into per-triangle
     manifolds (reference dispatch.py:607-794).
 
@@ -398,8 +497,9 @@ def compute_mesh_manifolds(bodies, colliders, meshes, c1, c2, pair_valid, predic
     orders them).  Returns a ManifoldBatch of ``max_mesh_pairs *
     tris_per_pair`` lanes, row-major by (mesh pair, rank).  A lane's pair key
     encodes its triangle, ``lo * C + hi + (tri + 1) * C**2``, so the
-    warmstart join matches it across steps (`PhysicsWorld.build` refuses a
-    scene whose keys would pass int32, the reference's range)."""
+    warmstart join matches it across steps; the int32 cast wraps a key past
+    2**31 as the reference's int32 arithmetic does (`PhysicsWorld.build`
+    refuses a scene whose keys would pass 2**32)."""
     pm, k = max_mesh_pairs, tris_per_pair
     bsz = c1.shape[0]
     n_coll = colliders.parent.shape[-1]
@@ -485,9 +585,12 @@ def compute_mesh_manifolds(bodies, colliders, meshes, c1, c2, pair_valid, predic
     pvalid = torch.zeros((bsz, 4, n_l), dtype=torch.bool, device=dev)
     # Each kernel over every lane, the lane's shape type selecting (the
     # cuboid, and any other type, takes the convex kernel).
+    counts = _census(present)
+    types = None if counts is None else set(counts)
     is_ball, is_cap = stA == ShapeType.BALL, stA == ShapeType.CAPSULE
     for mask, kern in (
-            (~is_ball & ~is_cap, lambda: npm.convex_triangle(pA, rA, stA, prmA, *wv)),
+            (~is_ball & ~is_cap, lambda: npm.convex_triangle(pA, rA, stA, prmA, *wv,
+                                                             types=types)),
             (is_cap, lambda: npm.capsule_triangle(pA, rA, prmA, *wv)),
             (is_ball, lambda: npm.ball_triangle(pA, rA, prmA, *wv))):
         man = kern()

@@ -1,11 +1,13 @@
 """Host-side (numpy) analytic mass properties per shape.
 
-Counterpart of rapier_tpu.geometry.mass_properties for the shapes the port
-covers: ball, cuboid, capsule at any endpoints, and triangle meshes by the
-divergence theorem (`mesh_mass_properties`; a heightfield's open surface
-included, as the reference computes it); a halfspace has no mass.  Runs at
-scene-build time; the results are accumulated onto the parent bodies by
-`combine`.
+Counterpart of rapier_tpu.geometry.mass_properties: ball, cuboid, capsule
+at any endpoints, cylinder and cone (the round cuboid inflated by its
+border, the round cylinder and round cone ignoring theirs, as the reference
+approximates them), and triangle meshes by the divergence theorem
+(`mesh_mass_properties`; a heightfield's open surface included, as the
+reference computes it, and a convex hull's faces reoriented outward); flat
+and unbounded shapes have no mass.  Runs at scene-build time; the results
+are accumulated onto the parent bodies by `combine`.
 """
 
 from __future__ import annotations
@@ -46,19 +48,22 @@ def _quat_from_two_vectors(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 def shape_mass_properties(shape_type: int, params: np.ndarray,
                           density: float) -> MassProperties:
-    """Analytic mass properties of a ball, cuboid or capsule; a halfspace
-    contributes no mass, nor does a mesh's parameter row (`PhysicsWorld.build` calls
+    """Analytic mass properties of one shape at `density`.  Flat and
+    unbounded shapes (segment, triangle, halfspace) have none, nor does the
+    parameter row of a mesh or hull (`PhysicsWorld.build` calls
     `mesh_mass_properties` with its geometry)."""
+    zero = MassProperties(0.0, np.zeros(3), np.zeros(3), _identity_quat())
     st = ShapeType(shape_type)
-    if st in (ShapeType.HALFSPACE, ShapeType.TRIMESH, ShapeType.HEIGHTFIELD):
-        return MassProperties(0.0, np.zeros(3), np.zeros(3), _identity_quat())
     if st == ShapeType.BALL:
         r = float(params[0])
         m = density * 4.0 / 3.0 * math.pi * r**3
         i = 2.0 / 5.0 * m * r * r
         return MassProperties(m, np.zeros(3), np.full(3, i), _identity_quat())
-    if st == ShapeType.CUBOID:
+    if st in (ShapeType.CUBOID, ShapeType.ROUND_CUBOID):
         hx, hy, hz = float(params[0]), float(params[1]), float(params[2])
+        if st == ShapeType.ROUND_CUBOID:
+            br = float(params[3])
+            hx, hy, hz = hx + br, hy + br, hz + br
         m = density * 8.0 * hx * hy * hz
         ix = m / 3.0 * (hy * hy + hz * hz)
         iy = m / 3.0 * (hx * hx + hz * hz)
@@ -83,8 +88,25 @@ def shape_mass_properties(shape_type: int, params: np.ndarray,
         else:
             frame = _identity_quat()
         return MassProperties(m, com, np.array([i_perp, i_axis, i_perp]), frame)
-    raise NotImplementedError(f"mass properties of {st.name} are not ported (the generic "
-                              "convex shapes: ROADMAP queue 1, item 3)")
+    if st in (ShapeType.CYLINDER, ShapeType.ROUND_CYLINDER):
+        hh, r = float(params[0]), float(params[1])
+        big_h = 2.0 * hh
+        m = density * math.pi * r * r * big_h
+        i_axis = m * r * r / 2.0
+        i_perp = m * (3.0 * r * r + big_h * big_h) / 12.0
+        return MassProperties(m, np.zeros(3), np.array([i_perp, i_axis, i_perp]),
+                              _identity_quat())
+    if st in (ShapeType.CONE, ShapeType.ROUND_CONE):
+        hh, r = float(params[0]), float(params[1])
+        big_h = 2.0 * hh
+        m = density * math.pi * r * r * big_h / 3.0
+        # The centre of mass a quarter of the height above the base (-hh).
+        com = np.array([0.0, -hh + big_h / 4.0, 0.0])
+        i_axis = 3.0 / 10.0 * m * r * r
+        i_perp = m * (3.0 / 20.0 * r * r + 3.0 / 80.0 * big_h * big_h)
+        return MassProperties(m, com, np.array([i_perp, i_axis, i_perp]),
+                              _identity_quat())
+    return zero
 
 
 def mesh_mass_properties(vertices: np.ndarray, triangles: np.ndarray,

@@ -359,11 +359,15 @@ def capsule_halfspace(pA, rA, prmA, pB, rB, prmB) -> Manifold:
                      [torch.ones_like(lane, dtype=torch.bool)] * 2)
 
 
-def convex_halfspace(pA, rA, stA, prmA, pB, rB, prmB) -> Manifold:
+def convex_halfspace(pA, rA, stA, prmA, pB, rB, prmB, hullA=None, types=None) -> Manifold:
     """Convex shape A vs halfspace B: A's support function sampled along the
     plane normal tilted towards 4 tangent directions (a resting cuboid gives
-    its 4 bottom corners).  Feature ids hash the quantised local support
-    points, so they stay stable across steps."""
+    its 4 bottom corners, a lying capsule 2 distinct points).  Round shapes
+    sample their inner shape, offset by the border.  Feature ids hash the
+    quantised local support points, so they stay stable across steps.
+    hullA: the CONVEX lanes' vertex slots, one row a lane ``[..., P, V, 3]``
+    (None: a CONVEX lane has a zero support, as in the reference).  `types`:
+    the shape types the lanes can hold (a census), None for all."""
     from rapier_tpu_torch.geometry.shapes import support_point
 
     n_w = _plane_normal(rB, prmB)
@@ -389,7 +393,8 @@ def convex_halfspace(pA, rA, stA, prmA, pB, rB, prmB) -> Manifold:
     sw, sl = [], []
     for d_w in dirs_w:
         d_l = quat.inv_rotate_cl(rA, d_w)
-        s_l = support_point(stA, prm_rows, d_l.transpose(-1, -2)).transpose(-1, -2)
+        s_l = support_point(stA, prm_rows, d_l.transpose(-1, -2), hullA,
+                            types).transpose(-1, -2)
         sw.append(_transform_point(pA, rA, s_l))
         sl.append(s_l)
     bv = border.unsqueeze(-2)

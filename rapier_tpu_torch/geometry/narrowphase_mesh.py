@@ -8,11 +8,12 @@ own contact manifold from the kernels here.  Heightfields are triangulated
 when the scene is built, so one path serves both.
 
 The kernels are written over lanes, as those of `narrowphase.py`: vectors
-``[..., 3, L]``, per-point rows ``[..., 4, L]``, lanes last.  The convex
-side covers the shapes the port carries: a ball and a capsule take their
-analytic kernels, a cuboid the sampled-SAT kernel `convex_triangle`.  The
-other convex types wait for the generic convex shapes (ROADMAP queue 1,
-item 3).
+``[..., 3, L]``, per-point rows ``[..., 4, L]``, lanes last.  A ball and a
+capsule take their analytic kernels, every other convex type the
+sampled-SAT kernel `convex_triangle` (a round shape on its inner shape plus
+the border).  As in the reference, no hull table reaches these kernels: a
+CONVEX collider's support is zero there, so it meets a mesh as a point plus
+its border (ROADMAP R15).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from rapier_tpu_torch.geometry.narrowphase import (
     _safe_normalize,
     _transform_point,
 )
+from rapier_tpu_torch.geometry.narrowphase_convex import _border_radius as npc_border_radius
 from rapier_tpu_torch.geometry.shapes import support_point
 from rapier_tpu_torch.math import quat
 from rapier_tpu_torch.math.quat import cross_cl, dot_cl
@@ -46,9 +48,9 @@ def is_mesh_type(t):
 
 
 def _border_radius(stA, prmA):
-    """The reference's narrowphase_convex._border_radius for the shapes the
-    port carries: none of them is round, so 0."""
-    return torch.zeros_like(prmA[..., 0, :])
+    """`narrowphase_convex._border_radius` of lane-last parameters
+    ``[..., 12, L]``."""
+    return npc_border_radius(stA, prmA.transpose(-1, -2))
 
 
 def _lane_rows(x):
@@ -56,12 +58,13 @@ def _lane_rows(x):
     return x.transpose(-1, -2)
 
 
-def _support_world(pA, rA, stA, prmA, d_w):
+def _support_world(pA, rA, stA, prmA, d_w, types=None):
     """A's support point for world directions ``d_w [..., S, 3, L]`` (S
-    directions a lane): (world point, local point), both ``[..., S, 3, L]``."""
+    directions a lane): (world point, local point), both ``[..., S, 3, L]``.
+    `types`: the shape types the lanes can hold, None for all."""
     d_l = quat.inv_rotate_cl(rA.unsqueeze(-3), d_w)
     s_l = _lane_rows(support_point(stA.unsqueeze(-2), _lane_rows(prmA).unsqueeze(-3),
-                                   _lane_rows(d_l)))
+                                   _lane_rows(d_l), types=types))
     return _transform_point(pA.unsqueeze(-3), rA.unsqueeze(-3), s_l), s_l
 
 
@@ -173,7 +176,7 @@ def capsule_triangle(pA, rA, prmA, v0, v1, v2) -> Manifold:
     return _manifold(n, points, dists, fids, valids)
 
 
-def _triangle_sat(pA, rA, stA, prmA, v0, v1, v2):
+def _triangle_sat(pA, rA, stA, prmA, v0, v1, v2, types=None):
     """Sampled-SAT gap and axis between a convex shape and one triangle.
     Axes: the triangle normal, the centre line, A's frame axes and the
     crosses of A's axes with the triangle's edges, each oriented from A
@@ -199,7 +202,7 @@ def _triangle_sat(pA, rA, stA, prmA, v0, v1, v2):
     sgn = torch.where(dot_cl(cand, center.unsqueeze(-3)) >= 0, 1.0, -1.0)
     cand = cand * sgn.unsqueeze(-2)
 
-    sa, _ = _support_world(pA, rA, stA, prmA, cand)
+    sa, _ = _support_world(pA, rA, stA, prmA, cand, types)
     tri_min = torch.minimum(torch.minimum(dot_cl(v0.unsqueeze(-3), cand),
                                           dot_cl(v1.unsqueeze(-3), cand)),
                             dot_cl(v2.unsqueeze(-3), cand))
@@ -217,14 +220,14 @@ def triangle_gap(pA, rA, stA, prmA, v0, v1, v2):
     return _triangle_sat(pA, rA, stA, prmA, v0, v1, v2)[0]
 
 
-def convex_triangle(pA, rA, stA, prmA, v0, v1, v2) -> Manifold:
-    """A cuboid against a triangle: the sampled-SAT axis, then a support
+def convex_triangle(pA, rA, stA, prmA, v0, v1, v2, types=None) -> Manifold:
+    """A convex shape against a triangle: the sampled-SAT axis, then a support
     patch of 4 points (A's support along the axis tilted towards 4 tangent
     directions), the deepest anchored to the SAT gap.  Feature ids hash the
     quantised local support points (int32, wrapping), so they stay stable
     across steps."""
     bA = _border_radius(stA, prmA)
-    dist, n = _triangle_sat(pA, rA, stA, prmA, v0, v1, v2)
+    dist, n = _triangle_sat(pA, rA, stA, prmA, v0, v1, v2, types)
 
     ex = torch.zeros_like(n)
     ex[..., 0, :] = 1.0
@@ -236,7 +239,7 @@ def convex_triangle(pA, rA, stA, prmA, v0, v1, v2) -> Manifold:
     t2 = cross_cl(n, t1)
     eps = 0.04
     tilts = torch.stack([t1 + t2, t1 - t2, -t1 + t2, -t1 - t2], dim=-3)
-    sw, sl = _support_world(pA, rA, stA, prmA, n.unsqueeze(-3) + eps * tilts)
+    sw, sl = _support_world(pA, rA, stA, prmA, n.unsqueeze(-3) + eps * tilts, types)
     sw = sw + (n * bA.unsqueeze(-2)).unsqueeze(-3)     # [..., 4, 3, L]
 
     # Per-point separation along n (A -> triangle): from A's support point to

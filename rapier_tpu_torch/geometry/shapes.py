@@ -5,6 +5,8 @@ half-extent `BIG` about its origin, as in the reference."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from rapier_tpu_torch.math import quat
@@ -87,22 +89,87 @@ def compute_aabbs(shape_type, shape_params, pos, rot):
     return mins, maxs
 
 
-def support_point(shape_type, shape_params, direction):
-    """Support point of a shape in its local frame for a local `direction`
-    (``[..., 3]``, not necessarily unit), the reference's `support_point`
-    for the shapes the port carries: ball, cuboid and capsule; other types
-    give zeros, as the reference's fallthrough does."""
+@functools.lru_cache(maxsize=None)
+def _axes(dtype, device):
+    """The constant rows +Y and (1, 0, 1) on `device` (made once: a host
+    tensor copied to the card every call would cost a transfer each)."""
+    return (torch.tensor([0.0, 1.0, 0.0], dtype=dtype, device=device),
+            torch.tensor([1.0, 0.0, 1.0], dtype=dtype, device=device))
+
+
+def _dot(a, b):
+    """Row dot product over the last axis, ``[..., 3]`` -> ``[..., 1]``."""
+    return (a[..., 0:1] * b[..., 0:1] + a[..., 1:2] * b[..., 1:2]
+            + a[..., 2:3] * b[..., 2:3])
+
+
+def support_point(shape_type, shape_params, direction, hull_verts=None, types=None):
+    """Support point of a convex shape in its local frame for a local
+    `direction` (``[..., 3]``, not necessarily unit), the reference's
+    `support_point` for every convex type.  Round shapes give the support of
+    their inner shape (callers add the border radius along the direction).
+
+    hull_verts: optional ``[..., V, 3]`` per-lane CONVEX vertex slots; a
+    CONVEX lane then takes its vertex of largest dot product with the
+    direction (the first of equal ones).  Without it, and for the types
+    without a support (halfspace, meshes), the result is zeros, as the
+    reference's fallthrough gives.
+
+    types: optional collection of the shape types the lanes can hold (a
+    census); the other types' branches are not computed.  Lanes of a type
+    outside it get zeros."""
     p = shape_params
     d = direction
-    dn = d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True), min=1e-12)
-    sup_ball = dn * p[..., 0:1]
-    sup_cuboid = torch.sign(d) * p[..., 0:3]
-    a, b, r = p[..., 0:3], p[..., 3:6], p[..., 6:7]
-    pick_b = torch.sum(d * (b - a), dim=-1, keepdim=True) > 0
-    sup_capsule = torch.where(pick_b, b, a) + dn * r
+    dn = d / torch.clamp(torch.sqrt(_dot(d, d)), min=1e-12)
+    unit_y, xz = _axes(d.dtype, d.device)
+
+    def want(*ts):
+        return types is None or any(int(t) in types for t in ts)
+
+    a, b = p[..., 0:3], p[..., 3:6]
+    pick_b = _dot(d, b - a) > 0
+    hh, rad = p[..., 0:1], p[..., 1:2]
+    branches = []
+    if want(ShapeType.TRIANGLE):
+        va, vb, vc = p[..., 0:3], p[..., 3:6], p[..., 6:9]
+        da, db, dc = _dot(d, va), _dot(d, vb), _dot(d, vc)
+        branches.append(((ShapeType.TRIANGLE,), torch.where(
+            (da >= db) & (da >= dc), va, torch.where(db >= dc, vb, vc))))
+    if want(ShapeType.CYLINDER, ShapeType.ROUND_CYLINDER, ShapeType.CONE, ShapeType.ROUND_CONE):
+        d_xz = d * xz
+        d_xz_n = d_xz / torch.clamp(torch.sqrt(_dot(d_xz, d_xz)), min=1e-12)
+    if want(ShapeType.CONE, ShapeType.ROUND_CONE):
+        apex = unit_y.expand(d.shape) * hh
+        base_rim = d_xz_n * rad - hh * unit_y
+        branches.append(((ShapeType.CONE, ShapeType.ROUND_CONE),
+                         torch.where(_dot(d, apex) >= _dot(d, base_rim), apex, base_rim)))
+    if want(ShapeType.CYLINDER, ShapeType.ROUND_CYLINDER):
+        y_sign = torch.where(d[..., 1:2] >= 0, 1.0, -1.0)
+        branches.append(((ShapeType.CYLINDER, ShapeType.ROUND_CYLINDER),
+                         d_xz_n * rad + y_sign * hh * unit_y))
+    sup_segment = torch.where(pick_b, b, a)
+    if want(ShapeType.SEGMENT):
+        branches.append(((ShapeType.SEGMENT,), sup_segment))
+    if want(ShapeType.CAPSULE):
+        branches.append(((ShapeType.CAPSULE,), sup_segment + dn * p[..., 6:7]))
+    if want(ShapeType.CUBOID, ShapeType.ROUND_CUBOID):
+        branches.append(((ShapeType.CUBOID, ShapeType.ROUND_CUBOID), torch.sign(d) * p[..., 0:3]))
+    if want(ShapeType.BALL):
+        branches.append(((ShapeType.BALL,), dn * p[..., 0:1]))
+
     st = shape_type[..., None]
-    return torch.where(
-        st == ShapeType.BALL, sup_ball,
-        torch.where(st == ShapeType.CUBOID, sup_cuboid,
-                    torch.where(st == ShapeType.CAPSULE, sup_capsule,
-                                torch.zeros_like(d))))
+    out = torch.zeros_like(d)
+    for ts, val in branches:
+        sel = st == int(ts[0])
+        for t in ts[1:]:
+            sel = sel | (st == int(t))
+        out = torch.where(sel, val, out)
+    if hull_verts is not None and want(ShapeType.CONVEX):
+        hull_verts = hull_verts.expand(d.shape[:-1] + hull_verts.shape[-2:])
+        dots = (hull_verts[..., 0] * d[..., None, 0] + hull_verts[..., 1] * d[..., None, 1]
+                + hull_verts[..., 2] * d[..., None, 2])              # [..., V]
+        best = torch.argmax(dots, dim=-1, keepdim=True)             # the first of equal
+        sup_hull = torch.gather(hull_verts, -2, best.unsqueeze(-1).expand(
+            best.shape + (3,))).squeeze(-2)
+        out = torch.where(st == ShapeType.CONVEX, sup_hull, out)
+    return out

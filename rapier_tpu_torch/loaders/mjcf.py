@@ -34,6 +34,8 @@ from rapier_tpu_torch.world import (
     PhysicsWorld,
     RigidBodyBuilder,
 )
+from rapier_tpu_torch.world import _np_quat_mul as _quat_mul
+from rapier_tpu_torch.world import _np_quat_rotate as _quat_rotate
 
 _ROOT_TAGS = {"compiler", "worldbody", "actuator"}
 _ATTRS = {
@@ -65,23 +67,6 @@ def _vec(s, default):
     if s is None:
         return np.asarray(default, float)
     return np.asarray([float(x) for x in s.split()], float)
-
-
-def _quat_mul(a, b):
-    ax, ay, az, aw = a
-    bx, by, bz, bw = b
-    return np.array([
-        aw * bx + ax * bw + ay * bz - az * by,
-        aw * by - ax * bz + ay * bw + az * bx,
-        aw * bz + ax * by - ay * bx + az * bw,
-        aw * bw - ax * bx - ay * by - az * bz,
-    ])
-
-
-def _quat_rotate(q, v):
-    u, w = q[:3], q[3]
-    t = 2.0 * np.cross(u, v)
-    return v + w * t + np.cross(u, t)
 
 
 @dataclass

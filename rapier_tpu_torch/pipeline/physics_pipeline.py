@@ -22,8 +22,10 @@ never takes the kernel, nor does a scene with the 2x2 block solve
 model, takes the masked sweep at any size: the joints' colored passes run
 before the contact passes.
 
-Not ported (NotImplementedError): multibody dof couplings, convex hulls (and
-the other generic convex shapes), CCD, hooks, f64.
+Every convex shape of the reference is carried: the analytic pair kernels,
+the generic GJK/EPA fallback (`geometry/narrowphase_convex.py`), the
+halfspace kernels and the convex hulls (the `hulls` slot).  Not ported
+(NotImplementedError): multibody dof couplings, CCD, hooks, f64.
 """
 
 from __future__ import annotations
@@ -485,12 +487,13 @@ def step(state: SceneState, params: SimParams):
     with stage("narrow_phase"):
         man = compute_manifolds(
             bodies, colliders, c1, c2, pair_valid, prediction,
-            present=params.shape_types_present, dt=params.dt)
+            present=params.shape_types_present, hulls=state.hulls, dt=params.dt)
     if state.meshes is not None:
         with stage("mesh_narrow_phase"):
             man = concat_manifolds(man, compute_mesh_manifolds(
                 bodies, colliders, state.meshes, c1, c2, pair_valid, prediction,
-                params.max_mesh_pairs, params.tris_per_pair))
+                params.max_mesh_pairs, params.tris_per_pair,
+                present=params.shape_types_present))
 
     # 4. Warmstart matching + events bookkeeping.
     with stage("contact_match"):
@@ -689,7 +692,7 @@ def step(state: SceneState, params: SimParams):
     force_gate = (man.active_events_or & ACTIVE_EVENTS_CONTACT_FORCE) != 0
     new_state = SceneState(bodies=bodies, colliders=colliders, contacts=contacts,
                            step_count=state.step_count + 1, multibodies=multibodies,
-                           joints=joints, meshes=state.meshes)
+                           joints=joints, meshes=state.meshes, hulls=state.hulls)
     zero_b = torch.zeros((bsz,), dtype=torch.int32, device=dev)
     events = StepEvents(
         started_pairs=started & collision_gate,

@@ -46,6 +46,94 @@ def mixed_primitives_world(num_layers: int = 4, grid: int = 4, rad: float = 0.5,
     return w
 
 
+def primitives3_world(num_layers: int = 20, grid: int = 8, rad: float = 1.0, **world_kw):
+    """Upstream's primitives3 (SURVEY.md Appendix A, examples3d/primitives3.rs
+    :13-60): a fixed ground cuboid (100.1, 2.1, 100.1) at y = -2.1, and
+    `num_layers` layers of `grid` x `grid` bodies of radius `rad`, 3 rad
+    apart, layer j at y = 3 rad j + 1.5 rad + 3 and shifted by -0.05 rad
+    (grid - 1) in x and z a layer.  The shape cycles by layer, j % 5:
+    capsule_y(rad, rad), ball(rad), round_cylinder(rad, rad, rad / 10),
+    cone(rad, rad), capsule_y(rad, rad).  The layers start centred on the
+    origin (the survey gives no start offset).  20 x 8 is upstream's size
+    (1,280 bodies).  Returns (world, {"bodies": handles, "layer": bodies a
+    layer})."""
+    w = PhysicsWorld(**world_kw)
+    ground = w.insert_body(RigidBodyBuilder.fixed().with_translation((0.0, -2.1, 0.0)))
+    w.insert_collider(ColliderBuilder.cuboid(100.1, 2.1, 100.1), ground)
+    shift = 3.0 * rad
+    center = shift * (grid // 2)
+    offset = 0.0
+    bodies = []
+    for j in range(num_layers):
+        y = j * shift + shift / 2.0 + 3.0
+        for i in range(grid):
+            for k in range(grid):
+                b = w.insert_body(RigidBodyBuilder.dynamic().with_translation(
+                    (i * shift - center + offset, y, k * shift - center + offset)))
+                w.insert_collider(_primitive(j % 5, rad), b)
+                bodies.append(b)
+        offset -= 0.05 * rad * (grid - 1)
+    return w, {"bodies": bodies, "layer": grid * grid}
+
+
+def _primitive(kind: int, rad: float):
+    """primitives3's shape of a layer, by j % 5."""
+    if kind == 1:
+        return ColliderBuilder.ball(rad)
+    if kind == 2:
+        return ColliderBuilder.round_cylinder(rad, rad, rad / 10.0)
+    if kind == 3:
+        return ColliderBuilder.cone(rad, rad)
+    return ColliderBuilder.capsule_y(rad, rad)
+
+
+# The convex zoo's unit cube and octahedron point clouds.
+CUBE_POINTS = [(x, y, z) for x in (-0.5, 0.5) for y in (-0.5, 0.5) for z in (-0.5, 0.5)]
+
+
+def convex_zoo_world(gap: float = 0.02, **world_kw):
+    """One body of each generic convex shape, from tests/test_convex_shapes.py
+    and tests/test_convex_fallback.py, on a fixed ground cuboid (20, 1, 20)
+    whose top is y = 0, each `gap` above its resting height: a cylinder
+    (0.5, 0.5), a round cuboid (0.4, 0.3, 0.4, border 0.1), a round cone
+    (0.5, 0.5, border 0.05), the convex hull of a unit cube, a compound cross
+    of two cuboids (0.8, 0.2, 0.2) and (0.2, 0.2, 0.8), a voxel run of four
+    0.5 cubes (merged into one box) and a cone (0.5, 0.5); beside the ground,
+    a fixed halfspace ramp (normal (0.3, 1, 0), through (-10, 0, 0), above
+    the ground for x < -10) with a round cylinder (0.3, 0.5, border 0.05)
+    on it, its axis along the ramp's normal over the ramp's point at x = -13.
+    Returns (world, {name: body handle})."""
+    w = PhysicsWorld(**world_kw)
+    ground = w.insert_body(RigidBodyBuilder.fixed().with_translation((0.0, -1.0, 0.0)))
+    w.insert_collider(ColliderBuilder.cuboid(20.0, 1.0, 20.0), ground)
+    ramp = w.insert_body(RigidBodyBuilder.fixed().with_translation((-10.0, 0.0, 0.0)))
+    w.insert_collider(ColliderBuilder.halfspace((0.3, 1.0, 0.0)), ramp)
+    n = np.array([0.3, 1.0, 0.0]) / np.hypot(0.3, 1.0)
+    on_ramp = np.array([-13.0, 0.9, 0.0]) + n * 0.35
+    handles = {}
+    for name, xyz, collider in (
+            ("cylinder", (0.0, 0.5, 0.0), ColliderBuilder.cylinder(0.5, 0.5)),
+            ("round_cuboid", (2.0, 0.4, 0.0), ColliderBuilder.round_cuboid(0.4, 0.3, 0.4, 0.1)),
+            ("round_cone", (4.0, 0.55, 0.0), ColliderBuilder.round_cone(0.5, 0.5, 0.05)),
+            ("hull", (0.0, 0.5, 3.0), ColliderBuilder.convex_hull(CUBE_POINTS)),
+            ("cross", (3.0, 0.2, 3.0), ColliderBuilder.compound([
+                ((0.0, 0.0, 0.0), (0.0, 0.0, 0.0, 1.0), ColliderBuilder.cuboid(0.8, 0.2, 0.2)),
+                ((0.0, 0.0, 0.0), (0.0, 0.0, 0.0, 1.0), ColliderBuilder.cuboid(0.2, 0.2, 0.8)),
+            ])),
+            ("voxels", (-2.0, 0.25, 6.0), ColliderBuilder.voxels(
+                [(x * 0.5, 0.0, 0.0) for x in range(4)], 0.5)),
+            ("cone", (-3.0, 0.5, 0.0), ColliderBuilder.cone(0.5, 0.5)),
+            ("on_ramp", tuple(on_ramp), ColliderBuilder.round_cylinder(0.3, 0.5, 0.05))):
+        x, y, z = xyz
+        body = RigidBodyBuilder.dynamic().with_translation((x, y + gap, z))
+        if name == "on_ramp":
+            body = body.with_rotation((0.0, 0.0, -float(np.arctan(0.3))))
+        b = w.insert_body(body)
+        w.insert_collider(collider, b)
+        handles[name] = b
+    return w, handles
+
+
 def pyramid_world(base_count: int = 10, half: float = 0.5, friction: float = 0.6,
                   **world_kw) -> PhysicsWorld:
     """s2d_pyramid (examples2d/s2d_pyramid.rs:13-38) lifted to 3D: a planar
@@ -377,17 +465,15 @@ def heightfield3_full_world(**world_kw):
     its size: a 20 x 20-subdivision heightfield over 100 x 1 x 100 on a fixed
     body, heights sin(x) + cos(z) with x = 5 i, z = 5 j at row i, column j,
     and 10 on the border rows and columns; above it 20 layers of 8 x 8 bodies
-    of radius 1, 3 apart, the bottom layer at y = 4.5.  1,280 bodies, 1,281
-    colliders, 800 triangles.
-
-    Upstream cycles six shapes by layer: cuboid, ball, round cylinder, cone,
-    capsule_y and a compound.  This scene uses the shapes the port carries,
-    cycled by body as examples/heightfield3.py does: ball(1), cuboid(1, 1,
-    1), capsule_y(1, 1).  Cylinders, cones and compounds wait for the
-    generic convex shapes (ROADMAP queue 1, item 3).  max_mesh_pairs is
-    1,280 so that no body can lose its terrain pair (the reference drops
-    the mesh pairs beyond it, ROADMAP R12).  Returns (world, {"bodies":
-    handles, "layer": bodies per layer})."""
+    of radius 1, 3 apart, the bottom layer at y = 4.5.  The shape cycles by
+    layer, j % 6, as upstream's does: cuboid(1, 1, 1), ball(1),
+    round_cylinder(1, 1, 0.1), cone(1, 1), capsule_y(1, 1), and a compound
+    of three cuboids, (1, 0.5, 0.5) at the origin and (0.5, 1, 0.5) at x = 1
+    and x = -1.  1,280 bodies; 1,665 colliders (the compound is three) and
+    800 triangles.  max_mesh_pairs is the number of body colliders, 1,664,
+    so that no collider can lose its terrain pair (the reference drops the
+    mesh pairs beyond it, ROADMAP R12).  Returns (world, {"bodies": handles,
+    "layer": bodies per layer})."""
     w = PhysicsWorld(**world_kw)
     n = HF_FULL_SUBDIVS
     i, j = np.meshgrid(np.arange(n + 1), np.arange(n + 1), indexing="ij")
@@ -406,10 +492,30 @@ def heightfield3_full_world(**world_kw):
                 b = w.insert_body(RigidBodyBuilder.dynamic().with_translation(
                     (gi * shift - center, layer * shift + shift / 2.0 + 3.0,
                      gk * shift - center)))
-                w.insert_collider(_mixed_shape(len(bodies), rad, rad, rad), b)
+                w.insert_collider(_heightfield3_shape(layer % 6, rad), b)
                 bodies.append(b)
-    w.params = w.params.replace(max_mesh_pairs=len(bodies))
+    w.params = w.params.replace(max_mesh_pairs=len(w._pending_colliders) - 1)
     return w, {"bodies": bodies, "layer": grid * grid}
+
+
+def _heightfield3_shape(kind: int, rad: float):
+    """Upstream heightfield3's shape of a layer, by j % 6."""
+    ident = (0.0, 0.0, 0.0, 1.0)
+    if kind == 0:
+        return ColliderBuilder.cuboid(rad, rad, rad)
+    if kind == 1:
+        return ColliderBuilder.ball(rad)
+    if kind == 2:
+        return ColliderBuilder.round_cylinder(rad, rad, rad / 10.0)
+    if kind == 3:
+        return ColliderBuilder.cone(rad, rad)
+    if kind == 4:
+        return ColliderBuilder.capsule_y(rad, rad)
+    return ColliderBuilder.compound([
+        ((0.0, 0.0, 0.0), ident, ColliderBuilder.cuboid(rad, rad / 2.0, rad / 2.0)),
+        ((rad, 0.0, 0.0), ident, ColliderBuilder.cuboid(rad / 2.0, rad, rad / 2.0)),
+        ((-rad, 0.0, 0.0), ident, ColliderBuilder.cuboid(rad / 2.0, rad, rad / 2.0)),
+    ])
 
 
 def replicate_scene(state, batch: int):

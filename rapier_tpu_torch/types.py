@@ -11,16 +11,20 @@ component-leading, lane-last layout (``[3, P]``, ``[4, 3, P]``).
 port and back by field name, so the two packages exchange state without this
 one importing JAX.  The `joints` slot (impulse joints, `Joints`), the
 `multibodies` slot (reduced-coordinate articulations,
-`dynamics.multibody.Multibodies`) and the `meshes` slot (`MeshData`) cross
-the same way.
+`dynamics.multibody.Multibodies`), the `meshes` slot (`MeshData`) and the
+`hulls` slot (`ConvexHulls`) cross the same way.
 
 ``Colliders.shape_params`` rows follow the reference's table
 (rapier_tpu.geometry.shapes): BALL ``[r]``, CUBOID ``[hx, hy, hz]``, CAPSULE
 ``[ax, ay, az, bx, by, bz, r]`` (segment endpoints in the collider frame),
 HALFSPACE ``[nx, ny, nz]`` (outward unit normal of the plane through the
-collider origin), TRIMESH and HEIGHTFIELD ``[tri_start, tri_count, lo(3),
-hi(3)]`` (a range of the shared `MeshData` triangle table and the mesh's
-local AABB).
+collider origin), SEGMENT ``[ax, ay, az, bx, by, bz]``, CYLINDER and CONE
+``[hh, r]`` (axis local Y; a cone's base at -hh, apex at +hh), ROUND_CUBOID
+``[hx, hy, hz, border]``, ROUND_CYLINDER and ROUND_CONE ``[hh, r, border]``,
+TRIANGLE ``[a(3), b(3), c(3)]``, TRIMESH and HEIGHTFIELD ``[tri_start,
+tri_count, lo(3), hi(3)]`` (a range of the shared `MeshData` triangle table
+and the mesh's local AABB), CONVEX ``[hull, border, lo(3), hi(3)]`` (a row of
+the shared `ConvexHulls` table and the hull's local AABB).
 """
 
 from __future__ import annotations
@@ -275,13 +279,30 @@ def empty_meshes(v: int, t: int) -> MeshData:
     return MeshData(vertices=np.zeros((v, 3), _f32), triangles=np.full((t, 3), -1, np.int32))
 
 
+MAX_HULL_VERTS = 32  # vertex slots a hull (decimated when the scene is built)
+
+
+@dataclass
+class ConvexHulls:
+    """The shared vertex table of CONVEX colliders (the reference's
+    ConvexHulls): ``[H, MAX_HULL_VERTS, 3]`` in each collider's local frame,
+    a hull's unused slots repeating its first vertex (the support argmax
+    stays exact).  Batched, the table takes the scene axis as the mesh tables
+    do: ``[B, H, MAX_HULL_VERTS, 3]``."""
+
+    vertices: Any    # [H, MAX_HULL_VERTS, 3]
+
+
+def empty_hulls(h: int) -> ConvexHulls:
+    return ConvexHulls(vertices=np.zeros((h, MAX_HULL_VERTS, 3), _f32))
+
+
 @dataclass
 class SceneState:
     """Full simulation state.  `joints` holds the impulse joints,
-    `multibodies` the reduced-coordinate articulations and `meshes` the
-    triangle tables of mesh colliders (None without any); the reference's
-    `hulls` slot is not ported: `from_numpy` refuses a reference state that
-    sets it."""
+    `multibodies` the reduced-coordinate articulations, `meshes` the
+    triangle tables of mesh colliders and `hulls` the vertex table of convex
+    hulls (each None without any)."""
 
     bodies: Bodies
     colliders: Colliders
@@ -290,6 +311,7 @@ class SceneState:
     multibodies: Any = None
     joints: Any = None
     meshes: Any = None
+    hulls: Any = None
 
 
 def _f(shape):
@@ -477,8 +499,8 @@ def spring_cfm_factor(natural_frequency, damping_ratio, dt):
 _STATE_TYPES = {
     "bodies": Bodies, "colliders": Colliders, "contacts": Contacts,
 }
-_UNSUPPORTED_SLOTS = ("hulls",)
-_OPTIONAL_TYPES = {"joints": Joints, "multibodies": Multibodies, "meshes": MeshData}
+_OPTIONAL_TYPES = {"joints": Joints, "multibodies": Multibodies, "meshes": MeshData,
+                   "hulls": ConvexHulls}
 
 
 def _leaf_to_tensor(x, device):
@@ -493,9 +515,6 @@ def _leaf_to_tensor(x, device):
 def tree_map(fn, state) -> SceneState:
     """Apply `fn` to every leaf of a scene state (of either package: fields
     are read by name) and return the port's `SceneState`."""
-    for slot in _UNSUPPORTED_SLOTS:
-        if getattr(state, slot, None) is not None:
-            raise NotImplementedError(f"SceneState.{slot} is not ported")
     types = dict(_STATE_TYPES)
     for slot, cls in _OPTIONAL_TYPES.items():
         if getattr(state, slot, None) is not None:

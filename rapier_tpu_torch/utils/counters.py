@@ -49,9 +49,11 @@ def stage(name: str):
 @dataclass
 class StageTimings:
     """Milliseconds a step, per stage (the reference's Counters schema);
-    `solver_ms` is the solve without the impulse joints, and `extra` holds
-    the mesh narrow phase (the (convex, mesh) pairs' triangle lanes), the
-    joints, the contact join, wake, sleep and the rest."""
+    `narrow_phase_ms` is the pair lanes' narrow phase without the GJK/EPA
+    fallback and `solver_ms` the solve without the impulse joints; `extra`
+    holds the GJK/EPA fallback (`gjk_epa`, the generic convex pairs), the
+    mesh narrow phase (the (convex, mesh) pairs' triangle lanes), the joints,
+    the contact join, wake, sleep and the rest."""
 
     broad_phase_ms: float = 0.0
     narrow_phase_ms: float = 0.0
@@ -71,10 +73,9 @@ def _on_card(state):
                          f"{state.bodies.pos.device}")
 
 
-def profile_step(state, params) -> StageTimings:
-    """Mean host milliseconds of each stage over PROFILE_ITERS steps from
-    `state` (after one unmeasured step), each stage between
-    synchronisations."""
+def profile_step(state, params, iters: int = PROFILE_ITERS) -> StageTimings:
+    """Mean host milliseconds of each stage over `iters` steps from `state`
+    (after one unmeasured step), each stage between synchronisations."""
     global _timings
     from rapier_tpu_torch.pipeline.physics_pipeline import step
 
@@ -84,26 +85,31 @@ def profile_step(state, params) -> StageTimings:
     _timings = {}
     try:
         t0 = time.perf_counter()
-        for _ in range(PROFILE_ITERS):
+        for _ in range(iters):
             step(state, params)
         torch.cuda.synchronize()
-        total = (time.perf_counter() - t0) * 1e3 / PROFILE_ITERS
-        ms = {k: v / PROFILE_ITERS for k, v in _timings.items()}
+        total = (time.perf_counter() - t0) * 1e3 / iters
+        ms = {k: v / iters for k, v in _timings.items()}
     finally:
         _timings = None
+    # The joints run inside "solve", the GJK/EPA fallback inside
+    # "narrow_phase": each is taken out of the stage around it.
     joints = ms.pop("joints", 0.0)
+    gjk_epa = ms.pop("gjk_epa", 0.0)
     extra = {f"{k}_ms": ms.get(k, 0.0)
              for k in ("mesh_narrow_phase", "contact_match", "wake", "sleep")}
     extra["joints_ms"] = joints
+    extra["gjk_epa_ms"] = gjk_epa
     extra["rest_ms"] = total - sum(ms.values())
     return StageTimings(broad_phase_ms=ms.get("broad_phase", 0.0),
-                        narrow_phase_ms=ms.get("narrow_phase", 0.0),
+                        narrow_phase_ms=ms.get("narrow_phase", 0.0) - gjk_epa,
                         solver_ms=ms.get("solve", 0.0) - joints, total_ms=total, extra=extra)
 
 
-def trace_step(state, params, steps: int = 3) -> dict:
+def trace_step(state, params, steps: int = 3, warm: bool = True) -> dict:
     """`steps` steps from `state` under torch.profiler (after one unmeasured
-    step).  Returns per step: wall_ms (host clock to a synchronisation),
+    step unless `warm` is False: the caller has just stepped from `state`).
+    Returns per step: wall_ms (host clock to a synchronisation),
     kernels (device kernels and copies), device_ms (the time at least one of
     them ran: the union of their intervals), device_share = device_ms /
     wall_ms, and `top`: the TOP_KERNELS names of most device time, each with
@@ -115,7 +121,8 @@ def trace_step(state, params, steps: int = 3) -> dict:
     from rapier_tpu_torch.pipeline.physics_pipeline import step
 
     _on_card(state)
-    step(state, params)
+    if warm:
+        step(state, params)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

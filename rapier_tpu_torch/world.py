@@ -1,9 +1,11 @@
 """Host-side scene construction + a convenience stepping facade.
 
 Counterpart of rapier_tpu.world: the `RigidBodyBuilder` / `ColliderBuilder`
-builders (ball, cuboid, capsules, halfspace, trimesh and heightfield: the
-meshes gather into one shared `MeshData` table), `GenericJointBuilder` with its
-typed forms for impulse joints and reduced-coordinate multibody joints, and
+builders (every shape of the reference: the meshes gather into one shared
+`MeshData` table, convex hulls into one `ConvexHulls` table, and compounds,
+polylines, voxels and convex decompositions expand into leaf colliders on
+the same body when inserted), `GenericJointBuilder` with its typed forms for
+impulse joints and reduced-coordinate multibody joints, and
 `PhysicsWorld`.  Building is plain
 numpy and gives the same `SceneState` leaves as the reference's `build()`;
 `step()` runs the port's batched pipeline on a batch of one scene on
@@ -12,6 +14,7 @@ numpy and gives the same `SceneState` leaves as the reference's `build()`;
 
 from __future__ import annotations
 
+import copy
 import math
 from collections import Counter
 from dataclasses import dataclass, field
@@ -28,8 +31,10 @@ from rapier_tpu_torch.types import (
     BodyType,
     CoefficientCombineRule,
     Colliders,
+    ConvexHulls,
     FrictionModel,
     Joints,
+    MAX_HULL_VERTS,
     MeshData,
     SceneState,
     ShapeType,
@@ -148,6 +153,13 @@ class ColliderBuilder:
     active_collision_types: int = ACTIVE_COLLISION_TYPES_DEFAULT
     # (vertices [V, 3] float32, triangles [T, 3] int32) of a mesh collider.
     mesh: Optional[tuple] = field(default=None, repr=False, compare=False)
+    # The point cloud ``[N, 3]`` of a CONVEX collider (its hull is built with
+    # the scene) and the hull's border radius.
+    hull_points: Optional[np.ndarray] = field(default=None, repr=False, compare=False)
+    hull_border: float = 0.0
+    # (translation, rotation, ColliderBuilder) children of a compound,
+    # expanded into leaf colliders by PhysicsWorld.insert_collider.
+    children: Optional[list] = field(default=None, repr=False, compare=False)
 
     @staticmethod
     def ball(radius) -> "ColliderBuilder":
@@ -156,6 +168,11 @@ class ColliderBuilder:
     @staticmethod
     def cuboid(hx, hy, hz) -> "ColliderBuilder":
         return ColliderBuilder(ShapeType.CUBOID, (float(hx), float(hy), float(hz)))
+
+    @staticmethod
+    def round_cuboid(hx, hy, hz, border_radius) -> "ColliderBuilder":
+        return ColliderBuilder(ShapeType.ROUND_CUBOID, (float(hx), float(hy), float(hz),
+                                                        float(border_radius)))
 
     @staticmethod
     def capsule_x(half_height, radius) -> "ColliderBuilder":
@@ -182,9 +199,132 @@ class ColliderBuilder:
         return ColliderBuilder(ShapeType.CAPSULE, a + b + (float(radius),))
 
     @staticmethod
+    def segment(a, b) -> "ColliderBuilder":
+        a = tuple(float(x) for x in a)
+        b = tuple(float(x) for x in b)
+        return ColliderBuilder(ShapeType.SEGMENT, a + b)
+
+    @staticmethod
     def halfspace(normal) -> "ColliderBuilder":
         n = np.asarray(normal, dtype=np.float64)
         return ColliderBuilder(ShapeType.HALFSPACE, tuple(n / np.linalg.norm(n)))
+
+    @staticmethod
+    def cylinder(half_height, radius) -> "ColliderBuilder":
+        """A cylinder about the local Y axis."""
+        return ColliderBuilder(ShapeType.CYLINDER, (float(half_height), float(radius)))
+
+    @staticmethod
+    def round_cylinder(half_height, radius, border_radius) -> "ColliderBuilder":
+        return ColliderBuilder(ShapeType.ROUND_CYLINDER,
+                               (float(half_height), float(radius), float(border_radius)))
+
+    @staticmethod
+    def cone(half_height, radius) -> "ColliderBuilder":
+        """A cone about the local Y axis: its base at -half_height, its apex
+        at +half_height."""
+        return ColliderBuilder(ShapeType.CONE, (float(half_height), float(radius)))
+
+    @staticmethod
+    def round_cone(half_height, radius, border_radius) -> "ColliderBuilder":
+        return ColliderBuilder(ShapeType.ROUND_CONE,
+                               (float(half_height), float(radius), float(border_radius)))
+
+    @staticmethod
+    def convex_hull(points) -> "ColliderBuilder":
+        """The convex hull of a point cloud, computed when the scene is built
+        (scipy.spatial.ConvexHull), decimated to MAX_HULL_VERTS support
+        vertices and shared through the scene's hull table."""
+        return ColliderBuilder(ShapeType.CONVEX, (),
+                               hull_points=np.asarray(points, np.float64).reshape(-1, 3))
+
+    @staticmethod
+    def round_convex_hull(points, border_radius) -> "ColliderBuilder":
+        cb = ColliderBuilder.convex_hull(points)
+        cb.hull_border = float(border_radius)
+        return cb
+
+    @staticmethod
+    def convex_mesh(vertices) -> "ColliderBuilder":
+        """Vertices known to be convex: their hull, as `convex_hull`."""
+        return ColliderBuilder.convex_hull(vertices)
+
+    @staticmethod
+    def compound(children) -> "ColliderBuilder":
+        """A compound of child colliders, ``[(translation, rotation,
+        ColliderBuilder), ...]``: expanded into colliders on the same body
+        when inserted."""
+        return ColliderBuilder(ShapeType.COMPOUND, (), children=[
+            (tuple(t), _as_quat(r), child) for (t, r, child) in children])
+
+    @staticmethod
+    def polyline(points) -> "ColliderBuilder":
+        """A polyline: one SEGMENT collider per consecutive pair of points."""
+        pts = np.asarray(points, np.float64).reshape(-1, 3)
+        return ColliderBuilder(ShapeType.COMPOUND, (), children=[
+            ((0.0, 0.0, 0.0), _IDQ, ColliderBuilder.segment(pts[i], pts[i + 1]))
+            for i in range(len(pts) - 1)])
+
+    @staticmethod
+    def voxels(centers, voxel_size) -> "ColliderBuilder":
+        """Cubes of edge `voxel_size` at `centers`, merged greedily into
+        boxes along runs in x (rows ordered by y, then z, then x), each box a
+        cuboid collider when inserted."""
+        size = float(voxel_size)
+        half = size / 2.0
+        keys = np.round(np.asarray(centers, np.float64).reshape(-1, 3) / size).astype(np.int64)
+        keys = keys[np.lexsort((keys[:, 0], keys[:, 2], keys[:, 1]))]
+        children = []
+        i = 0
+        while i < len(keys):
+            j = i
+            while (j + 1 < len(keys) and keys[j + 1][1] == keys[i][1]
+                   and keys[j + 1][2] == keys[i][2] and keys[j + 1][0] == keys[j][0] + 1):
+                j += 1
+            run = keys[i:j + 1].astype(np.float64) * size
+            hx = half + (run[-1][0] - run[0][0]) / 2.0
+            children.append((tuple(run.mean(axis=0)), _IDQ,
+                             ColliderBuilder.cuboid(hx, half, half)))
+            i = j + 1
+        return ColliderBuilder(ShapeType.COMPOUND, (), children=children)
+
+    @staticmethod
+    def voxels_from_points(points, voxel_size) -> "ColliderBuilder":
+        """The voxels holding the points of a cloud."""
+        size = float(voxel_size)
+        pts = np.asarray(points, np.float64).reshape(-1, 3)
+        keys = np.unique(np.round(pts / size).astype(np.int64), axis=0)
+        return ColliderBuilder.voxels(keys.astype(np.float64) * size, size)
+
+    @staticmethod
+    def convex_decomposition(vertices, indices, max_parts: int = 8) -> "ColliderBuilder":
+        """An approximate convex decomposition of a triangle mesh, as the
+        reference computes it: k-means (seeded, 12 rounds) of the triangle
+        centroids into at most `max_parts` clusters, one convex hull of each
+        cluster's vertices (clusters of fewer than 4 vertices dropped)."""
+        v = np.asarray(vertices, np.float64).reshape(-1, 3)
+        t = np.asarray(indices, np.int64).reshape(-1, 3)
+        cent = v[t].mean(axis=1)
+        k = min(max_parts, len(t))
+        rng = np.random.RandomState(0)
+        centers = cent[rng.choice(len(cent), k, replace=False)]
+        for _ in range(12):
+            d2 = ((cent[:, None, :] - centers[None, :, :]) ** 2).sum(-1)
+            assign = d2.argmin(axis=1)
+            for ci in range(k):
+                sel = cent[assign == ci]
+                if len(sel):
+                    centers[ci] = sel.mean(axis=0)
+        children = []
+        for ci in range(k):
+            tri_sel = t[assign == ci]
+            if len(tri_sel) == 0:
+                continue
+            pts = v[np.unique(tri_sel)]
+            if len(pts) < 4:
+                continue
+            children.append(((0.0, 0.0, 0.0), _IDQ, ColliderBuilder.convex_hull(pts)))
+        return ColliderBuilder(ShapeType.COMPOUND, (), children=children)
 
     @staticmethod
     def trimesh(vertices, indices) -> "ColliderBuilder":
@@ -256,6 +396,50 @@ class ColliderBuilder:
 
     def with_contact_skin(self, skin: float):
         return self._set(contact_skin=float(skin))
+
+
+def _np_quat_mul(a, b):
+    ax, ay, az, aw = a
+    bx, by, bz, bw = b
+    return np.array([
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+        aw * bw - ax * bx - ay * by - az * bz,
+    ])
+
+
+def _np_quat_rotate(q, v):
+    u, w = np.asarray(q[:3]), q[3]
+    t = 2.0 * np.cross(u, v)
+    return np.asarray(v) + w * t + np.cross(u, t)
+
+
+def _build_hull(points, max_verts):
+    """The convex hull of a point cloud, decimated to at most `max_verts`
+    support vertices (the extreme points along a Fibonacci sphere of
+    directions when it has more), as the reference builds it.  Returns
+    (padded [max_verts, 3] float32, the unused slots repeating the first
+    vertex; faces [F, 3] into the decimated vertices; those vertices; the
+    local AABB's min and max)."""
+    from scipy.spatial import ConvexHull
+
+    pts = np.asarray(points, np.float64).reshape(-1, 3)
+    verts = pts[ConvexHull(pts).vertices]
+    if len(verts) > max_verts:
+        k = np.arange(max_verts, dtype=np.float64)
+        phi = np.pi * (3.0 - np.sqrt(5.0))
+        y = 1.0 - 2.0 * (k + 0.5) / max_verts
+        r = np.sqrt(np.maximum(1.0 - y * y, 0.0))
+        dirs = np.stack([r * np.cos(phi * k), y, r * np.sin(phi * k)], axis=1)
+        verts = verts[np.unique(np.argmax(dirs @ verts.T, axis=1))]
+    verts = verts[np.unique(ConvexHull(verts).simplices)]
+    faces = ConvexHull(verts).simplices
+    padded = np.zeros((max_verts, 3), np.float32)
+    padded[: len(verts)] = verts
+    padded[len(verts):] = verts[0]
+    return (padded, faces.astype(np.int32), verts.astype(np.float32),
+            verts.min(axis=0), verts.max(axis=0))
 
 
 def _quat_from_x_axis(axis) -> np.ndarray:
@@ -448,10 +632,34 @@ class PhysicsWorld:
         self._pending_bodies.append(builder)
         return len(self._pending_bodies) - 1
 
+    def _expand_collider(self, builder: ColliderBuilder):
+        """The leaf colliders of a builder: itself, or a compound's children
+        (recursively) with their local transforms composed onto its own."""
+        if builder.children is None:
+            return [builder]
+        out = []
+        pt = np.asarray(builder.translation, np.float64)
+        pr = np.asarray(builder.rotation, np.float64)
+        for (ct, cr, child) in builder.children:
+            for leaf in self._expand_collider(child):
+                leaf = copy.copy(leaf)
+                t = pt + _np_quat_rotate(pr, np.asarray(ct, np.float64))
+                r = _np_quat_mul(pr, np.asarray(cr, np.float64))
+                lt = np.asarray(leaf.translation, np.float64)
+                lr = np.asarray(leaf.rotation, np.float64)
+                leaf.translation = tuple(t + _np_quat_rotate(r, lt))
+                leaf.rotation = tuple(_np_quat_mul(r, lr))
+                out.append(leaf)
+        return out
+
     def insert_collider(self, builder: ColliderBuilder, body: int = -1) -> int:
+        """Insert a collider (a compound as its leaves, in order) on `body`;
+        returns the index of the first."""
         assert self.state is None, "world already built"
-        self._pending_colliders.append((builder, body))
-        return len(self._pending_colliders) - 1
+        first = len(self._pending_colliders)
+        for leaf in self._expand_collider(builder):
+            self._pending_colliders.append((leaf, body))
+        return first
 
     def insert(self, body_builder: RigidBodyBuilder, *collider_builders) -> int:
         h = self.insert_body(body_builder)
@@ -509,6 +717,7 @@ class PhysicsWorld:
         colliders = {k: np.asarray(v).copy() for k, v in vars(c0).items()}
         body_parts: dict[int, list] = {i: [] for i in range(nb)}
         meshes, mesh_ranges = self._build_meshes(c_cap)
+        hulls, hull_info = self._build_hulls()
 
         for i, (cb, parent) in enumerate(self._pending_colliders):
             prm = np.zeros(12, np.float32)
@@ -518,6 +727,11 @@ class PhysicsWorld:
                 prm[0], prm[1] = start, count
                 prm[2:5] = lo
                 prm[5:8] = hi
+            if i in hull_info:
+                hidx, _faces, _verts, bb_min, bb_max = hull_info[i]
+                prm[0], prm[1] = hidx, cb.hull_border
+                prm[2:5] = bb_min
+                prm[5:8] = bb_max
             colliders["parent"][i] = parent
             colliders["local_pos"][i] = cb.translation
             colliders["local_rot"][i] = _as_quat(cb.rotation)
@@ -539,7 +753,11 @@ class PhysicsWorld:
             colliders["user_data"][i] = cb.user_data
             colliders["active_collision_types"][i] = cb.active_collision_types
             if parent >= 0 and not cb.sensor:
-                if cb.mesh is not None:
+                if i in hull_info:
+                    _h, faces, verts, _lo, _hi = hull_info[i]
+                    smp = mp.mesh_mass_properties(verts, faces, cb.density,
+                                                  assume_convex=True)
+                elif cb.mesh is not None:
                     smp = mp.mesh_mass_properties(*cb.mesh, cb.density)
                 else:
                     smp = mp.shape_mass_properties(int(cb.shape_type), prm, cb.density)
@@ -595,7 +813,7 @@ class PhysicsWorld:
                 self.params.friction_model == int(FrictionModel.COULOMB))),
             multibodies=mb_state,
             joints=self._build_joints(bodies) if self._pending_joints else None,
-            meshes=meshes)
+            meshes=meshes, hulls=hulls)
         census = Counter(int(cb.shape_type) for cb, _ in self._pending_colliders)
         self.params = self.params.replace(
             shape_types_present=tuple(sorted(census.items())))
@@ -611,9 +829,12 @@ class PhysicsWorld:
         """The mesh colliders' shared tables (vertices and triangles each
         padded to a multiple of 8, triangle rows -1) and each mesh collider's
         (tri_start, tri_count, local lo, local hi); (None, {}) without a
-        mesh.  Refuses a scene whose mesh pair keys, ``lo * C + hi + (tri +
-        1) * C**2``, would pass int32: the reference computes them in int32
-        (dispatch.py:611-613) and the two packages would part there."""
+        mesh.  The mesh pair keys, ``lo * C + hi + (tri + 1) * C**2``, are
+        int32: the reference computes them in int32 arithmetic, which wraps
+        past 2**31 (dispatch.py:762-765), and the port's int64 keys wrap the
+        same way when cast, so both hold the same keys (a wrapped key is
+        negative, and neither package's cache matches it: ROADMAP R12).
+        Refuses a scene whose keys would pass 2**32 and repeat."""
         verts, tris, ranges = [], [], {}
         tri_cursor = vert_cursor = 0
         for i, (cb, _parent) in enumerate(self._pending_colliders):
@@ -629,16 +850,30 @@ class PhysicsWorld:
             return None, ranges
         all_v, all_t = np.concatenate(verts), np.concatenate(tris)
         t_cap = _round_up(len(all_t), 8)
-        if c_cap * c_cap * (t_cap + 1) >= 2**31:
+        if c_cap * c_cap * (t_cap + 1) >= 2**32:
             raise NotImplementedError(
-                f"{c_cap} colliders and {t_cap} triangles: mesh pair keys would pass int32 "
-                f"(C**2 * (T + 1) = {c_cap * c_cap * (t_cap + 1)} >= 2**31), the reference's "
-                "range")
+                f"{c_cap} colliders and {t_cap} triangles: mesh pair keys would repeat in "
+                f"int32 (C**2 * (T + 1) = {c_cap * c_cap * (t_cap + 1)} >= 2**32)")
         vpad = np.zeros((_round_up(len(all_v), 8), 3), np.float32)
         vpad[: len(all_v)] = all_v
         tpad = np.full((t_cap, 3), -1, np.int32)
         tpad[: len(all_t)] = all_t
         return MeshData(vertices=vpad, triangles=tpad), ranges
+
+    def _build_hulls(self):
+        """The convex hulls' shared table ``[H, MAX_HULL_VERTS, 3]`` (None
+        without a hull) and each CONVEX collider's (hull index, faces,
+        decimated vertices, local AABB min, max)."""
+        slots, info = [], {}
+        for i, (cb, _parent) in enumerate(self._pending_colliders):
+            if cb.hull_points is None:
+                continue
+            padded, faces, verts, lo, hi = _build_hull(cb.hull_points, MAX_HULL_VERTS)
+            info[i] = (len(slots), faces, verts, lo, hi)
+            slots.append(padded)
+        if not slots:
+            return None, info
+        return ConvexHulls(vertices=np.stack(slots).astype(np.float32)), info
 
     def _build_joints(self, bodies) -> Joints:
         """The impulse-joint table, J rounded up to 8, with the local anchors

@@ -34,8 +34,6 @@ from rapier_tpu_torch.world import (
 
 _PLANE_LOCK = LOCK_TRANSLATION_Z | LOCK_ROTATION_X | LOCK_ROTATION_Y
 _DEPTH = 0.5  # half-thickness of the extruded 2D shapes
-_NEEDS_GJK = ("is not ported: it needs GJK, ROADMAP queue 1 item 3 "
-              "(generic convex shapes)")
 
 
 class RigidBodyBuilder2D(RigidBodyBuilder):
@@ -98,16 +96,42 @@ class ColliderBuilder2D:
 
     @staticmethod
     def segment(a, b) -> ColliderBuilder:
-        raise NotImplementedError(f"ColliderBuilder2D.segment {_NEEDS_GJK}")
+        """A 2D segment: the 3D segment in the z = 0 plane (untagged, so a
+        body holding one keeps the 3D mass properties, as in the
+        reference)."""
+        return ColliderBuilder.segment((a[0], a[1], 0.0), (b[0], b[1], 0.0))
 
     @staticmethod
     def convex_hull(points) -> ColliderBuilder:
-        raise NotImplementedError(f"ColliderBuilder2D.convex_hull {_NEEDS_GJK}")
+        """A 2D convex polygon: its vertices extruded to +-_DEPTH in z as a 3D
+        convex hull for collision; the mass properties are the polygon's."""
+        pts = [(float(x), float(y)) for x, y in points]
+        cb = ColliderBuilder.convex_hull([(x, y, -_DEPTH) for x, y in pts]
+                                         + [(x, y, _DEPTH) for x, y in pts])
+        cb._shape2d = ("polygon", tuple(pts))
+        return cb
 
 
 def _mass_props_2d(kind: str, args, density: float):
     """(mass, I_z about the shape's centre, centroid offset) with AREA
-    density (rapier2d's MassProperties), for a tag of `ColliderBuilder2D`."""
+    density (rapier2d's MassProperties), for a tag of `ColliderBuilder2D`.
+    A polygon's centroid is its offset (its vertices are collider-local, not
+    centred)."""
+    if kind == "polygon":
+        pts = np.asarray(args, float)
+        # Counter-clockwise about the vertex mean (the input is a convex set).
+        c0 = pts.mean(axis=0)
+        pts = pts[np.argsort(np.arctan2(pts[:, 1] - c0[1], pts[:, 0] - c0[0]))]
+        x, y = pts[:, 0], pts[:, 1]
+        x2, y2 = np.roll(x, -1), np.roll(y, -1)
+        cr = x * y2 - x2 * y
+        area2 = np.sum(cr)                   # twice the area, > 0 counter-clockwise
+        cx = np.sum((x + x2) * cr) / (3.0 * area2)
+        cy = np.sum((y + y2) * cr) / (3.0 * area2)
+        i_origin = density * np.sum(
+            cr * (x * x + x * x2 + x2 * x2 + y * y + y * y2 + y2 * y2)) / 12.0
+        m = density * (0.5 * area2)
+        return m, i_origin - m * (cx * cx + cy * cy), (cx, cy)
     if kind == "ball":
         (r,) = args
         m = np.pi * r * r * density

@@ -61,8 +61,8 @@ def initial_batch():
 
 
 def to_reference(state):
-    """A port state (numpy or tensor leaves; with or without joints and
-    meshes) as a reference SceneState with numpy leaves of the reference's
+    """A port state (numpy or tensor leaves; with or without joints, meshes
+    and hulls) as a reference SceneState with numpy leaves of the reference's
     dtypes."""
     import rapier_tpu.types as jt
     from rapier_tpu_torch.types import to_numpy
@@ -73,7 +73,8 @@ def to_reference(state):
                              ("colliders", jt.Colliders, jt.empty_colliders),
                              ("contacts", jt.Contacts, jt.empty_contacts),
                              ("joints", jt.Joints, jt.empty_joints),
-                             ("meshes", jt.MeshData, lambda n: jt.empty_meshes(n, n))):
+                             ("meshes", jt.MeshData, lambda n: jt.empty_meshes(n, n)),
+                             ("hulls", jt.ConvexHulls, jt.empty_hulls)):
         part = getattr(np_state, name)
         if part is None:
             continue
@@ -431,3 +432,170 @@ def assert_scaled(actual, desired, what, tol):
     scale = max(1.0, float(np.max(np.abs(d)))) if d.size else 1.0
     err = float(np.max(np.abs(a - d))) if a.size else 0.0
     assert err <= tol * scale, f"{what}: max |diff| {err:.3e} > {tol} x {scale:.3f}"
+
+
+# ---------------------------------------------------------------------------
+# Seeded convex shape pairs (tests/test_torch_gjk.py and
+# tests/test_torch_convex.py).
+# ---------------------------------------------------------------------------
+
+# Two hulls: the decimated hull of 40 seeded points on an ellipsoid, and an
+# octahedron.
+def convex_hull_table():
+    """``[2, MAX_HULL_VERTS, 3]`` float32 hull slots, built by the port's
+    `_build_hull` (held to the reference's in tests/test_torch_convex.py)."""
+    from rapier_tpu_torch.types import MAX_HULL_VERTS
+    from rapier_tpu_torch.world import _build_hull
+
+    rng = np.random.default_rng(5)
+    d = rng.normal(size=(40, 3))
+    cloud = d / np.linalg.norm(d, axis=1, keepdims=True) * np.array([0.9, 0.6, 0.75])
+    octa = [(0.75, 0, 0), (-0.75, 0, 0), (0, 0.5, 0), (0, -0.5, 0), (0, 0, 0.75), (0, 0, -0.75)]
+    return np.stack([_build_hull(cloud, MAX_HULL_VERTS)[0],
+                     _build_hull(octa, MAX_HULL_VERTS)[0]])
+
+
+def _convex_params(rng, t, touching):
+    """A parameter row of shape type `t` (ShapeType int).  With `touching`,
+    extents are dyadic (exact in float32) and capsules and segments lie on
+    the local Y axis, so an exact stacking is representable."""
+    from rapier_tpu_torch.types import ShapeType as S
+
+    def size(lo=0.3, hi=1.0):
+        return float(rng.choice([0.25, 0.5, 0.75])) if touching else float(rng.uniform(lo, hi))
+
+    def border():
+        return float(rng.choice([0.0625, 0.125])) if touching else float(rng.uniform(0.05, 0.15))
+
+    prm = np.zeros(12, np.float32)
+    if t == S.BALL:
+        prm[0] = size()
+    elif t in (S.CUBOID, S.ROUND_CUBOID):
+        prm[0:3] = [size(), size(), size()]
+        if t == S.ROUND_CUBOID:
+            prm[3] = border()
+    elif t in (S.CAPSULE, S.SEGMENT):
+        if touching:
+            axis = np.array([0.0, 1.0, 0.0])
+        else:
+            axis = rng.normal(size=3)
+            axis /= np.linalg.norm(axis)
+        hh = size(0.2, 0.8)
+        prm[0:3], prm[3:6] = -hh * axis, hh * axis
+        if t == S.CAPSULE:
+            prm[6] = size(0.2, 0.6)
+    elif t in (S.CYLINDER, S.CONE, S.ROUND_CYLINDER, S.ROUND_CONE):
+        prm[0], prm[1] = size(), size()
+        if t in (S.ROUND_CYLINDER, S.ROUND_CONE):
+            prm[2] = border()
+    else:   # CONVEX: a row of the hull table and a border
+        prm[0] = float(rng.integers(2))
+        prm[1] = float(rng.choice([0.0, 0.0625]))
+    return prm
+
+
+def _y_extent(t, prm, hulls):
+    """(top, bottom) of an unrotated shape along Y, border included."""
+    from rapier_tpu_torch.types import ShapeType as S
+
+    if t == S.BALL:
+        return prm[0], prm[0]
+    if t in (S.CUBOID, S.ROUND_CUBOID):
+        e = prm[1] + (prm[3] if t == S.ROUND_CUBOID else 0.0)
+        return e, e
+    if t in (S.CAPSULE, S.SEGMENT):
+        e = prm[4] + (prm[6] if t == S.CAPSULE else 0.0)
+        return e, e
+    if t in (S.CYLINDER, S.CONE, S.ROUND_CYLINDER, S.ROUND_CONE):
+        e = prm[0] + (prm[2] if t in (S.ROUND_CYLINDER, S.ROUND_CONE) else 0.0)
+        return e, e
+    v = hulls[int(prm[0])]
+    return v[:, 1].max() + prm[1], -v[:, 1].min() + prm[1]
+
+
+CONVEX_CASES = ("separated", "deep", "near", "touching")
+
+
+def convex_pairs(seed, cases=CONVEX_CASES):
+    """Seeded lanes of every ordered pair of `narrowphase_convex.SUPPORTED`
+    types, one lane a pair and case: "separated" (centres 4.5 apart, beyond
+    any two shapes' reach), "deep" (0.4 apart: EPA), "near" (1.2 apart:
+    either) in random directions and rotations, and "touching" (unrotated,
+    B stacked on A's top along Y with dyadic extents: the gap is exactly 0,
+    the inflated retry).  Returns (dict of float32 / int32 numpy arrays pA,
+    rA, stA, prmA, pB, rB, stB, prmB [L, ...], the hull table, the case of
+    each lane)."""
+    from rapier_tpu_torch.geometry.narrowphase_convex import SUPPORTED
+
+    rng = np.random.default_rng(seed)
+    hulls = convex_hull_table()
+    rows, case_of = [], []
+    for case in cases:
+        touching = case == "touching"
+        for ta in SUPPORTED:
+            for tb in SUPPORTED:
+                pa, pb = _convex_params(rng, ta, touching), _convex_params(rng, tb, touching)
+                if touching:
+                    ra = rb = np.array([0.0, 0.0, 0.0, 1.0])
+                    top = _y_extent(ta, pa, hulls)[0]
+                    bottom = _y_extent(tb, pb, hulls)[1]
+                    pos_a = np.zeros(3)
+                    pos_b = np.array([float(rng.choice([0.0, 0.125])), np.float32(top)
+                                      + np.float32(bottom), 0.0])
+                else:
+                    ra, rb = _random_quat(rng, ()), _random_quat(rng, ())
+                    d = rng.normal(size=3)
+                    d /= np.linalg.norm(d)
+                    pos_a = rng.normal(0, 0.5, 3)
+                    pos_b = pos_a + d * {"separated": 4.5, "deep": 0.4, "near": 1.2}[case]
+                rows.append((pos_a, ra, int(ta), pa, pos_b, rb, int(tb), pb))
+                case_of.append(case)
+    cols = list(zip(*rows))
+    lanes = dict(pA=np.array(cols[0], np.float32), rA=np.array(cols[1], np.float32),
+                 stA=np.array(cols[2], np.int32), prmA=np.array(cols[3], np.float32),
+                 pB=np.array(cols[4], np.float32), rB=np.array(cols[5], np.float32),
+                 stB=np.array(cols[6], np.int32), prmB=np.array(cols[7], np.float32))
+    return lanes, hulls, np.array(case_of)
+
+
+def lane_hulls(st, prm, hulls):
+    """Each lane's hull vertex slots ``[L, V, 3]`` (hull 0 for a lane that is
+    not CONVEX, as the reference's dispatch gathers)."""
+    from rapier_tpu_torch.types import ShapeType
+
+    idx = np.where(st == int(ShapeType.CONVEX), prm[:, 0].astype(np.int64), 0)
+    return hulls[idx]
+
+
+def witness_verdicts(lanes, ref_lane, port, close, nudge=(("pA", 3), ("pB", 3), ("rA", 4),
+                                                          ("rB", 4))):
+    """Per-lane verdicts of a port kernel against the reference called one
+    lane at a time (`ref_lane(lanes, i)` -> list of numpy results; `port`:
+    the port's results, a list of ``[L, ...]`` arrays; `close(o, r)`):
+    "agree"; else "witness" when the port agrees with the reference run from
+    a start 1 ulp apart (each component of the `nudge` fields, up and down);
+    else "unstable" when such a run itself parts from the reference; else
+    "differs"."""
+    n = len(next(iter(lanes.values())))
+    verdict = []
+    for i in range(n):
+        o = [x[i] for x in port]
+        r = ref_lane(lanes, i)
+        if close(o, r):
+            verdict.append("agree")
+            continue
+        wit = []
+        for key, size in nudge:
+            for ax in range(size):
+                for sign in (1.0, -1.0):
+                    nudged = {k: v.copy() for k, v in lanes.items()}
+                    flat = nudged[key].reshape(n, -1)
+                    flat[i, ax] = np.nextafter(flat[i, ax], np.float32(sign * np.inf))
+                    wit.append(ref_lane(nudged, i))
+        if any(close(o, w) for w in wit):
+            verdict.append("witness")
+        elif any(not close(w, r) for w in wit):
+            verdict.append("unstable")
+        else:
+            verdict.append("differs")
+    return np.array(verdict)

@@ -472,7 +472,9 @@ def test_build_matches_reference(name):
 
 
 def test_build_refuses_pair_keys_past_int32():
-    """C**2 * (T + 1) must stay below 2**31, the reference's int32 range."""
+    """C**2 * (T + 1) must stay below 2**32: the int32 keys wrap past
+    2**31 as the reference's int32 arithmetic does, and would repeat past
+    2**32."""
     from rapier_tpu_torch.world import ColliderBuilder, PhysicsWorld, RigidBodyBuilder
 
     w = PhysicsWorld(collider_capacity=4096, device="cpu")

@@ -7,7 +7,9 @@
   the recomputed 2D mass properties (inverse mass, inverse principal
   inertia, local COM) and the joint anchors shifted by the COM, within 1e-6;
 - the parameters (gravity, the 2x2 block solve) and the Coulomb cache
-  layout; `segment` and `convex_hull` raise, naming ROADMAP queue 1 item 3;
+  layout; `segment` and `convex_hull` build the reference's colliders (they
+  raised before the generic convex shapes were ported: the test keeps its
+  name);
 - `solve_path`: "masked" for a PhysicsWorld2D batch and for a Coulomb
   scene, "blocked" for the full-size `s2d_pyramid_world(100)`;
 - the scenes shared with chip_smoke.py build as tests/test_s2d.py builds
@@ -115,10 +117,20 @@ def test_accessors_match_reference():
 @pytest.mark.parametrize("ctor, args", [("segment", ((0.0, 0.0), (1.0, 0.0))),
                                         ("convex_hull", ([(0, 0), (1, 0), (0, 1)],))])
 def test_gjk_shapes_raise(ctor, args):
+    """The 2D shapes that need GJK no longer raise: each builds the
+    reference's extruded 3D collider (type, parameters, hull points, 2D
+    tag)."""
+    from rapier_tpu.world2d import ColliderBuilder2D as Ref2D
     from rapier_tpu_torch.world2d import ColliderBuilder2D
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        getattr(ColliderBuilder2D, ctor)(*args)
+    port, ref = getattr(ColliderBuilder2D, ctor)(*args), getattr(Ref2D, ctor)(*args)
+    assert int(port.shape_type) == int(ref.shape_type)
+    assert tuple(port.shape_params) == tuple(ref.shape_params)
+    assert getattr(port, "_shape2d", None) == getattr(ref, "_shape2d", None)
+    ref_points = getattr(ref, "_hull_points", None)
+    assert (port.hull_points is None) == (ref_points is None)
+    if ref_points is not None:
+        assert np.array_equal(port.hull_points, ref_points)
 
 
 def test_coulomb_cache_layout():
