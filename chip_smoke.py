@@ -6,7 +6,7 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; each prints its wall time), run in the
-order 1-6, 10, 11, 12, 9, 7, 8:
+order 1-6, 10, 11, 12, 9, 13, 7, 8:
 
 1. Build the contact-sweep kernels from ``rapier_tpu_torch/csrc`` (one nvcc
    call, sm_90a) and print the compiler's register / shared-memory report.
@@ -164,6 +164,33 @@ order 1-6, 10, 11, 12, 9, 7, 8:
    upstream's primitives3 at its size (20 layers of 8 x 8, 1,280 bodies, one
    scene, the masked sweep), 60 + 10 steps; checks zero overflow, finite
    state and no body below the ground; prints steps/s and one traced step.
+13. CCD and the multibody remainder.  (a) Upstream's ccd3
+   (`scenes.ccd3_world`: 5 walls of 8-high box pyramids, two 1000 m/s CCD
+   balls, 183 bodies) as one scene, 6 steps (a clamping step is ~137,000
+   launches), each step's clamps recorded; checks zero
+   broad-phase, solver and CCD overflow, finite state, a clamped step
+   shorter than free flight for each ball, each ball's exit speed below
+   600 m/s (tests/test_ccd.py's bound), the first wall's boxes moved by
+   more than 0.2, one `contact_sweep_kernel` launch a step, and that a
+   ball which crossed a wall's plane inside its silhouette had a clamped
+   step ending at that wall; prints steps/s and the stage breakdown (with
+   `ccd`), launches and busy share of the step that first clamps a ball.
+   (b) 1024 replicas, 4 steps, the last 3 timed: zero
+   overflow, every scene bitwise equal to scene 0; prints env-steps/s,
+   peak memory, the `ccd` stage's milliseconds and the kernel's storage
+   line (ccd3's ~200-350 valid lanes a scene exceed the on-chip capacity:
+   the global scratch).  (c) 4096 `scenes.multibody_arm_world` arms
+   (examples/multibody_arm.py), 80 steps (the example's 300 cut; its
+   checks hold from step ~55): the example's checks on every scene, every
+   scene bitwise equal to scene 0, one folded launch a step (K = 128);
+   prints env-steps/s.  (d) 4096 arms with the elbow's velocity coupled to
+   -1 x the shoulder's, 20 steps: the coupling within 1e-3 relative on
+   every scene.  (e) `inverse_kinematics` on 4096 arms towards targets
+   from seeded joint angles: every target within 2e-3
+   (tests/test_multibody.py's), the CPU's result on the first 1024 within
+   1e-4 of the card's.  Phase 7 adds 2 ccd3 scenes of (b) from the step
+   that first clamps a ball (2 single steps) and 2 arms and 2 coupled arms
+   (10 steps); phase 8 64 ccd3 scenes and 256 arms, 2 steps each.
 
 The line before the last is the kernels' JSON record (with `bound_share`,
 bound over time, and each kernel's resources); the last line is
@@ -171,7 +198,8 @@ bound over time, and each kernel's resources); the last line is
 
 With ``--s2d-only`` the script builds the kernels and runs phase 10 alone,
 with ``--meshes-only`` phase 11 (and (d) under ``--heightfield-full``),
-with ``--convex-only`` phase 12 (and (d) under ``--primitives-full``);
+with ``--convex-only`` phase 12 (and (d) under ``--primitives-full``),
+with ``--ccd-only`` phase 13;
 with ``--rest-steps STEPS`` it steps the ``--pyramid`` stacks (default 31)
 STEPS steps each and prints the top box's distance from rest and vertical
 velocity every 50 steps.  None of these prints the ok line.
@@ -379,6 +407,33 @@ P3_SPEED_BOUND = 2 * P3_REF_SPEED
 ZOO_SETTLE = 20
 P3_FULL_SETTLE = 60
 P3_FULL_TIMED = 10
+# Phase 13: CCD (upstream's ccd3) and the multibody remainder (the arm).
+# A ccd3 step that clamps is ~137,000 launches, 1.8-3.7 s on an H100 (the
+# host sets it), so both ccd3 runs are short: by step 6 both balls have met
+# the first wall, one has crossed the second wall's plane and the other is
+# pinned at that wall.
+CCD3_STEPS = 6                  # one scene
+CCD3_SCENES = 1024
+CCD3_BATCH_STEPS = 4            # the 1024 scenes
+CCD3_TIMED = 3                  # the last 3 of them
+CCD3_EXIT_SPEED = 600.0         # m/s, tests/test_ccd.py:84's bound
+CCD3_BOX_MOVED = 0.2
+CCD3_BAND = 1.0                 # a wall's clamp ends within this of its faces
+CCD3_CPU_STEPS = 2
+CCD3_RERUN_SCENES = 64
+# The example runs 300 steps; its checks hold from step ~55 on (a CPU run
+# of the port), so 80.
+ARM_STEPS = 80
+ARM_CAPTURE = 40                # phases 7 and 8 take the arms after these steps
+ARM_RERUN_SCENES = 256
+COUPLED_STEPS = 20
+COUPLED_CAPTURE = 10
+COUPLING_TOL = 1e-3             # relative
+IK_ITERS = 100
+IK_TARGET_TOL = 2e-3            # tests/test_multibody.py:252's
+IK_CPU_TOL = 1e-4
+IK_CPU_SCENES = 1024            # the CPU repeats the first 1024
+RERUN_STEPS_13 = 2
 
 
 def _fail(msg: str, code: int = 1):
@@ -470,7 +525,7 @@ def run(state, params, n_steps: int):
     import torch
     from rapier_tpu_torch.pipeline.physics_pipeline import step
 
-    keys = ("broadphase_overflow", "solver_overflow", "unsupported_pairs")
+    keys = ("broadphase_overflow", "solver_overflow", "unsupported_pairs", "ccd_overflow")
     worst = None
     for _ in range(n_steps):
         state, ev = step(state, params)
@@ -1181,6 +1236,18 @@ def phase_cpu_agreement(device, captures):
     state, _ = run(state, params, ZOO_SETTLE)
     _cpu_step_agreement(f"2 convex zoo scenes after {ZOO_SETTLE} steps", state, params,
                         steps=P3_CPU_STEPS, witness=None)
+    if "ccd3" in captures:
+        # Phase 13's: ccd3 from the step that first clamps a ball, single
+        # steps from the card's state; the arms free for 10 steps.
+        t0 = time.time()
+        _cpu_step_agreement(f"2 ccd3 scenes from step {captures['ccd3_step']} (the first "
+                            f"ball's first clamp)", *_first(captures["ccd3"], 2),
+                            steps=CCD3_CPU_STEPS, witness=None)
+        _cpu_agreement(f"multibody arm (after {ARM_CAPTURE} steps)", *_first(captures["arm"], 2),
+                       0)
+        _cpu_agreement(f"coupled arm (after {COUPLED_CAPTURE} steps)", *captures["coupled_arm"],
+                       0)
+        print(f"[phase 7, phase 13's scenes: {time.time() - t0:.1f} s]")
 
 
 def _rerun_equal(what, state, params, parts, steps: int = 10):
@@ -1216,6 +1283,12 @@ def phase_determinism(device, captures):
         _rerun_equal(name, state, params, ("bodies", "contacts"), S2D_RERUN)
     _rerun_equal("heightfield3", *captures["heightfield3"], ("bodies", "contacts"))
     _rerun_equal("primitives3", *captures["primitives3"], ("bodies", "contacts"))
+    if "ccd3" in captures:
+        t0 = time.time()
+        _rerun_equal("ccd3", *captures["ccd3"], ("bodies", "contacts"), RERUN_STEPS_13)
+        _rerun_equal("multibody arm", *captures["arm"], ("bodies", "contacts", "multibodies"),
+                     RERUN_STEPS_13)
+        print(f"[phase 8, phase 13's scenes: {time.time() - t0:.1f} s]")
 
 
 def _replicas_equal(what, state, parts):
@@ -1301,8 +1374,9 @@ def phase_joints(device, card):
 
 
 def s2d_batch(device, make, n_scenes: int, **kw):
-    """A 2D scene of `rapier_tpu_torch.scenes` (`make`, a PhysicsWorld2D)
-    replicated to `n_scenes` on `device`: (state, params, handles)."""
+    """A scene of `rapier_tpu_torch.scenes` (`make`; the 2D ones build a
+    PhysicsWorld2D) replicated to `n_scenes` on `device`: (state, params,
+    handles)."""
     from rapier_tpu_torch.scenes import replicate_scene
     from rapier_tpu_torch.types import from_numpy
 
@@ -1955,6 +2029,297 @@ def phase_primitives_full(device, card):
                           trace_steps=TRACE_STEPS_LONG))
 
 
+def _ccd3_one_scene(device, card):
+    """Phase 13(a): upstream's ccd3 as one scene, CCD3_STEPS steps, each
+    step's CCD clamps recorded (the clamp's input and output compared).
+    Returns (the contact kernel's launches, the row, the index of the first
+    step that clamps a ball)."""
+    import numpy as np
+    import torch
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.pipeline import physics_pipeline as pp
+    from rapier_tpu_torch.scenes import (CCD3_BALL_RADIUS, CCD3_BALL_SPEED, CCD3_WALL_ROWS,
+                                         ccd3_world)
+    from rapier_tpu_torch.types import tree_map
+
+    state, params, h = s2d_batch(device, ccd3_world, 1)
+    balls = torch.tensor(h["balls"], device=device)
+    wall0 = torch.tensor(h["boxes"][0], device=device)
+    path = pp.solve_path(state, params)
+    print(f"ccd3: {state.bodies.pos.shape[1]} body slots ({sum(map(len, h['boxes']))} boxes in "
+          f"{len(h['boxes'])} walls, 2 balls at {CCD3_BALL_SPEED:.0f} m/s), "
+          f"P={state.contacts.max_pairs}, enable_ccd {params.enable_ccd}, solve path {path}")
+    if not params.enable_ccd or path != "kernel":
+        _fail(f"ccd3 takes enable_ccd={params.enable_ccd} and the {path} path")
+    clamped, xs, vs, worst = [], [state.bodies.pos[0, balls].clone()], [], None
+    before = []                      # each step's start, for the stage breakdown
+    original = pp.clamp_motions
+
+    def spy(bodies, colliders, p, meshes):
+        out, ovf = original(bodies, colliders, p, meshes)
+        clamped.append(torch.any(out.next_pos[0, balls] != bodies.next_pos[0, balls], dim=-1))
+        return out, ovf
+
+    box0 = state.bodies.pos[0, wall0].clone()
+    cs.KERNEL.launches = cs.KERNEL.launches_folded = 0
+    pp.clamp_motions = spy
+    try:
+        t0 = time.time()
+        for _ in range(CCD3_STEPS):
+            before.append(tree_map(lambda x: x.clone(), state))
+            state, ev = pp.step(state, params)
+            now = torch.stack([ev.broadphase_overflow.max(), ev.solver_overflow.max(),
+                               ev.ccd_overflow.max()])
+            worst = now if worst is None else torch.maximum(worst, now)
+            xs.append(state.bodies.pos[0, balls].clone())
+            vs.append(state.bodies.linvel[0, balls].clone())
+        torch.cuda.synchronize()
+        elapsed = time.time() - t0
+    finally:
+        pp.clamp_motions = original
+    launches = cs.KERNEL.launches, cs.KERNEL.launches_folded
+    worst = dict(zip(("broadphase_overflow", "solver_overflow", "ccd_overflow"),
+                     worst.tolist()))
+    _finite(state)
+    pos = torch.stack(xs).cpu().numpy()                      # [steps + 1, 2, 3]
+    cl = torch.stack(clamped).cpu().numpy()                  # [steps, 2]
+    exit_speed = torch.linalg.norm(torch.stack(vs)[-1], dim=-1).cpu().numpy()
+    moved = float(torch.linalg.norm(state.bodies.pos[0, wall0] - box0, dim=-1).max())
+    disp = np.abs(np.diff(pos[..., 0], axis=0))             # [steps, 2]
+    free = CCD3_BALL_SPEED * float(params.dt)
+    first = int(np.flatnonzero(cl.any(axis=1))[0]) if cl.any() else -1
+    print(f"ccd3, one scene: {CCD3_STEPS / elapsed:.3f} steps/s ({CCD3_STEPS} steps in "
+          f"{elapsed:.3f} s, each step's clamps read back; {card}); overflow {worst}; "
+          f"contact solve: {path}, contact_sweep_kernel {launches[0]} launches, folded "
+          f"{launches[1]}")
+    for b in range(2):
+        steps = np.flatnonzero(cl[:, b])
+        print(f"ccd3 ball {b}: clamped in steps {steps.tolist()}, x after each step "
+              f"{np.round(pos[1:, b, 0], 3).tolist()}, exit speed {exit_speed[b]:.2f} m/s")
+    print(f"ccd3: first wall's boxes moved up to {moved:.3f} (above {CCD3_BOX_MOVED}); the "
+          f"first clamp in step {first}")
+    if any(worst.values()):
+        _fail(f"ccd3 overflows: {worst}")
+    if launches != (CCD3_STEPS, 0):
+        _fail(f"ccd3: expected {CCD3_STEPS} contact_sweep_kernel launches, counted {launches}")
+    for b in range(2):
+        if not (cl[:, b] & (disp[:, b] < free)).any():
+            _fail(f"ccd3: ball {b} has no clamped step shorter than free flight ({free:.2f})")
+        if not exit_speed[b] < CCD3_EXIT_SPEED:
+            _fail(f"ccd3: ball {b} leaves at {exit_speed[b]} m/s (walls were ghosts)")
+        # A wall whose plane the ball crossed inside the wall's silhouette
+        # (row i spans y in [i, i + 1] and |z| <= rows - i) needs a clamped
+        # step that ended at that wall.
+        for x_w in h["wall_x"]:
+            if pos[-1, b, 0] <= x_w + 0.5 + CCD3_BALL_RADIUS:
+                continue
+            k = int(np.flatnonzero(pos[1:, b, 0] > x_w)[0])
+            f = (x_w - pos[k, b, 0]) / max(pos[k + 1, b, 0] - pos[k, b, 0], 1e-9)
+            y, z = pos[k, b, 1:] + f * (pos[k + 1, b, 1:] - pos[k, b, 1:])
+            rows = np.arange(CCD3_WALL_ROWS)
+            inside = ((np.abs(y - (rows + 0.5)) < 0.5 + CCD3_BALL_RADIUS)
+                      & (np.abs(z) < CCD3_WALL_ROWS - rows + CCD3_BALL_RADIUS)).any()
+            ends = pos[1:, b, 0][cl[:, b]]
+            near = (ends >= x_w - 0.5 - CCD3_BALL_RADIUS - CCD3_BAND) & (
+                ends <= x_w + 0.5 + CCD3_BALL_RADIUS + CCD3_BAND)
+            print(f"ccd3 ball {b} crossed the wall at x = {x_w} at y {y:.3f}, z {z:.3f} "
+                  f"({'inside' if inside else 'outside'} its silhouette; clamped there: "
+                  f"{bool(near.any())})")
+            if inside and not near.any():
+                _fail(f"ccd3: ball {b} passed through the wall at x = {x_w} without a "
+                      "clamped step there")
+    if not moved > CCD3_BOX_MOVED:
+        _fail(f"ccd3: the first wall's boxes moved only {moved}")
+    row = dict(steps_per_s=CCD3_STEPS / elapsed, path=path, **worst,
+               exit_speed=exit_speed.tolist(), first_clamp_step=first,
+               **_stages("ccd3, the step that first clamps a ball, one scene", before[first],
+                         params, card, trace_steps=TRACE_STEPS_LONG))
+    return launches[0], row, first
+
+
+def _ccd3_batch(device, card, first: int):
+    """Phase 13(b): CCD3_SCENES replicas of ccd3, CCD3_BATCH_STEPS steps, the
+    last CCD3_TIMED timed.  Returns (the row, the batch's first
+    CCD3_RERUN_SCENES scenes before step `first`, with the params)."""
+    import torch
+    from rapier_tpu_torch.scenes import ccd3_world
+    from rapier_tpu_torch.types import tree_map
+    from rapier_tpu_torch.utils import counters
+
+    state, params, _ = s2d_batch(device, ccd3_world, CCD3_SCENES)
+    state, worst = run(state, params, first)
+    capture = (tree_map(lambda x: x[:CCD3_RERUN_SCENES].clone(), state), params)
+    ccd_ms = counters.profile_step(state, params, iters=1).as_dict()["ccd_ms"]
+    state, w2 = run(state, params, max(0, CCD3_BATCH_STEPS - CCD3_TIMED - first))
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state, w3 = run(state, params, CCD3_TIMED)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    worst = {k: max(worst[k], w2[k], w3[k]) for k in worst}
+    rate = CCD3_SCENES * CCD3_TIMED / elapsed
+    print(f"ccd3 x {CCD3_SCENES}: {rate:.1f} env-steps/s ({CCD3_TIMED} steps in {elapsed:.3f} s "
+          f"after {CCD3_BATCH_STEPS - CCD3_TIMED}; {card}); peak device memory "
+          f"{peak / 2**30:.3f} GiB; "
+          f"the ccd stage {ccd_ms:.3f} ms of the step that first clamps a ball; overflow "
+          f"{worst}")
+    if worst["broadphase_overflow"] or worst["solver_overflow"] or worst["ccd_overflow"]:
+        _fail(f"ccd3 x {CCD3_SCENES} overflows: {worst}")
+    _finite(state)
+    _replicas_equal(f"ccd3 x {CCD3_SCENES}", state, ("bodies", "contacts"))
+    print(f"ccd3 x {CCD3_SCENES}: all scenes bitwise equal to scene 0 after "
+          f"{CCD3_BATCH_STEPS} steps")
+    # ~500 valid lanes a scene: past the on-chip capacity, in the global scratch.
+    storage = _next_step_storage(f"ccd3 x {CCD3_SCENES}, the step after the run", state,
+                                 params, False, must_fit=False)
+    return dict(env_steps_per_s=rate, peak_memory_bytes=peak, ccd_ms=ccd_ms, **worst,
+                **storage), capture
+
+
+def _arm_checks(what, state, h, mb_tree=0):
+    """examples/multibody_arm.py's checks on every scene."""
+    import torch
+    from rapier_tpu_torch.scenes import ARM_SHOULDER_TARGET
+
+    q = state.multibodies.q[:, mb_tree, 1, 5]
+    p = state.bodies.pos[:, h["ball"]]
+    knocked = ((p[:, 0] - 1.8).abs() > 0.4) | (p[:, 1] < 0.6)
+    print(f"{what}: shoulder angle {float(q[0]):.4f} rad (target {ARM_SHOULDER_TARGET}; "
+          f"every scene below -0.9: {bool((q < -0.9).all())}), ball at "
+          f"{[round(v, 3) for v in p[0].tolist()]} (knocked off in "
+          f"{int(knocked.sum())} of {q.shape[0]} scenes)")
+    if not (bool((q < -0.9).all()) and bool(knocked.all())):
+        _fail(f"{what}: the example's checks fail")
+    if not bool(torch.isfinite(q).all()):
+        _fail(f"{what}: non-finite joint angles")
+
+
+def _arms(device, card):
+    """Phase 13(c), (d): N_SCENES arms for ARM_STEPS steps, N_SCENES coupled
+    arms for COUPLED_STEPS.  Returns (the folded kernel's launches, the row,
+    the captures for phases 7 and 8)."""
+    import torch
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.pipeline.physics_pipeline import solve_path
+    from rapier_tpu_torch.scenes import multibody_arm_world
+    from rapier_tpu_torch.types import tree_map
+
+    state, params, h = s2d_batch(device, multibody_arm_world, N_SCENES)
+    path, k = solve_path(state, params), state.contacts.max_pairs
+    cs.KERNEL.launches = cs.KERNEL.launches_folded = 0
+    t0 = time.time()
+    state, worst = run(state, params, ARM_CAPTURE)
+    capture = (tree_map(lambda x: x[:ARM_RERUN_SCENES].clone(), state), params)
+    state, w2 = run(state, params, ARM_STEPS - ARM_CAPTURE)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    launches = cs.KERNEL.launches, cs.KERNEL.launches_folded
+    worst = {key: max(worst[key], w2[key]) for key in worst}
+    rate = N_SCENES * ARM_STEPS / elapsed
+    print(f"multibody arm x {N_SCENES}: {rate:.1f} env-steps/s ({ARM_STEPS} steps in "
+          f"{elapsed:.3f} s; {card}); K={k}, solve path {path}: folded {launches[1]} launches, "
+          f"contact_sweep_kernel {launches[0]}; overflow {worst}")
+    if any(worst.values()):
+        _fail(f"multibody arm overflows: {worst}")
+    if path != "kernel" or launches != ((0, ARM_STEPS) if k <= 128 else (ARM_STEPS, 0)):
+        _fail(f"multibody arm: path {path}, launches {launches} at K={k}")
+    _finite(state)
+    _arm_checks(f"multibody arm after {ARM_STEPS} steps", state, h)
+    _replicas_equal("multibody arm", state, ("bodies", "contacts", "multibodies"))
+    print(f"multibody arm: all {N_SCENES} scenes bitwise equal to scene 0")
+    row = dict(env_steps_per_s=rate, k=k, **worst)
+
+    cstate, cparams, _ = s2d_batch(device, multibody_arm_world, N_SCENES, coupled=True)
+    t0 = time.time()
+    cstate, cw = run(cstate, cparams, COUPLED_CAPTURE)
+    ccapture = (tree_map(lambda x: x[:2].clone(), cstate), cparams)
+    cstate, cw2 = run(cstate, cparams, COUPLED_STEPS - COUPLED_CAPTURE)
+    torch.cuda.synchronize()
+    crate = N_SCENES * COUPLED_STEPS / (time.time() - t0)
+    _finite(cstate)
+    qd = cstate.multibodies.qd[:, 0]
+    shoulder, elbow = qd[:, 1 * 6 + 5], qd[:, 2 * 6 + 5]
+    rel = float(((elbow + shoulder).abs() / shoulder.abs().clamp(min=1e-6)).max())
+    print(f"coupled arm x {N_SCENES}: {crate:.1f} env-steps/s over {COUPLED_STEPS} steps; "
+          f"elbow qd {float(elbow[0]):.6f} vs -1 x shoulder qd {float(-shoulder[0]):.6f} in "
+          f"scene 0; worst relative gap over the scenes {rel:.3e} (tol {COUPLING_TOL}); "
+          f"overflow {dict((key, max(cw[key], cw2[key])) for key in cw)}")
+    if not rel <= COUPLING_TOL:
+        _fail(f"coupled arm: the coupling is off by {rel} relative")
+    row.update(coupled_env_steps_per_s=crate, coupling_rel_gap=rel)
+    return launches[1] if k <= 128 else launches[0], row, capture, ccapture
+
+
+def _ik(device, card):
+    """Phase 13(e): inverse kinematics on N_SCENES arms towards targets from
+    seeded joint angles, on the card and on the CPU."""
+    import numpy as np
+    import torch
+    from rapier_tpu_torch.dynamics import multibody as mbm
+    from rapier_tpu_torch.scenes import multibody_arm_world
+    from rapier_tpu_torch.types import tree_map
+
+    state, _, _ = s2d_batch(device, multibody_arm_world, N_SCENES)
+    mb, bodies = state.multibodies, state.bodies
+    rng = np.random.default_rng(13)
+    ang = torch.from_numpy(rng.uniform(-1.2, -0.3, (N_SCENES, 3)).astype(np.float32)).to(device)
+    q, jr = mb.q.clone(), torch.zeros_like(mb.joint_rot)
+    q[:, 0, 1:, 5] = ang
+    jr[:, 0, :, 3] = 1.0
+    jr[:, 0, 1:, 2], jr[:, 0, 1:, 3] = torch.sin(ang / 2), torch.cos(ang / 2)
+    posed = mb.replace(q=q, joint_rot=jr)
+    target = mbm.forward_kinematics(posed, bodies, *mbm._root_pose(posed, bodies))[0][:, :, 3]
+    link = torch.full((N_SCENES, 1), 3, device=device)
+    rot = torch.zeros((N_SCENES, 1, 4), device=device)
+    rot[..., 3] = 1.0
+    # eps 0: every scene runs all IK_ITERS iterations on both devices (an
+    # early stop compares a float32 error with eps, a tie between devices).
+    kw = dict(damping=0.5, max_iters=IK_ITERS, constrained_axes=0b000111, eps_linear=0.0,
+              eps_angular=0.0)
+
+    def solve(mb_, bodies_, link_, target_, rot_):
+        out = mbm.inverse_kinematics(mb_, bodies_, link_, target_, rot_, **kw)
+        end = mbm.forward_kinematics(out, bodies_, *mbm._root_pose(out, bodies_))[0][:, :, 3]
+        return out, end
+
+    t0 = time.time()
+    out, end = solve(mb, bodies, link, target, rot)
+    torch.cuda.synchronize()
+    card_s = time.time() - t0
+    cpu = tree_map(lambda x: x[:IK_CPU_SCENES].cpu(), state)
+    t0 = time.time()
+    out_c, _ = solve(cpu.multibodies, cpu.bodies, *(x[:IK_CPU_SCENES].cpu()
+                                                    for x in (link, target, rot)))
+    cpu_s = time.time() - t0
+    gap = float((out.q[:IK_CPU_SCENES].cpu() - out_c.q).abs().max())
+    miss = float(torch.linalg.norm(end - target, dim=-1).max())
+    print(f"inverse kinematics on {N_SCENES} arms, {IK_ITERS} iterations: {card_s:.3f} s on "
+          f"the card ({card}), {cpu_s:.3f} s on the CPU for its first {IK_CPU_SCENES}; card vs "
+          f"CPU max |d q| {gap:.3e} (tol "
+          f"{IK_CPU_TOL}); worst distance to the target {miss:.3e} (tol {IK_TARGET_TOL})")
+    if not (gap <= IK_CPU_TOL and miss <= IK_TARGET_TOL):
+        _fail("inverse kinematics misses its targets or disagrees with the CPU")
+    return dict(ik_card_s=card_s, ik_cpu_gap=gap, ik_worst_miss=miss)
+
+
+def phase_ccd_multibody(device, card):
+    """Phase 13: CCD (upstream's ccd3) and the multibody remainder (the
+    arm, its dof coupling, inverse kinematics).  Returns (the launches by
+    path, the rows, the captures phases 7 and 8 reuse)."""
+    t_phase = time.time()
+    ccd3_launches, one, first = _ccd3_one_scene(device, card)
+    batch, ccd3_capture = _ccd3_batch(device, card, first)
+    arm_launches, arm, arm_capture, coupled_capture = _arms(device, card)
+    arm.update(_ik(device, card))
+    print(f"[phase 13: {time.time() - t_phase:.1f} s]")
+    captures = dict(ccd3=ccd3_capture, ccd3_step=first, arm=arm_capture,
+                    coupled_arm=coupled_capture)
+    return (dict(ccd3=ccd3_launches, multibody_arm=arm_launches),
+            dict(ccd3=one, ccd3_batch=batch, multibody_arm=arm), captures)
+
+
 LANE_KEYS = ("b1", "b2", "valid", "color", "normal", "point", "point_active", "dist",
              "friction", "restitution", "prev_impulse", "ws_n", "ws_t", "ws_tw",
              "dyn1", "dyn2")
@@ -2112,6 +2477,8 @@ def main():
     ap.add_argument("--convex-only", action="store_true",
                     help="run the build and phase 12(a), (b) (with (d) under "
                          "--primitives-full) only")
+    ap.add_argument("--ccd-only", action="store_true",
+                    help="run the build and phase 13 (CCD and the multibody remainder) only")
     args = ap.parse_args()
     try:
         import torch
@@ -2166,6 +2533,11 @@ def main():
         print(json.dumps({"convex": rows, "card": card}))
         return
 
+    if args.ccd_only:
+        print(json.dumps({"ccd_multibody": phase(phase_ccd_multibody, device, card)[1],
+                          "card": card}))
+        return
+
     block = phase(phase_kernel, device, card)
     folded, quadrupeds = phase(phase_folded_kernel, device, card)
     block["launches"], _, bench_stages, bench = phase(phase_main_path, device, card)
@@ -2182,21 +2554,25 @@ def main():
     if args.primitives_full:
         convex["primitives3_full"] = phase(phase_primitives_full, device, card)
     joints, joints3 = phase(phase_joints, device, card)
+    by_path, ccd_multibody, ccd_captures = phase(phase_ccd_multibody, device, card)
     captures = dict(bench=bench, quadruped=quadrupeds, pyramid=pyramid16, s2d_big=s2d_big,
-                    heightfield3=hf_in_contact, primitives3=p3_in_contact, joints3=joints3)
+                    heightfield3=hf_in_contact, primitives3=p3_in_contact, joints3=joints3,
+                    **ccd_captures)
     phase(phase_cpu_agreement, device, captures)
     phase(phase_determinism, device, captures)
     print(f"[all phases, the build included: {time.time() - start:.1f} s of the 1,200 allowed]")
 
     print(json.dumps({"pyramid": pyramids, "s2d": s2d, "bench_step": bench_stages,
-                      "joints": joints, "meshes": meshes, "convex": convex, "card": card}))
+                      "joints": joints, "meshes": meshes, "convex": convex,
+                      "ccd_multibody": ccd_multibody, "card": card}))
     # Each path's launches, its counts set to 0 just before it and read just
     # after; `launches` is the bench's, the contract's main path.
     block["launches_by_path"] = {"bench": block["launches"], "heightfield3": hf_launches,
-                                 "primitives3": p3_launches}
+                                 "primitives3": p3_launches, "ccd3": by_path["ccd3"]}
     block["heightfield3_k640"] = hf_kernel
     block["primitives3_k256"] = p3_kernel
-    folded["launches_by_path"] = {"robots": folded["launches"]}
+    folded["launches_by_path"] = {"robots": folded["launches"],
+                                  "multibody_arm": by_path["multibody_arm"]}
     source = "rapier_tpu_torch/csrc/contact_sweep.cu"
     print(json.dumps({"kernels": [
         {"name": "contact_sweep_kernel", "route": "cuda", "source": source,

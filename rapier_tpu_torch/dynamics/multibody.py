@@ -9,17 +9,18 @@ body fields ``[B, N, ...]`` and solver-body tables ``[B, d, N+1]``.  The
 arithmetic follows the reference term by term: forward kinematics, body
 Jacobians by the parent-shift recursion, the augmented generalized mass
 matrix, generalized forces (gravity, motors, limits, springs, damping,
-armature), a Cholesky forward-dynamics solve, joint-space integration, and
-the three phases of two-way contact coupling around the contact solve
-(A `predict_velocities`, B `install_link_mobility`, C
-`absorb_contact_impulses`).
+armature), a Cholesky forward-dynamics solve, the dof couplings' projection
+(`apply_couplings`), joint-space integration, the standalone sub-step
+(`step_multibodies`), the three phases of two-way contact coupling around
+the contact solve (A `predict_velocities`, B `install_link_mobility`, C
+`absorb_contact_impulses`) and damped-least-squares inverse kinematics
+(`inverse_kinematics`).
 
 The reference computes all of this in plain `jnp`, outside its Pallas
 kernels, so plain torch ops are the port: `cho_factor`/`cho_solve` become
-`torch.linalg.cholesky`/`torch.cholesky_solve`, and the one-hot routing
-einsums stay einsums (a one-hot product is exact).  Holonomic dof couplings
-(`apply_couplings`) and inverse kinematics are not ported: a state with an
-active coupling raises.
+`torch.linalg.cholesky`/`torch.cholesky_solve`, `jnp.linalg.solve`
+`torch.linalg.solve`, the fixed-iteration `fori_loop` a Python loop, and
+the one-hot routing einsums stay einsums (a one-hot product is exact).
 """
 
 from __future__ import annotations
@@ -384,12 +385,30 @@ def forward_dynamics(mb: Multibodies, bodies, gravity, dt, root_pos, root_rot):
 
 
 def apply_couplings(mb: Multibodies, qd, chol):
-    """Dof couplings are not ported: with every coupling slot inactive the
-    reference's projection returns qd unchanged; an active one raises."""
-    if mb.coupling_a.numel() and bool(torch.any((mb.coupling_a >= 0)
-                                                & (mb.coupling_b >= 0))):
-        raise NotImplementedError("multibody dof couplings are not ported")
-    return qd
+    """Project qd ``[B, M, D6]`` onto the dof couplings qd[a] = ratio * qd[b]
+    in the mass-matrix metric: qd + A^-1 C^T lambda with C (qd + A^-1 C^T
+    lambda) = 0, A's Cholesky factor `chol` from phase A.  Inactive slots get
+    unit diagonals (plus 1e-9 on every diagonal) so the small solve stays
+    regular; `coupling_offset` is a position-level term the velocity
+    projection does not use.  Without an active coupling in the batch the
+    projection is the identity, and qd is returned as it is."""
+    d6, kc = mb.d6, mb.coupling_a.shape[-1]
+    act = (mb.coupling_a >= 0) & (mb.coupling_b >= 0)                # [B, M, K]
+    if not bool(torch.any(act)):
+        return qd
+    eye = torch.arange(d6, device=qd.device)
+    ia = torch.clamp(mb.coupling_a, 0, d6 - 1).unsqueeze(-1)
+    ib = torch.clamp(mb.coupling_b, 0, d6 - 1).unsqueeze(-1)
+    rows = ((ia == eye).to(torch.float32)
+            - mb.coupling_ratio.unsqueeze(-1) * (ib == eye).to(torch.float32)
+            ) * act.unsqueeze(-1)                                  # [B, M, K, D6]
+    viol = torch.einsum("bmkd,bmd->bmk", rows, qd)
+    aic = torch.cholesky_solve(rows.transpose(-1, -2), chol)       # [B, M, D6, K]
+    s = torch.einsum("bmkd,bmdj->bmkj", rows, aic)
+    inact = 1.0 - act.to(torch.float32)
+    s = s + torch.eye(kc, device=qd.device) * (1e-9 + inact).unsqueeze(-2)
+    lam = torch.linalg.solve(s, -viol.unsqueeze(-1)).squeeze(-1) * act
+    return qd + torch.einsum("bmdj,bmj->bmd", aic, lam)
 
 
 def integrate(mb: Multibodies, dt) -> Multibodies:
@@ -453,6 +472,19 @@ def _root_pose(mb: Multibodies, bodies):
     root_pos = torch.gather(bodies.pos, 1, lb0.unsqueeze(-1).expand(lb0.shape + (3,)))
     root_rot = torch.gather(bodies.rot, 1, lb0.unsqueeze(-1).expand(lb0.shape + (4,)))
     return root_pos, root_rot
+
+
+def step_multibodies(mb: Multibodies, bodies, gravity, dt, next_only: bool = False):
+    """A multibody sub-step on its own: forward dynamics, the qd update, the
+    couplings, joint integration, FK and the links' bodies (their next pose
+    only with `next_only`).  Returns (mb, bodies, aux)."""
+    root_pos, root_rot = _root_pose(mb, bodies)
+    qdd, aux = forward_dynamics(mb, bodies, gravity, dt, root_pos, root_rot)
+    mb = integrate(mb.replace(qd=apply_couplings(mb, mb.qd + qdd * dt, aux["chol"])), dt)
+    l2w_pos, l2w_rot = forward_kinematics(mb, bodies, root_pos, root_rot)
+    jac, _c, _a, _m, _pr, _pf, valid = compute_jacobians(mb, l2w_pos, l2w_rot, bodies)
+    bodies = write_back_bodies(mb, bodies, l2w_pos, l2w_rot, jac, valid, next_only=next_only)
+    return mb, bodies, aux
 
 
 def predict_velocities(mb: Multibodies, bodies, gravity, dt):
@@ -541,3 +573,54 @@ def absorb_contact_impulses(mb: Multibodies, bodies, sb, aux, dt):
         angvel=torch.where(il, torch.einsum("bmln,bmlk->bnk", oh, vel_f[..., 3:]),
                            bodies.angvel))
     return mb, bodies
+
+
+def inverse_kinematics(mb: Multibodies, bodies, target_link, target_pos, target_rot, *,
+                       damping: float = 1.0, max_iters: int = 10,
+                       constrained_axes: int = 0b111111, eps_linear: float = 1.0e-3,
+                       eps_angular: float = 1.0e-3, joint_can_move=None) -> Multibodies:
+    """Move each articulation's `target_link` towards a world pose by
+    `max_iters` damped-least-squares steps dq = J^T (J J^T + damping^2 I)^-1
+    delta, each realised through the joint-space integrator (limits hold).
+
+    target_link ``[B, M]`` (-1 leaves the articulation as it is),
+    target_pos ``[B, M, 3]`` (the link body's origin), target_rot ``[B, M,
+    4]``; `constrained_axes` the JointAxesMask bits of the pose axes solved
+    for; `joint_can_move` ``[B, M, L]`` bool, False freezing a link's dofs.
+    An articulation within eps_linear and eps_angular stops moving.  Returns
+    the Multibodies with new q and joint_rot and qd as it was."""
+    l = mb.l
+    dev = mb.q.device
+    act = target_link >= 0                                           # [B, M]
+    link_oh = (torch.clamp(target_link, 0, l - 1).unsqueeze(-1)
+               == torch.arange(l, device=dev)).to(torch.float32) * act.unsqueeze(-1)
+    axes = torch.tensor([float((constrained_axes >> k) & 1) for k in range(SPATIAL)],
+                        device=dev)
+    if joint_can_move is None:
+        col_mask = torch.ones(mb.qd.shape, device=dev)
+    else:
+        col_mask = torch.repeat_interleave(joint_can_move.to(torch.float32), SPATIAL, dim=-1)
+    root_pos, root_rot = _root_pose(mb, bodies)
+    saved_qd = mb.qd
+    reg = (damping * damping) * torch.eye(SPATIAL, device=dev)
+    for _ in range(max_iters):
+        l2w_pos, l2w_rot = forward_kinematics(mb, bodies, root_pos, root_rot)
+        jac, coms, _a, _m, _pr, _pf, _v = compute_jacobians(mb, l2w_pos, l2w_rot, bodies)
+        # The target link's rows, the linear ones moved from its COM to its
+        # origin (v_o = v_com + w x (o - com)).
+        jt = torch.einsum("bml,bmlak->bmak", link_oh, jac)          # [B, M, 6, D6]
+        r = torch.einsum("bml,bmlk->bmk", link_oh, l2w_pos - coms)
+        jt = torch.cat([jt[..., :3, :] + (-_cross_mat(r)) @ jt[..., 3:, :], jt[..., 3:, :]],
+                       dim=-2) * col_mask.unsqueeze(-2)
+        pose_p = torch.einsum("bml,bmlk->bmk", link_oh, l2w_pos)
+        pose_r = quat.normalize(torch.einsum("bml,bmlk->bmk", link_oh, l2w_rot))
+        delta = torch.cat([target_pos - pose_p,
+                           quat.to_scaled_axis(quat.mul(target_rot, quat.conj(pose_r)))],
+                          dim=-1) * axes
+        live = act & ((torch.linalg.norm(delta[..., :3], dim=-1) > eps_linear)
+                      | (torch.linalg.norm(delta[..., 3:], dim=-1) > eps_angular))
+        jj = torch.einsum("bmak,bmck->bmac", jt, jt) + reg
+        y = torch.linalg.solve(jj, delta.unsqueeze(-1)).squeeze(-1)
+        dq = torch.einsum("bmak,bma->bmk", jt, y) * live.unsqueeze(-1).to(torch.float32)
+        mb = integrate(mb.replace(qd=dq), 1.0).replace(qd=mb.qd)
+    return mb.replace(qd=saved_qd)

@@ -10,7 +10,8 @@ join against the contact cache, the contact filter of impulse joints and
 link-parent pairs, started/stopped events, wake propagation over contacts
 and joints, the link mobility install (phase B), the joint and contact
 solve, writeback, the multibody impulse absorption with joint integration
-(phase C), sleeping, and the new contact cache with `StepEvents`.
+(phase C), CCD motion clamping (`dynamics/ccd.py`, when params.enable_ccd),
+sleeping, and the new contact cache with `StepEvents`.
 
 The contact solve takes the reference's path for the scene (`solve_path`,
 physics_pipeline.py:554-562, :664-667): the contact-sweep kernel (the
@@ -24,8 +25,8 @@ before the contact passes.
 
 Every convex shape of the reference is carried: the analytic pair kernels,
 the generic GJK/EPA fallback (`geometry/narrowphase_convex.py`), the
-halfspace kernels and the convex hulls (the `hulls` slot).  Not ported
-(NotImplementedError): multibody dof couplings, CCD, hooks, f64.
+halfspace kernels and the convex hulls (the `hulls` slot).  Not ported:
+hooks (the step takes none) and f64 (NotImplementedError).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from rapier_tpu_torch.dynamics import multibody as mbmod
+from rapier_tpu_torch.dynamics.ccd import clamp_motions
 from rapier_tpu_torch.dynamics.solver import velocity_solver as vs
 from rapier_tpu_torch.dynamics.solver import contact_constraints as cc
 from rapier_tpu_torch.dynamics.solver import contact_constraints_coulomb as ccc
@@ -177,8 +179,6 @@ def solve_path(state: SceneState, params: SimParams) -> str:
     reference's Pallas path), "blocked" (the blocked solve, above the dense
     routing limit) or "masked" (the masked color sweep, and every scene
     with impulse joints or the Coulomb friction model)."""
-    if params.enable_ccd:
-        raise NotImplementedError("CCD is not ported")
     if state.bodies.pos.dtype != torch.float32:
         raise NotImplementedError(f"{state.bodies.pos.dtype} scenes are not ported "
                                   "(the port is float32, like the reference's kernels)")
@@ -638,7 +638,12 @@ def step(state: SceneState, params: SimParams):
         multibodies, bodies = mbmod.absorb_contact_impulses(
             multibodies, bodies, sb, mb_aux, dt)
 
-    # 7. Advance to the final positions.
+    # 7. CCD motion clamping (physics_pipeline.py:949-958), then advance to
+    #    the final positions.
+    ccd_overflow = torch.zeros((bsz,), dtype=torch.int32, device=dev)
+    if params.enable_ccd:
+        with stage("ccd"):
+            bodies, ccd_overflow = clamp_motions(bodies, colliders, params, state.meshes)
     bodies = dataclasses.replace(bodies, pos=bodies.next_pos,
                                  rot=quat.normalize(bodies.next_rot))
 
@@ -693,7 +698,6 @@ def step(state: SceneState, params: SimParams):
     new_state = SceneState(bodies=bodies, colliders=colliders, contacts=contacts,
                            step_count=state.step_count + 1, multibodies=multibodies,
                            joints=joints, meshes=state.meshes, hulls=state.hulls)
-    zero_b = torch.zeros((bsz,), dtype=torch.int32, device=dev)
     events = StepEvents(
         started_pairs=started & collision_gate,
         stopped_keys=prev_c.pair_key,
@@ -707,7 +711,7 @@ def step(state: SceneState, params: SimParams):
         intersecting=man.sensor & man.touching,
         broadphase_overflow=bp_overflow,
         unsupported_pairs=man.unsupported,
-        ccd_overflow=zero_b,
+        ccd_overflow=ccd_overflow,
         solver_overflow=solver_overflow,
     )
     return new_state, events

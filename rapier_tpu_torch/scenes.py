@@ -9,6 +9,7 @@ from rapier_tpu_torch.types import tree_map
 from rapier_tpu_torch.world import (
     ColliderBuilder,
     FixedJointBuilder,
+    GenericJointBuilder,
     PhysicsWorld,
     PrismaticJointBuilder,
     RevoluteJointBuilder,
@@ -516,6 +517,94 @@ def _heightfield3_shape(kind: int, rad: float):
         ((rad, 0.0, 0.0), ident, ColliderBuilder.cuboid(rad / 2.0, rad, rad / 2.0)),
         ((-rad, 0.0, 0.0), ident, ColliderBuilder.cuboid(rad / 2.0, rad, rad / 2.0)),
     ])
+
+
+# ccd3 (SURVEY.md:521-524): 5 walls, each an 8-high pyramid of boxes.
+CCD3_WALLS = 5
+CCD3_WALL_ROWS = 8
+CCD3_WALL_SPACING = 10.0
+CCD3_BALL_SPEED = 1000.0
+CCD3_BALL_RADIUS = 0.5
+
+
+def ccd3_world(walls: int = CCD3_WALLS, rows: int = CCD3_WALL_ROWS, **world_kw):
+    """Upstream's ccd3 (examples3d/ccd3.rs:39-102, as SURVEY.md:521-524
+    describes it): a ground of half-extents 50 x 0.1, `walls` walls each a
+    `rows`-high pyramid of boxes of half-extents (0.5, 0.5, 1.0) (180 boxes
+    at 5 x 8), and two density-10 balls at linvel (1000, 0, 0) with CCD, one
+    of them also with soft CCD.  The upstream file is not in this checkout,
+    so the layout is a reconstruction: the walls stand across the balls'
+    path (boxes side by side along z, rows stacked in y, each row centred on
+    z = 0) at x = 0, 10, 20, ... (CCD3_WALL_SPACING, the spacing of
+    tests/test_ccd.py's ccd3 flavour; at 6 m the second ball meets the
+    first wall's debris and the next wall in one sweep, more than the 16
+    candidates a CCD collider keeps, and CCD drops 2); the balls take the
+    reference's own ccd3 flavour (tests/test_ccd.py: radius 0.5, density 10,
+    at y = 2, where two rows meet) and start at x = -20, one at z = -2.5,
+    the other, with soft_ccd_prediction 1.0, at z = +2.5 (each row's box
+    there is a whole box, not a seam).  Returns (world, {"boxes": [[...] a
+    wall], "balls": [h, h], "wall_x": [...]})."""
+    rb, cb = RigidBodyBuilder, ColliderBuilder
+    w = PhysicsWorld(**world_kw)
+    g = w.insert_body(rb.fixed().with_translation((0.0, -0.1, 0.0)))
+    w.insert_collider(cb.cuboid(50.0, 0.1, 50.0), g)
+    boxes, wall_x = [], []
+    for k in range(walls):
+        x = k * CCD3_WALL_SPACING
+        wall = []
+        for i in range(rows):
+            for j in range(rows - i):
+                z = (j - (rows - 1 - i) / 2.0) * 2.0
+                b = w.insert_body(rb.dynamic().with_translation((x, 0.5 + i, z)))
+                w.insert_collider(cb.cuboid(0.5, 0.5, 1.0), b)
+                wall.append(b)
+        boxes.append(wall)
+        wall_x.append(x)
+    balls = []
+    for z, soft in ((-2.5, 0.0), (2.5, 1.0)):
+        bb = rb.dynamic().with_translation((-20.0, 2.0, z)).with_linvel(
+            (CCD3_BALL_SPEED, 0.0, 0.0)).with_ccd_enabled().with_soft_ccd_prediction(soft)
+        balls.append(w.insert_body(bb))
+        w.insert_collider(cb.ball(CCD3_BALL_RADIUS).with_density(10.0), balls[-1])
+    return w, {"boxes": boxes, "balls": balls, "wall_x": wall_x}
+
+
+_ALL_AXES = 0b111111
+ARM_SHOULDER_TARGET = -1.35
+
+
+def multibody_arm_world(coupled: bool = False, **world_kw):
+    """examples/multibody_arm.py's scene: a 3-link capsule arm (revolute
+    about z, position motors of stiffness 80 and damping 8, armature 0.05)
+    on a fixed base, the shoulder commanded to ARM_SHOULDER_TARGET rad (the
+    example sets it after building; here the builder does), and a ball of
+    radius 0.25 on a pedestal in its sweep.  With `coupled`, the elbow's
+    velocity is coupled to -1 x the shoulder's (`insert_dof_coupling`).
+    Returns (world, {"links": [...], "ball": h, "pedestal": h})."""
+    rb, cb = RigidBodyBuilder, ColliderBuilder
+    w = PhysicsWorld(**world_kw)
+    ground = w.insert_body(rb.fixed().with_translation((0, -1, 0)))
+    w.insert_collider(cb.cuboid(20, 1, 20), ground)
+    prev = w.insert_body(rb.fixed().with_translation((0, 0.0, 0)))
+    links = []
+    for i in range(3):
+        b = w.insert_body(rb.dynamic().with_translation((0, 0.5 + i, 0)))
+        w.insert_collider(cb.capsule_y(0.4, 0.08).with_density(300.0), b)
+        jb = GenericJointBuilder(locked_axes=_ALL_AXES & ~(1 << 5))
+        jb = jb.with_local_anchor1((0, 0.5, 0) if i else (0, 0, 0)).with_local_anchor2(
+            (0, -0.5, 0))
+        target = ARM_SHOULDER_TARGET if i == 0 else 0.0
+        jb = jb.with_motor_position(5, target, 80.0, 8.0).with_armature(5, 0.05)
+        w.insert_multibody_joint(prev, b, jb)
+        links.append(b)
+        prev = b
+    pedestal = w.insert_body(rb.fixed().with_translation((1.8, 0.25, 0)))
+    w.insert_collider(cb.cuboid(0.15, 0.25, 0.15), pedestal)
+    ball = w.insert_body(rb.dynamic().with_translation((1.8, 0.8, 0)))
+    w.insert_collider(cb.ball(0.25), ball)
+    if coupled:
+        w.insert_dof_coupling(links[1], 5, links[0], 5, -1.0)
+    return w, {"links": links, "ball": ball, "pedestal": pedestal}
 
 
 def replicate_scene(state, batch: int):

@@ -439,6 +439,9 @@ class SimParams:
     # candidate triangles of each (geometry/narrowphase_mesh.py).
     max_mesh_pairs: int = 64
     tris_per_pair: int = 8
+    # CCD motion clamping (dynamics/ccd.py): clamp passes a step; world.build()
+    # turns enable_ccd on when any body has ccd_enabled.
+    max_ccd_substeps: int = 1
     enable_ccd: bool = False
     sleep_propagation_iters: int = 16
     sleeping_enabled: bool = True

@@ -53,7 +53,7 @@ class StageTimings:
     fallback and `solver_ms` the solve without the impulse joints; `extra`
     holds the GJK/EPA fallback (`gjk_epa`, the generic convex pairs), the
     mesh narrow phase (the (convex, mesh) pairs' triangle lanes), the joints,
-    the contact join, wake, sleep and the rest."""
+    the contact join, wake, CCD motion clamping (`ccd`), sleep and the rest."""
 
     broad_phase_ms: float = 0.0
     narrow_phase_ms: float = 0.0
@@ -97,7 +97,7 @@ def profile_step(state, params, iters: int = PROFILE_ITERS) -> StageTimings:
     joints = ms.pop("joints", 0.0)
     gjk_epa = ms.pop("gjk_epa", 0.0)
     extra = {f"{k}_ms": ms.get(k, 0.0)
-             for k in ("mesh_narrow_phase", "contact_match", "wake", "sleep")}
+             for k in ("mesh_narrow_phase", "contact_match", "wake", "ccd", "sleep")}
     extra["joints_ms"] = joints
     extra["gjk_epa_ms"] = gjk_epa
     extra["rest_ms"] = total - sum(ms.values())
@@ -130,20 +130,22 @@ def trace_step(state, params, steps: int = 3, warm: bool = True) -> dict:
             step(state, params)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False))
+    # The profiler's raw events (nanoseconds): building its FunctionEvent
+    # list costs ~0.1 ms an event, half a minute for a CCD step's ~137,000.
+    spans = sorted((e.start_ns(), e.end_ns(), e.name())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA and not e.is_user_annotation())
     if not spans:
         return dict(wall_ms=wall, kernels=0, device_ms=None, device_share=None, top=None)
-    busy, end, by_name = 0.0, float("-inf"), {}
+    busy, end, by_name = 0, None, {}
     for a, b, name in spans:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-        n, us = by_name.get(name, (0, 0.0))
-        by_name[name] = (n + 1, us + (b - a))
+        busy += max(0, b - (a if end is None else max(a, end)))
+        end = b if end is None else max(end, b)
+        n, ns = by_name.get(name, (0, 0))
+        by_name[name] = (n + 1, ns + (b - a))
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:TOP_KERNELS]
-    device = busy / 1e3 / steps
+    device = busy / 1e6 / steps
     return dict(wall_ms=wall, kernels=len(spans) / steps, device_ms=device,
                 device_share=device / wall,
-                top=[dict(name=k[:80], count=n / steps, ms=us / 1e3 / steps)
-                     for k, (n, us) in ranked])
+                top=[dict(name=k[:80], count=n / steps, ms=ns / 1e6 / steps)
+                     for k, (n, ns) in ranked])

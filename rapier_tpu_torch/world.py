@@ -122,6 +122,12 @@ class RigidBodyBuilder:
     def with_additional_solver_iterations(self, n: int):
         return self._set(additional_solver_iterations=int(n))
 
+    def with_ccd_enabled(self, enabled: bool = True):
+        return self._set(ccd_enabled=bool(enabled))
+
+    def with_soft_ccd_prediction(self, distance: float):
+        return self._set(soft_ccd_prediction=float(distance))
+
     def lock_rotations(self):
         return self._set(locked_axes=self.locked_axes | (0b111 << 3))
 
@@ -573,6 +579,17 @@ class GenericJointBuilder:
             self._set_axis("limit_max", 3 + a, float(hi))
         return self
 
+    # Multibody joints only: per-dof armature, damping and spring.
+    def with_armature(self, axis: int, value: float):
+        return self._set_axis("armature", axis, float(value))
+
+    def with_joint_damping(self, axis: int, value: float):
+        return self._set_axis("mb_damping", axis, float(value))
+
+    def with_joint_spring(self, axis: int, stiffness: float, rest: float):
+        self._set_axis("mb_spring_stiffness", axis, float(stiffness))
+        return self._set_axis("mb_spring_ref", axis, float(rest))
+
 
 def FixedJointBuilder():
     return GenericJointBuilder.fixed()
@@ -617,6 +634,8 @@ class PhysicsWorld:
         self._pending_joints: list[tuple] = []
         # (joint, parent body, child body, kinematic)
         self._pending_mb_joints: list[tuple] = []
+        # (body a, axis a, body b, axis b, ratio, offset)
+        self._pending_couplings: list[tuple] = []
         self._mb_trees: list[list[int]] = []
         self.params = params if params is not None else SimParams()
         self.params = self.params.replace(gravity=np.asarray(gravity, np.float32))
@@ -684,6 +703,15 @@ class PhysicsWorld:
         self._pending_mb_joints.append((joint, body1, body2, kinematic))
         return len(self._pending_mb_joints) - 1
 
+    def insert_dof_coupling(self, body_a: int, axis_a: int, body_b: int, axis_b: int,
+                            ratio: float, offset: float = 0.0):
+        """Couple two multibody-joint dofs, q_a = ratio * q_b + offset (held
+        at the velocity level), each named by its joint's child body and axis
+        slot; both bodies must be links of one articulation at build()."""
+        assert self.state is None, "world already built"
+        self._pending_couplings.append((int(body_a), int(axis_a), int(body_b), int(axis_b),
+                                        float(ratio), float(offset)))
+
     def build(self) -> SceneState:
         """Freeze the pending builders into a `SceneState` with numpy leaves
         (one scene, no leading axis), exactly as the reference's build()."""
@@ -695,8 +723,6 @@ class PhysicsWorld:
         mesh_lanes = (self.params.max_mesh_pairs * self.params.tris_per_pair
                       if has_meshes else 0)
         p_cap = self._max_pairs or _round_up(max(8 * nc, 64), 128) + mesh_lanes
-        if any(bb.ccd_enabled for bb in self._pending_bodies):
-            raise NotImplementedError("CCD is not ported")
 
         if self.params.max_solver_pairs == 0 and nc > 2048:
             cap = _round_up(4 * nc, 128)
@@ -814,6 +840,8 @@ class PhysicsWorld:
             multibodies=mb_state,
             joints=self._build_joints(bodies) if self._pending_joints else None,
             meshes=meshes, hulls=hulls)
+        if any(bb.ccd_enabled for bb in self._pending_bodies):
+            self.params = self.params.replace(enable_ccd=True)
         census = Counter(int(cb.shape_type) for cb, _ in self._pending_colliders)
         self.params = self.params.replace(
             shape_types_present=tuple(sorted(census.items())))
@@ -919,8 +947,25 @@ class PhysicsWorld:
                     queue.append(ch)
             trees.append(order)
 
-        mb0 = empty_multibodies(len(trees), max(len(t) for t in trees))
+        # Dof couplings: the child bodies' (tree, link) slots, flat dof indices.
+        body_tl = {b: (ti, li) for ti, order in enumerate(trees) for li, b in enumerate(order)}
+        coup_by_tree: dict[int, list] = {}
+        for (ba, aa, bb, ab, ratio, off) in self._pending_couplings:
+            assert ba in body_tl and bb in body_tl, (
+                f"dof coupling bodies {ba},{bb} are not multibody links")
+            (ta, la), (tb, lb) = body_tl[ba], body_tl[bb]
+            assert ta == tb, "dof coupling spans two articulations"
+            coup_by_tree.setdefault(ta, []).append((la * 6 + aa, lb * 6 + ab, ratio, off))
+        k_coup = max([4] + [len(v) for v in coup_by_tree.values()])
+
+        mb0 = empty_multibodies(len(trees), max(len(t) for t in trees), k_couplings=k_coup)
         arr = {k: np.asarray(v).copy() for k, v in vars(mb0).items()}
+        for ti, lst in coup_by_tree.items():
+            for slot, (fa, fb, ratio, off) in enumerate(lst):
+                arr["coupling_a"][ti, slot] = fa
+                arr["coupling_b"][ti, slot] = fb
+                arr["coupling_ratio"][ti, slot] = ratio
+                arr["coupling_offset"][ti, slot] = off
         for ti, order in enumerate(trees):
             body_to_link = {b: i for i, b in enumerate(order)}
             for li, b in enumerate(order):

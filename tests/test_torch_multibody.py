@@ -11,9 +11,12 @@ forward kinematics, Jacobians and the mass matrix 1e-5; generalized forces,
 accelerations, velocities and the mobility blocks 1e-4 relative to the
 largest magnitude of the compared array (qdd reaches ~1e3 under the servos).
 
-The last four tests run the reference's multibody contact scenarios
-(tests/test_multibody.py) on the port alone, with the reference's own
-thresholds.
+The dof couplings, the standalone sub-step and inverse kinematics are
+held to the reference on the same inputs; the builder setters and
+`insert_dof_coupling` to the reference's world.  The reference's multibody
+scenarios (tests/test_multibody.py: contacts, the coupled velocity ratio,
+the joint spring, inverse kinematics) and examples/multibody_arm.py run on
+the port alone, with their own thresholds.
 """
 
 import dataclasses
@@ -284,14 +287,82 @@ def test_absorb_contact_impulses(phases):
                relative=True)
 
 
-def test_active_coupling_raises(inputs):
-    mb = inputs["mb"]
-    ca = mb.coupling_a.clone()
-    cb = mb.coupling_b.clone()
-    ca[:, 0, 0], cb[:, 0, 0] = 9, 15
-    with pytest.raises(NotImplementedError, match="couplings"):
-        port_mb.apply_couplings(mb.replace(coupling_a=ca, coupling_b=cb),
-                                mb.qd, None)
+# Coupling slots (a dof, b dof, ratio) over the quadruped's hinge dofs (link
+# i's slot i * 6 + 3): 1 active slot; 2 active among 2 inactive (slot 1 has
+# no a, slot 3 no b); all 4 active.
+_HINGE = [i * 6 + 3 for i in range(1, 9)]
+COUPLINGS = {
+    "one": [(_HINGE[1], _HINGE[0], 0.5)],
+    "two_of_four": [(_HINGE[2], _HINGE[3], -1.0), (-1, _HINGE[4], 2.0),
+                    (_HINGE[5], _HINGE[6], 0.75), (_HINGE[7], -1, 1.0)],
+    "four": [(_HINGE[1], _HINGE[0], 0.5), (_HINGE[3], _HINGE[2], -1.0),
+             (_HINGE[5], _HINGE[4], 1.5), (_HINGE[7], _HINGE[6], -0.25)],
+}
+
+
+def _coupled(mb, slots, to):
+    """`mb` (either package's, numpy or tensor leaves) with the coupling
+    slots filled for both scenes; scene 1's ratios scaled by 1.1."""
+    ca = np.full((B, 1, 4), -1, np.int32)
+    cb = np.full((B, 1, 4), -1, np.int32)
+    cr = np.ones((B, 1, 4), np.float32)
+    for k, (a, b, r) in enumerate(slots):
+        ca[:, 0, k], cb[:, 0, k] = a, b
+        cr[:, 0, k] = (r, 1.1 * r)
+    return mb.replace(coupling_a=to(ca), coupling_b=to(cb), coupling_ratio=to(cr))
+
+
+@pytest.mark.parametrize("which", list(COUPLINGS))
+def test_apply_couplings(inputs, ref_dyn, port_dyn, which):
+    """The mass-metric projection against the reference's on the tentative
+    qd of phase A, with its Cholesky factor; every active slot then holds
+    qd[a] = ratio * qd[b]."""
+    slots = COUPLINGS[which]
+    rmb = _coupled(inputs["ref_mb"], slots, np.asarray)
+    pmb = _coupled(inputs["mb"], slots, torch.from_numpy)
+    qd_r = np.asarray(inputs["ref_mb"].qd) + ref_dyn[0] * DT
+    ref = np.asarray(jax.vmap(ref_mb.apply_couplings)(
+        jax.tree.map(jnp.asarray, rmb), jnp.asarray(qd_r), jnp.asarray(ref_dyn[1]["chol"])))
+    qd_p = inputs["mb"].qd + port_dyn[0] * float(DT)
+    port = port_mb.apply_couplings(pmb, qd_p, port_dyn[1]["chol"])
+    _close(port, ref, TOL_DYN, f"coupled qd ({which})", relative=True)
+    out = port.numpy()
+    for k, (a, b, r) in enumerate(slots):
+        if a >= 0 and b >= 0:
+            for s_ in range(B):
+                ratio = np.float32(r) * (1.0 if s_ == 0 else np.float32(1.1))
+                assert abs(out[s_, 0, a] - ratio * out[s_, 0, b]) <= 1e-4 * max(
+                    1.0, abs(out[s_, 0, b])), (which, k, s_)
+
+
+def test_inactive_couplings_leave_qd_as_it_is(inputs, port_dyn):
+    qd = inputs["mb"].qd + port_dyn[0] * float(DT)
+    assert port_mb.apply_couplings(inputs["mb"], qd, port_dyn[1]["chol"]) is qd
+
+
+def test_step_multibodies(inputs):
+    """The standalone sub-step (forward dynamics, couplings, integration,
+    FK, the links' bodies) against the reference's, with two couplings."""
+    g = inputs["g"]
+    rmb = _coupled(inputs["ref_mb"], COUPLINGS["two_of_four"], np.asarray)
+    pmb = _coupled(inputs["mb"], COUPLINGS["two_of_four"], torch.from_numpy)
+    for next_only in (False, True):
+        ref = jax.tree.map(np.asarray, _vmap(
+            lambda mb, b: ref_mb.step_multibodies(mb, b, jnp.asarray(g), DT,
+                                                  next_only=next_only)[:2],
+            rmb, inputs["ref_bodies"]))
+        port = port_mb.step_multibodies(pmb, inputs["bodies"], g, float(DT),
+                                        next_only=next_only)
+        for name in ("q", "joint_rot"):
+            _close(getattr(port[0], name), getattr(ref[0], name), TOL_DYN,
+                   f"step_multibodies {name}")
+        _close(port[0].qd, ref[0].qd, TOL_DYN, "step_multibodies qd", relative=True)
+        for name in ("pos", "rot", "next_pos", "next_rot"):
+            _close(getattr(port[1], name), getattr(ref[1], name), TOL_DYN,
+                   f"step_multibodies {name} (next_only={next_only})")
+        for name in ("linvel", "angvel"):
+            _close(getattr(port[1], name), getattr(ref[1], name), TOL_DYN,
+                   f"step_multibodies {name}", relative=True)
 
 
 # ---------------------------------------------------------------------------
@@ -389,3 +460,206 @@ def test_motor_position_reaches_target():
     w.step(600)
     q = w.multibody_q(0)
     assert abs(q[1, 5] - 0.8) < 0.1, q[1, 5]
+
+
+# ---------------------------------------------------------------------------
+# Builders, couplings, springs, inverse kinematics and the arm example.
+# ---------------------------------------------------------------------------
+
+
+def _both_worlds(build):
+    """`build(PhysicsWorld, RigidBodyBuilder, ColliderBuilder,
+    GenericJointBuilder, world kwargs)` run against each package: (the
+    reference's built state, the port's)."""
+    import rapier_tpu.world as rw
+    import rapier_tpu_torch.world as pw
+
+    out = []
+    for mod, kw in ((rw, {}), (pw, {"device": "cpu"})):
+        w = build(mod.PhysicsWorld, mod.RigidBodyBuilder, mod.ColliderBuilder,
+                  mod.GenericJointBuilder, kw)
+        out.append(w.build())
+    return out
+
+
+def _three_links(PW, RB, CB, GJ, kw):
+    w = PW(**kw)
+    prev = w.insert_body(RB.fixed())
+    links = []
+    for i in range(3):
+        b = w.insert_body(RB.dynamic().with_translation((0, -(i + 1), 0)))
+        w.insert_collider(CB.ball(0.1).with_density(50.0), b)
+        jb = GJ(locked_axes=_ALL & ~(1 << 5)).with_local_anchor2((0, 1, 0))
+        jb = jb.with_armature(5, 0.05 * (i + 1)).with_joint_damping(5, 0.5 + i)
+        jb = jb.with_joint_spring(5, 10.0 * (i + 1), 0.1 * i)
+        w.insert_multibody_joint(prev, b, jb)
+        links.append(b)
+        prev = b
+    w.insert_dof_coupling(links[1], 5, links[0], 5, -1.0, 0.25)
+    w.insert_dof_coupling(links[2], 5, links[1], 5, 0.5)
+    return w
+
+
+def test_builders_and_couplings_build_as_the_reference():
+    ref, port = _both_worlds(_three_links)
+    for f in dataclasses.fields(port_mb.Multibodies):
+        a = np.asarray(getattr(port.multibodies, f.name))
+        d = np.asarray(getattr(ref.multibodies, f.name))
+        assert a.shape == d.shape and np.array_equal(a, d), f.name
+    assert port.multibodies.coupling_a.tolist()[0][:2] == [2 * 6 + 5, 3 * 6 + 5]
+
+
+def test_dof_coupling_velocity_ratio():
+    """tests/test_multibody.py:125 on the port: qd[link2] = 2 * qd[link1]
+    holds after 30 steps from a kick."""
+    from rapier_tpu_torch.world import ColliderBuilder, PhysicsWorld, RigidBodyBuilder
+
+    w = PhysicsWorld(device="cpu")
+    root = w.insert_body(RigidBodyBuilder.fixed())
+    b1 = w.insert_body(RigidBodyBuilder.dynamic().with_translation((0, -1, 0)))
+    w.insert_collider(ColliderBuilder.ball(0.1).with_density(100.0), b1)
+    b2 = w.insert_body(RigidBodyBuilder.dynamic().with_translation((1, -1, 0)))
+    w.insert_collider(ColliderBuilder.ball(0.1).with_density(100.0), b2)
+    w.insert_multibody_joint(root, b1, _rev_z().with_local_anchor2((0, 1, 0)))
+    w.insert_multibody_joint(
+        root, b2, _rev_z().with_local_anchor1((1, 0, 0)).with_local_anchor2((0, 1, 0)))
+    w.insert_dof_coupling(b2, 5, b1, 5, 2.0)
+    w.build()
+    qd = w.state.multibodies.qd
+    qd[0, 0, 1 * 6 + 5] = 1.0
+    qd[0, 0, 2 * 6 + 5] = 2.0
+    w.step(30)
+    qd = w.state.multibodies.qd[0, 0].numpy()
+    np.testing.assert_allclose(qd[2 * 6 + 5], 2.0 * qd[1 * 6 + 5], rtol=1e-3, atol=1e-5)
+
+
+def test_joint_spring_equilibrium():
+    """tests/test_multibody.py's spring: a prismatic-y slot with a spring
+    and damping settles at q = -m g / k."""
+    from rapier_tpu_torch.world import (ColliderBuilder, GenericJointBuilder, PhysicsWorld,
+                                        RigidBodyBuilder)
+
+    w = PhysicsWorld(device="cpu")
+    root = w.insert_body(RigidBodyBuilder.fixed())
+    slider = w.insert_body(RigidBodyBuilder.dynamic())
+    w.insert_collider(ColliderBuilder.ball(0.1).with_density(100.0), slider)
+    k = 500.0
+    jb = GenericJointBuilder(locked_axes=_ALL & ~(1 << 1))
+    w.insert_multibody_joint(root, slider, jb.with_joint_spring(1, k, 0.0)
+                             .with_joint_damping(1, 20.0))
+    w.step(240)
+    m = 100.0 * 4.0 / 3.0 * np.pi * 0.1 ** 3
+    np.testing.assert_allclose(w.multibody_q(0)[1, 1], -m * 9.81 / k, rtol=1e-2, atol=1e-4)
+
+
+def _chain(links: int):
+    """tests/test_multibody.py's IK chain: `links` revolute segments of
+    length 1 hanging from a fixed root; (reference state, port state), B = 2."""
+    from rapier_tpu.scenes import replicate_scene
+
+    def build(PW, RB, CB, GJ, kw):
+        w = PW(**kw)
+        prev = w.insert_body(RB.fixed())
+        for i in range(links):
+            b = w.insert_body(RB.dynamic().with_translation((0, -(i + 1), 0)))
+            w.insert_collider(CB.ball(0.1).with_density(50.0), b)
+            w.insert_multibody_joint(prev, b, GJ(locked_axes=_ALL & ~(1 << 5))
+                                     .with_local_anchor2((0, 1, 0)))
+            prev = b
+        return w
+
+    ref, _ = _both_worlds(build)
+    return replicate_scene(ref, B)
+
+
+IK_CASES = {
+    # (links, target link, targets per scene, constrained axes, frozen link)
+    "position": (4, 4, [(2.0, -2.0, 0.0), (1.5, -2.5, 0.0)], 0b000111, None),
+    "frozen": (3, 3, [(1.0, -2.2, 0.0), (0.8, -2.4, 0.0)], 0b000111, 1),
+    "pose": (4, 4, [(2.0, -2.0, 0.0), (1.5, -2.5, 0.0)], 0b111111, None),
+}
+
+
+def _ik(which, package):
+    """Inverse kinematics of IK_CASES[which] by `package` ("ref" or
+    "port"): the state and the resulting q and joint_rot, numpy."""
+    links, tl, targets, axes, frozen = IK_CASES[which]
+    state = _chain(links)
+    m, l = np.shape(state.multibodies.link_valid)[1:]
+    tid = np.full((B, m), tl, np.int32)
+    tpos = np.asarray(targets, np.float32).reshape(B, m, 3)
+    trot = np.zeros((B, m, 4), np.float32)
+    trot[..., 2] = np.sin(0.4)
+    trot[..., 3] = np.cos(0.4)
+    can = np.ones((B, m, l), bool)
+    if frozen is not None:
+        can[:, 0, frozen] = False
+    kw = dict(damping=0.5, max_iters=40, constrained_axes=axes)
+    if package == "ref":
+        out = jax.vmap(lambda mb, b, a, p, r, c: ref_mb.inverse_kinematics(
+            mb, b, a, p, r, joint_can_move=c, **kw))(
+            *[jax.tree.map(jnp.asarray, x) for x in (state.multibodies, state.bodies, tid,
+                                                     tpos, trot, can)])
+    else:
+        out = port_mb.inverse_kinematics(
+            _to_port_mb(state.multibodies), _to_port_bodies(state.bodies),
+            torch.from_numpy(tid), torch.from_numpy(tpos), torch.from_numpy(trot),
+            joint_can_move=torch.from_numpy(can), **kw)
+    return state, np.asarray(out.q), np.asarray(out.joint_rot), np.asarray(out.qd)
+
+
+@pytest.mark.parametrize("which", list(IK_CASES))
+def test_inverse_kinematics_matches_reference(which):
+    state, q_r, jr_r, _ = _ik(which, "ref")
+    _, q_p, jr_p, qd_p = _ik(which, "port")
+    _close(q_p, q_r, TOL_DYN, f"IK q ({which})")
+    _close(jr_p, jr_r, TOL_DYN, f"IK joint_rot ({which})")
+    assert np.array_equal(qd_p, np.asarray(state.multibodies.qd))
+
+
+@pytest.mark.parametrize("which", ["position", "frozen"])
+def test_inverse_kinematics_scenarios(which):
+    """tests/test_multibody.py:252-311 on the port: the end link's origin
+    within 2e-3 of a reachable target; a frozen joint does not move while
+    the rest of the chain does."""
+    links, tl, targets, _, frozen = IK_CASES[which]
+    state, q, jr, _ = _ik(which, "port")
+    mb = _to_port_mb(state.multibodies).replace(q=torch.from_numpy(q),
+                                                joint_rot=torch.from_numpy(jr))
+    bodies = _to_port_bodies(state.bodies)
+    l2w_pos, _ = port_mb.forward_kinematics(mb, bodies, *port_mb._root_pose(mb, bodies))
+    if frozen is None:
+        for s_ in range(B):
+            end = l2w_pos[s_, 0, tl].numpy()
+            assert np.linalg.norm(end - np.asarray(targets[s_])) < 2e-3, (s_, end)
+    else:
+        assert np.all(np.abs(q[:, 0, frozen, 5]) < 1e-7), "frozen joint moved"
+        assert np.all(np.abs(q[:, 0, 2, 5]) + np.abs(q[:, 0, 3, 5]) > 0.1), "chain did not move"
+
+
+def test_multibody_arm_example():
+    """examples/multibody_arm.py's own checks on `scenes.multibody_arm_world`
+    after its 300 steps: the shoulder past -0.9 rad, the ball knocked off
+    its pedestal."""
+    from rapier_tpu_torch.scenes import multibody_arm_world
+
+    w, h = multibody_arm_world(device="cpu")
+    w.step(300)
+    q = w.multibody_q(0)
+    p = w.body_translation(h["ball"])
+    assert np.isfinite(q).all() and np.isfinite(p).all()
+    assert q[1, 5] < -0.9, q[1, 5]
+    assert abs(p[0] - 1.8) > 0.4 or p[1] < 0.6, p
+
+
+def test_coupled_arm_holds_its_coupling():
+    """The arm with the elbow's velocity coupled to -1 x the shoulder's:
+    after 60 steps the coupling holds within 1e-3 relative."""
+    from rapier_tpu_torch.scenes import multibody_arm_world
+
+    w, _ = multibody_arm_world(coupled=True, device="cpu")
+    w.step(60)
+    qd = w.multibody_qd(0)
+    assert abs(qd[2, 5] + qd[1, 5]) <= 1e-3 * max(abs(qd[1, 5]), 1e-2), qd[1:, 5]
+    assert abs(qd[1, 5]) > 1e-2
+

@@ -215,21 +215,24 @@ def test_step_names_the_blocked_solve_above_the_routing_limit(one_thread):
     (dict(enable_ccd=True), "CCD"),
 ])
 def test_step_refuses_what_is_not_ported(change, what):
-    """CCD is not ported.  The Coulomb model and the 2x2 block solve are:
-    the Coulomb model is refused on a contact cache built for the twist
-    model (its tangent layout), and the 2x2 block solve takes the masked
-    sweep, not the kernel."""
+    """CCD, the Coulomb model and the 2x2 block solve are ported.  The
+    Coulomb model is refused on a contact cache built for the twist model
+    (its tangent layout); the 2x2 block solve takes the masked sweep, not
+    the kernel; a CCD scene (every body CCD-enabled) takes the reference's
+    path for the scene, the kernel, and steps finitely."""
     from rapier_tpu_torch.pipeline.physics_pipeline import solve_path
 
     state, params = from_numpy(tp.settled_batch()), tp.port_params().replace(**change)
-    if what == "2x2 block solver":
-        assert solve_path(state, params) == "masked"
-        s, _ = port_step(state, params)
+    if what != "COULOMB":
+        if what == "CCD":
+            state.bodies.ccd_enabled[:] = True
+        assert solve_path(state, params) == ("masked" if what == "2x2 block solver"
+                                             else "kernel")
+        s, ev = port_step(state, params)
         assert bool(torch.isfinite(s.bodies.pos).all())
+        assert int(ev.ccd_overflow.max()) == 0
         return
-    error, match = (ValueError, "tangent layout") if what == "COULOMB" else (
-        NotImplementedError, what)
-    with pytest.raises(error, match=match):
+    with pytest.raises(ValueError, match="tangent layout"):
         port_step(state, params)
 
 
