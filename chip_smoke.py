@@ -191,6 +191,30 @@ order 1-6, 10, 11, 12, 9, 13, 7, 8:
    1e-4 of the card's.  Phase 7 adds 2 ccd3 scenes of (b) from the step
    that first clamps a ball (2 single steps) and 2 arms and 2 coupled arms
    (10 steps); phase 8 64 ccd3 scenes and 256 arms, 2 steps each.
+14. The world's runtime API and the loaders.  (a) The bench scene as one
+   `PhysicsWorld` (101 bodies, capacity 104, P = 512, K = 256), settled 60
+   steps (the last 30 timed, plain), then for 60 steps, every 10 steps: a
+   ball inserted at runtime above the pile, a body of two colliders
+   inserted and one of them removed, the oldest pile body removed; both
+   tables grow past 104 within three cycles (the step each grows printed,
+   with the solve path and the kernel's on-chip capacity at the new N).
+   Checks that stale handles raise, that no touching lane involves a
+   removed collider on the step after, zero broad-phase, solver and
+   unsupported-pair overflow, one `contact_sweep_kernel` launch a step, 2
+   single steps against the CPU after the first mutation and after both
+   tables grew (CPU_TOL); snapshot then restore, and save then load into a
+   fresh world of the grown capacities, each followed by 20 steps,
+   reproduce the run bitwise, and a world of the bench's capacities
+   refuses the file; under nan_policy "rollback" at nan_check_every 16 a
+   NaN velocity set with `set_linvel` is rolled back to the last checked
+   state bitwise, and "trap" raises (at interval 1).  Prints steps/s plain, mutating and
+   under the guard at 16 and at 1, the milliseconds of an insert, a
+   removal, each growth, a snapshot, a save and a load, and the file's
+   size.  (b) examples/urdf_pendulum.py's robot in both joint forms and the
+   tendon, connect and gravcomp-mocap models of tests/test_mjcf.py
+   (`scenes.urdf_pendulum_world`, `scenes.mjcf_model_world`), 10 steps on
+   the card with each model's own check, then 2 single steps against the
+   CPU.
 
 The line before the last is the kernels' JSON record (with `bound_share`,
 bound over time, and each kernel's resources); the last line is
@@ -199,10 +223,12 @@ bound over time, and each kernel's resources); the last line is
 With ``--s2d-only`` the script builds the kernels and runs phase 10 alone,
 with ``--meshes-only`` phase 11 (and (d) under ``--heightfield-full``),
 with ``--convex-only`` phase 12 (and (d) under ``--primitives-full``),
-with ``--ccd-only`` phase 13;
+with ``--ccd-only`` phase 13, with ``--world-only`` phase 14;
 with ``--rest-steps STEPS`` it steps the ``--pyramid`` stacks (default 31)
-STEPS steps each and prints the top box's distance from rest and vertical
-velocity every 50 steps.  None of these prints the ok line.
+STEPS steps each (at ``--colors N`` colors, else the default 16) and prints
+the top box's distance from rest and vertical velocity every 50 steps,
+with the lanes the Jacobi tail holds at N and at 16 colors.  None of these
+prints the ok line.
 
 With ``--earlier DIR [DIR ...]`` (each DIR an unpacked checkout of another
 commit, e.g. ``git archive <commit> | tar -x -C build/earlier``) the script
@@ -434,6 +460,15 @@ IK_TARGET_TOL = 2e-3            # tests/test_multibody.py:252's
 IK_CPU_TOL = 1e-4
 IK_CPU_SCENES = 1024            # the CPU repeats the first 1024
 RERUN_STEPS_13 = 2
+# Phase 14: the bench scene as one mutating PhysicsWorld, and the loaders.
+WORLD_SETTLE = 60
+WORLD_PLAIN_TIMED = 30          # the last 30 settle steps, timed
+WORLD_CYCLES = 6                # a mutation cycle every WORLD_CYCLE steps
+WORLD_CYCLE = 10
+WORLD_REPRO = 20                # steps after a restore or a load
+WORLD_GUARD = 16                # steps timed under the guard, at each interval
+WORLD_CPU_STEPS = 2             # card vs CPU single steps after a mutation
+LOADER_STEPS = 10               # loader scenes stepped on the card before the check
 
 
 def _fail(msg: str, code: int = 1):
@@ -859,11 +894,12 @@ def _stages(what, state, params, card, trace_steps: int = 3):
     return dict(stages_ms=t, **tr)
 
 
-def pyramid_batch(device, stack: int):
+def pyramid_batch(device, stack: int, colors=None):
     """bench.py's pyramid configuration (BENCH_MODE=pyramid, bench.py:63-91):
     `pyramid3_world(stack)` on the grid broad phase with max_solver_pairs = 8
-    touching pairs a box, rounded up to 128, as one scene on `device`.
-    Returns (state, params, boxes)."""
+    touching pairs a box, rounded up to 128, as one scene on `device`
+    (`colors` colors, else SimParams' default).  Returns (state, params,
+    boxes)."""
     from rapier_tpu_torch.scenes import pyramid3_world, replicate_scene
     from rapier_tpu_torch.types import BroadPhaseKind, from_numpy
 
@@ -871,6 +907,8 @@ def pyramid_batch(device, stack: int):
     boxes = sum((stack - i) ** 2 for i in range(stack))
     world.params = world.params.replace(broad_phase=int(BroadPhaseKind.GRID),
                                         max_solver_pairs=-((-8 * boxes) // 128) * 128)
+    if colors:
+        world.params = world.params.replace(max_colors=int(colors))
     return replicate_scene(from_numpy(world.build(), device), 1), world.params, boxes
 
 
@@ -2320,6 +2358,338 @@ def phase_ccd_multibody(device, card):
             dict(ccd3=one, ccd3_batch=batch, multibody_arm=arm), captures)
 
 
+def _sync_ms(fn):
+    """(fn's result, its wall time in ms, the card synchronised after)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _states_equal(a, b) -> bool:
+    """Every leaf of two states equal bitwise (NaN where NaN)."""
+    from rapier_tpu_torch.world import _state_leaves
+
+    for x, y in zip(_state_leaves(a), _state_leaves(b)):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return False
+        same = x == y
+        if x.is_floating_point():
+            same |= x.isnan() & y.isnan()
+        if not bool(same.all()):
+            return False
+    return True
+
+
+def _stepped_world(world, steps: int, worst: dict):
+    """`steps` PhysicsWorld steps, each overflow count's largest value
+    folded into `worst` (one read at the end)."""
+    import torch
+
+    keys = ("broadphase_overflow", "solver_overflow", "unsupported_pairs")
+    acc = None
+    for _ in range(steps):
+        world.step()
+        now = torch.stack([getattr(world.last_events, k).max().to(torch.int64) for k in keys])
+        acc = now if acc is None else torch.maximum(acc, now)
+    for k, v in zip(keys, acc.tolist()):
+        worst[k] = max(worst.get(k, 0), v)
+
+
+def _uncounted(fn, *args, **kw):
+    """fn(*args) with the kernel launch counts left as they were: card
+    steps taken to compare with the CPU are not the run's."""
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+
+    launches = cs.KERNEL.launches, cs.KERNEL.launches_folded
+    try:
+        return fn(*args, **kw)
+    finally:
+        cs.KERNEL.launches, cs.KERNEL.launches_folded = launches
+
+
+def _bench_physics_world(device, **kw):
+    """bench.py's configuration as one PhysicsWorld (101 bodies, capacity
+    104, P = 512, K = 256), built on `device`."""
+    from rapier_tpu_torch.scenes import mixed_primitives_world
+
+    world = mixed_primitives_world(num_layers=4, grid=5, max_pairs=512, device=device, **kw)
+    world.params = world.params.replace(max_solver_pairs=256)
+    world.build()
+    return world
+
+
+def _world_mutations(world, cycle: int, pile: list, removed: set, ms: dict):
+    """One cycle: a ball inserted above the pile; a body of two colliders
+    inserted, then one of them removed; the oldest pile body removed.  The
+    first call of each kind is timed into `ms` (an insert that grows a table
+    as "grow_bodies" or "grow_colliders"); stale handles must raise."""
+    from rapier_tpu_torch.world import ColliderBuilder as CB
+    from rapier_tpu_torch.world import RigidBodyBuilder as RB
+
+    def timed(kind, fn):
+        sizes = world.state.bodies.n, world.state.colliders.n
+        out, t = _sync_ms(fn)
+        grew = (world.state.bodies.n, world.state.colliders.n) != sizes
+        ms.setdefault(f"grow_{kind}_table" if grew else f"insert_{kind}", t)
+        return out
+
+    x = -2.5 + 1.0 * cycle
+    h = timed("body", lambda: world.insert_body_runtime(
+        RB.dynamic().with_translation((x, 8.0, 0.5))))
+    timed("collider", lambda: world.insert_collider_runtime(CB.ball(0.4), h))
+    h2 = timed("body", lambda: world.insert_body_runtime(
+        RB.dynamic().with_translation((x, 9.5, -0.5))))
+    timed("collider", lambda: world.insert_collider_runtime(CB.cuboid(0.3, 0.3, 0.3), h2))
+    extra = timed("collider", lambda: world.insert_collider_runtime(
+        CB.ball(0.25).with_translation((0.4, 0.0, 0.0)), h2))
+    _, t = _sync_ms(lambda: world.remove_collider_runtime(extra))
+    ms.setdefault("remove_collider", t)
+    oldest = pile.pop(0)
+    removed.add(extra.index)
+    removed.update(ci for ci, (_, p) in world._collider_meta.items() if p == oldest.index)
+    _, t = _sync_ms(lambda: world.remove_body_runtime(oldest))
+    ms.setdefault("remove_body", t)
+    for remove, stale in ((world.remove_body_runtime, oldest),
+                          (world.remove_collider_runtime, extra)):
+        try:
+            remove(stale)
+        except AssertionError:
+            continue
+        _fail(f"a stale handle was accepted: {stale}")
+    pile += [h, h2]
+    removed.difference_update(world._collider_meta)
+
+
+def _removed_untouched(world, removed: set, what: str):
+    """No touching lane involves a removed (and not reused) collider."""
+    import torch
+
+    if not removed:
+        return
+    c = world.state.contacts
+    gone = torch.tensor(sorted(removed), device=c.collider1.device)
+    bad = c.touching[0] & (torch.isin(c.collider1[0], gone) | torch.isin(c.collider2[0], gone))
+    if bool(bad.any()):
+        _fail(f"{what}: {int(bad.sum())} touching lanes involve removed colliders")
+
+
+def _world_bench(device, card):
+    """Phase 14(a): the bench scene as one PhysicsWorld, settled, then
+    mutated every WORLD_CYCLE steps.  Returns (the kernel's launches in the
+    mutating run, the row, the world)."""
+    import torch
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.pipeline.physics_pipeline import solve_path
+    from rapier_tpu_torch.world import BodyHandle
+
+    world = _bench_physics_world(device)
+    n_cap, c_cap = world.state.bodies.n, world.state.colliders.n
+    print(f"bench world: {world.n_bodies} bodies, body capacity {n_cap}, collider capacity "
+          f"{c_cap}, P = {world.state.contacts.max_pairs}, K = {world.params.max_solver_pairs}, "
+          f"solve path {solve_path(world.state, world.params)!r}")
+    worst = {}
+    _stepped_world(world, WORLD_SETTLE - WORLD_PLAIN_TIMED, worst)
+    _, t = _sync_ms(lambda: _stepped_world(world, WORLD_PLAIN_TIMED, worst))
+    rates = {"plain": WORLD_PLAIN_TIMED / (t / 1e3)}
+    pile = [BodyHandle(i, 0) for i in range(1, world.n_bodies)]
+    removed, ms, grew, checked = set(), {}, {}, set()
+    cs.KERNEL.launches = cs.KERNEL.launches_folded = 0
+    t_run = 0.0
+    for cycle in range(WORLD_CYCLES):
+        step_now = WORLD_SETTLE + cycle * WORLD_CYCLE
+        n0, c0 = world.state.bodies.n, world.state.colliders.n
+        _, t = _sync_ms(lambda: _world_mutations(world, cycle, pile, removed, ms))
+        t_run += t
+        for what, before, after in (("bodies", n0, world.state.bodies.n),
+                                    ("colliders", c0, world.state.colliders.n)):
+            if after != before:
+                grew.setdefault(what, step_now)
+                n1 = world.state.bodies.n + 1
+                cap = cs.KERNEL.capacity(False, world.params.max_solver_pairs, n1,
+                                         world.params.max_colors)
+                print(f"step {step_now}: the {what} table grew {before} -> {after}; solve "
+                      f"path {solve_path(world.state, world.params)!r}, the kernel's on-chip "
+                      f"capacity {cap} lanes a scene at N+1 = {n1}")
+        label = ("the first mutation" if cycle == 0 else
+                 "both tables grew" if len(grew) == 2 and "growth" not in checked else None)
+        if label:
+            checked.add("growth" if cycle else "first")
+            _uncounted(_cpu_step_agreement, f"bench world at step {step_now}, after {label}",
+                       world.state, world.params, steps=WORLD_CPU_STEPS, witness=None)
+        _, t = _sync_ms(lambda: _stepped_world(world, 1, worst))
+        t_run += t
+        _removed_untouched(world, removed, f"step {step_now + 1}")
+        _, t = _sync_ms(lambda: _stepped_world(world, WORLD_CYCLE - 1, worst))
+        t_run += t
+    steps = WORLD_CYCLES * WORLD_CYCLE
+    launches, folded = cs.KERNEL.launches, cs.KERNEL.launches_folded
+    rates["mutating"] = steps / (t_run / 1e3)
+    _next_step_storage("bench world after the mutating run", world.state, world.params,
+                       False, must_fit=False)
+    print(f"mutating run: {steps} steps, {WORLD_CYCLES} cycles; bodies {world.state.bodies.n}, "
+          f"colliders {world.state.colliders.n}; overflow {worst}; contact_sweep_kernel "
+          f"launches {launches}, folded {folded}; grew at steps {grew}")
+    if set(grew) != {"bodies", "colliders"} or max(grew.values()) > WORLD_SETTLE + 2 * WORLD_CYCLE:
+        _fail(f"the tables did not both grow within three cycles: {grew}")
+    if any(worst.values()):
+        _fail(f"the mutating bench world overflows: {worst}")
+    if launches != steps or folded:
+        _fail(f"expected {steps} contact_sweep_kernel launches, counted {launches} and "
+              f"{folded} folded")
+    _finite(world.state)
+    row = dict(steps=steps, grew_at=grew, ms=ms, rates=rates)
+    row.update(_world_snapshots(device, world, worst))
+    row["rates"].update(_world_guard(world))
+    if any(worst.values()):
+        _fail(f"the bench world overflows: {worst}")
+    print(f"bench world rates (steps/s): " + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+          + "; ms: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f" ({card})")
+    return launches, row, world
+
+
+def _world_snapshots(device, world, worst):
+    """Snapshot and restore, save and load into a fresh world of the grown
+    capacities (the world's params), each followed by WORLD_REPRO steps,
+    against the run itself, bitwise; a world of the bench's own capacities
+    refuses the file."""
+    import torch
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "world_snapshot.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    snap, t_snap = _sync_ms(world.snapshot)
+    _, t_save = _sync_ms(lambda: world.save_snapshot(path))
+    size = os.path.getsize(path)
+    _stepped_world(world, WORLD_REPRO, worst)
+    run_end = world.snapshot()
+    world.restore(snap)
+    _stepped_world(world, WORLD_REPRO, worst)
+    if not _states_equal(world.state, run_end):
+        _fail("snapshot, restore and the same steps do not reproduce the run bitwise")
+    fresh = _bench_physics_world(device, body_capacity=world.state.bodies.n,
+                                 collider_capacity=world.state.colliders.n)
+    fresh.params = world.params
+    _, t_load = _sync_ms(lambda: fresh.load_snapshot(path))
+    _stepped_world(fresh, WORLD_REPRO, worst)
+    if not _states_equal(fresh.state, run_end):
+        _fail("save, load into a fresh world and the same steps do not reproduce the run")
+    other = _bench_physics_world(device)
+    try:
+        other.load_snapshot(path)
+        _fail("a world of other capacities accepted the snapshot file")
+    except ValueError as e:
+        print(f"a world of capacities {other.state.bodies.n}/{other.state.colliders.n} refuses "
+              f"the file: {str(e).splitlines()[0][:100]}")
+    os.remove(path)
+    world.state = run_end
+    print(f"snapshot {t_snap:.3f} ms, save {t_save:.3f} ms, load {t_load:.3f} ms; file "
+          f"{size} bytes; restore and load each reproduce {WORLD_REPRO} steps bitwise")
+    return dict(snapshot_ms=t_snap, save_ms=t_save, load_ms=t_load, snapshot_bytes=size)
+
+
+def _world_guard(world):
+    """The NaN guard on the bench world: steps/s under "rollback" at
+    nan_check_every 16 and 1; at 16 a NaN velocity set with set_linvel is
+    rolled back to the last checked state bitwise; "trap" raises."""
+    rates = {}
+    world.nan_policy = "rollback"
+    for every in (16, 1):
+        world.nan_check_every, world._nan_tick = every, 0
+        _, t = _sync_ms(lambda: world.step(WORLD_GUARD))
+        rates[f"guard_{every}"] = WORLD_GUARD / (t / 1e3)
+    world.nan_check_every, world._nan_tick = 16, 0
+    world.step(16)
+    kept = world.snapshot()
+    body = int(world.state.bodies.inv_mass[0].argmax())
+    world.set_linvel(body, (float("nan"), 0.0, 0.0))
+    world.step(15)
+    if world.nan_rollbacks:
+        _fail("the guard rolled back before its check")
+    world.step(1)
+    if world.nan_rollbacks != 1 or not _states_equal(world.state, kept):
+        _fail(f"the guard did not roll back to the last finite state bitwise "
+              f"({world.nan_rollbacks} rollbacks)")
+    world.nan_policy, world.nan_check_every = "trap", 1
+    world.set_linvel(body, (float("nan"), 0.0, 0.0))
+    try:
+        world.step(1)
+        _fail("nan_policy 'trap' did not raise")
+    except FloatingPointError:
+        pass
+    world.nan_policy = "ignore"
+    world.restore(kept)
+    print("NaN guard: rolled back bitwise to the check 16 steps before at check interval "
+          "16; 'trap' raised at interval 1")
+    return rates
+
+
+def _world_loaders(device, card):
+    """Phase 14(b): examples/urdf_pendulum.py's robot in both joint forms and
+    three MJCF models of the reference's tests, stepped on the card, then
+    single steps from the card's state against the CPU."""
+    import numpy as np
+    import torch
+    from rapier_tpu_torch.scenes import mjcf_model_world, urdf_pendulum_world
+
+    rows = {}
+    cases = [(f"urdf pendulum, {'multibody' if mb else 'impulse'} joints",
+              lambda mb=mb: urdf_pendulum_world(mb, device=device)) for mb in (False, True)]
+    cases += [("mjcf tendon (multibody)", lambda: mjcf_model_world("tendon", True, device=device)),
+              ("mjcf connect", lambda: mjcf_model_world("connect", device=device)),
+              ("mjcf gravcomp and mocap", lambda: mjcf_model_world("gravcomp_mocap",
+                                                                   device=device))]
+    for what, make in cases:
+        t0 = time.time()
+        world, h = make()
+        world.build()
+        if "tendon" in what:
+            h.apply_controls(world, [0.8])
+        if "mocap" in what:
+            h.apply_keyframe(world, "home")
+        z0 = world.body_translation(h.bodies["float"])[2] if "mocap" in what else None
+        world.step(LOADER_STEPS)
+        _finite(world.state)
+        if "urdf" in what:
+            base, arm1 = (world.body_translation(h.bodies[n]) for n in ("base", "arm1"))
+            fact = abs(float(np.linalg.norm(arm1 - base)) - 0.1)
+            ok = fact < (1e-4 if "multibody" in what else 0.05)
+            label = "|anchor distance - 0.1|"
+        elif "tendon" in what:
+            fact = abs(h.joint_value(world, "j2") - h.joint_value(world, "j1"))
+            ok, label = fact < 0.05, "|q2 - q1|"
+        elif "connect" in what:
+            fact = abs(float(np.linalg.norm(world.body_translation(h.bodies["a"])
+                                            - world.body_translation(h.bodies["b"]))) - 1.0)
+            ok, label = fact < 0.05, "|distance - 1|"
+        else:
+            fact = abs(float(world.body_translation(h.bodies["float"])[2] - z0))
+            tip = h.site_position(world, "s_tip")
+            ok = fact < 0.02 and np.allclose(tip, [0.5, 0.5, 2.0], atol=1e-5)
+            label = "gravcomp drift"
+        t_card = time.time() - t0
+        print(f"{what}: {LOADER_STEPS} steps on the card in {t_card:.1f} s; {label} {fact:.3e}")
+        if not ok:
+            _fail(f"{what}: {label} {fact}")
+        _cpu_step_agreement(what, world.state, world.params, steps=WORLD_CPU_STEPS,
+                            witness=None)
+        rows[what] = dict(check=fact, card_s=t_card)
+    return rows
+
+
+def phase_world(device, card):
+    """Phase 14: the world's runtime API and the loaders.  Returns (the
+    kernel's launches in the mutating bench run, the rows)."""
+    t_phase = time.time()
+    launches, bench, _ = _world_bench(device, card)
+    loaders = _world_loaders(device, card)
+    print(f"[phase 14: {time.time() - t_phase:.1f} s]")
+    return launches, dict(bench_world=bench, loaders=loaders)
+
+
 LANE_KEYS = ("b1", "b2", "valid", "color", "normal", "point", "point_active", "dist",
              "friction", "restitution", "prev_impulse", "ws_n", "ws_t", "ws_tw",
              "dyn1", "dyn2")
@@ -2429,26 +2799,49 @@ def phase_earlier(device, card, roots):
     print(json.dumps({"earlier": rows}))
 
 
-def phase_rest(device, card, stacks, steps: int):
-    """With --rest-steps: each pyramid stack stepped `steps` steps, its top
-    box's height above rest and vertical velocity printed every REST_EVERY
-    steps (does the pile come to rest?)."""
+def phase_rest(device, card, stacks, steps: int, colors=None):
+    """With --rest-steps: each pyramid stack stepped `steps` steps (at
+    `colors` colors, else the default), its top box's height above rest and
+    vertical velocity printed every REST_EVERY steps (does the pile come to
+    rest?), beside the lanes that step's blocked layout left to the Jacobi
+    tail at the run's colors and at the default 16 (ROADMAP F4)."""
     import torch
+    from rapier_tpu_torch.dynamics.solver.coloring import solve_caps
+    from rapier_tpu_torch.pipeline import physics_pipeline as pp
 
-    for stack in stacks:
-        state, params, boxes = pyramid_batch(device, stack)
-        rest, worst, t0 = 2 * stack - 1, {}, time.time()
-        for done in range(REST_EVERY, steps + 1, REST_EVERY):
-            state, w = run(state, params, REST_EVERY)
-            worst = {k: max(v, worst.get(k, 0)) for k, v in w.items()}
-            _finite(state)
-            top, vy = float(state.bodies.pos[0, boxes, 1]), float(state.bodies.linvel[0, boxes, 1])
-            torch.cuda.synchronize()
-            print(f"pyramid stack {stack}, step {done}: top box {top - rest:+.4f} from rest "
-                  f"({rest}), vertical velocity {vy:+.4f} m/s; touching pairs "
-                  f"{int(state.contacts.touching.sum())}, sleeping "
-                  f"{int(state.bodies.sleeping.sum())}; overflow {worst}; "
-                  f"{time.time() - t0:.1f} s ({card})", flush=True)
+    coloring, last = pp.color_constraints_blocked, {}
+
+    def record(*a):
+        out = coloring(*a)
+        last["args"] = a
+        return out
+
+    def tail_at(params, max_colors):
+        a = last["args"]
+        caps = solve_caps(params.max_solver_pairs, a[0].shape[-1], max_colors)
+        return int((coloring(*a[:-1], caps)[0] == len(caps) - 1).sum())
+
+    pp.color_constraints_blocked = record
+    try:
+        for stack in stacks:
+            state, params, boxes = pyramid_batch(device, stack, colors)
+            rest, worst, t0 = 2 * stack - 1, {}, time.time()
+            for done in range(REST_EVERY, steps + 1, REST_EVERY):
+                state, w = run(state, params, REST_EVERY)
+                worst = {k: max(v, worst.get(k, 0)) for k, v in w.items()}
+                _finite(state)
+                top = float(state.bodies.pos[0, boxes, 1])
+                vy = float(state.bodies.linvel[0, boxes, 1])
+                tails = {c: tail_at(params, c) for c in sorted({params.max_colors, 16})}
+                torch.cuda.synchronize()
+                print(f"pyramid stack {stack} at {params.max_colors} colors, step {done}: top "
+                      f"box {top - rest:+.4f} from rest ({rest}), vertical velocity "
+                      f"{vy:+.4f} m/s; touching pairs {int(state.contacts.touching.sum())}, "
+                      f"solver lanes {int(last['args'][4].sum())}, Jacobi tail lanes by "
+                      f"colors {tails}, sleeping {int(state.bodies.sleeping.sum())}; overflow "
+                      f"{worst}; {time.time() - t0:.1f} s ({card})", flush=True)
+    finally:
+        pp.color_constraints_blocked = coloring
 
 
 def main():
@@ -2463,6 +2856,11 @@ def main():
                     help="step the --pyramid stacks (default 31) STEPS steps each, print the "
                          f"top box's distance from rest every {REST_EVERY} steps, and run "
                          "nothing else")
+    ap.add_argument("--colors", type=int, metavar="N",
+                    help="with --rest-steps: step the stacks at N colors (SimParams.max_colors)")
+    ap.add_argument("--world-only", action="store_true",
+                    help="run the build and phase 14 (the world's runtime API and the "
+                         "loaders) only")
     ap.add_argument("--s2d-only", action="store_true",
                     help="run the build and phase 10 (the 2D slice) only")
     ap.add_argument("--heightfield-full", action="store_true",
@@ -2514,7 +2912,11 @@ def main():
         phase(phase_earlier, device, card, args.earlier)
         return
     if args.rest_steps:
-        phase(phase_rest, device, card, tuple(args.pyramid) or (31,), args.rest_steps)
+        phase(phase_rest, device, card, tuple(args.pyramid) or (31,), args.rest_steps,
+              args.colors)
+        return
+    if args.world_only:
+        print(json.dumps({"world": phase(phase_world, device, card)[1], "card": card}))
         return
     if args.s2d_only:
         print(json.dumps({"s2d": phase(phase_2d, device, card)[0],
@@ -2555,6 +2957,7 @@ def main():
         convex["primitives3_full"] = phase(phase_primitives_full, device, card)
     joints, joints3 = phase(phase_joints, device, card)
     by_path, ccd_multibody, ccd_captures = phase(phase_ccd_multibody, device, card)
+    world_launches, world = phase(phase_world, device, card)
     captures = dict(bench=bench, quadruped=quadrupeds, pyramid=pyramid16, s2d_big=s2d_big,
                     heightfield3=hf_in_contact, primitives3=p3_in_contact, joints3=joints3,
                     **ccd_captures)
@@ -2564,11 +2967,12 @@ def main():
 
     print(json.dumps({"pyramid": pyramids, "s2d": s2d, "bench_step": bench_stages,
                       "joints": joints, "meshes": meshes, "convex": convex,
-                      "ccd_multibody": ccd_multibody, "card": card}))
+                      "ccd_multibody": ccd_multibody, "world": world, "card": card}))
     # Each path's launches, its counts set to 0 just before it and read just
     # after; `launches` is the bench's, the contract's main path.
     block["launches_by_path"] = {"bench": block["launches"], "heightfield3": hf_launches,
-                                 "primitives3": p3_launches, "ccd3": by_path["ccd3"]}
+                                 "primitives3": p3_launches, "ccd3": by_path["ccd3"],
+                                 "world": world_launches}
     block["heightfield3_k640"] = hf_kernel
     block["primitives3_k256"] = p3_kernel
     folded["launches_by_path"] = {"robots": folded["launches"],

@@ -607,6 +607,98 @@ def multibody_arm_world(coupled: bool = False, **world_kw):
     return w, {"links": links, "ball": ball, "pedestal": pedestal}
 
 
+# examples/urdf_pendulum.py's robot: a fixed base and two arms on continuous
+# joints about Z.
+URDF_PENDULUM = """
+<robot name="pendulum">
+  <link name="base"><collision><geometry><box size="0.2 0.2 0.2"/></geometry></collision></link>
+  <link name="arm1"><collision><origin xyz="0 -0.25 0"/><geometry><box size="0.05 0.5 0.05"/></geometry></collision></link>
+  <link name="arm2"><collision><origin xyz="0 -0.25 0"/><geometry><capsule radius="0.04" length="0.4"/></geometry></collision></link>
+  <joint name="shoulder" type="continuous"><parent link="base"/><child link="arm1"/><origin xyz="0 -0.1 0"/><axis xyz="0 0 1"/></joint>
+  <joint name="elbow" type="continuous"><parent link="arm1"/><child link="arm2"/><origin xyz="0 -0.5 0"/><axis xyz="0 0 1"/></joint>
+</robot>
+"""
+
+
+def urdf_pendulum_world(use_multibody: bool = False, **world_kw):
+    """examples/urdf_pendulum.py: the double pendulum under a sideways pull,
+    its base fixed at (0, 2, 0); impulse or multibody joints.  Returns
+    (world, UrdfRobotHandles)."""
+    from rapier_tpu_torch.loaders.urdf import load_urdf
+
+    world_kw.setdefault("gravity", (-2.0, -9.81, 0.0))
+    w = PhysicsWorld(**world_kw)
+    return w, load_urdf(URDF_PENDULUM, w, root_translation=(0, 2, 0), fixed_base=True,
+                        use_multibody=use_multibody)
+
+
+# Three models of the reference's MJCF tests (tests/test_mjcf.py:159, :199,
+# :231): a fixed tendon coupling two hinges, driven by a position servo; two
+# free spheres held 1 m apart by an equality connect; a gravity-compensated
+# slider (an ellipsoid, a site) beside a mocap body, a spatial tendon between
+# them and a keyframe with a mocap pose.
+MJCF_MODELS = {
+    "tendon": """
+<mujoco>
+  <worldbody>
+    <body name="root" pos="0 0 2">
+      <body name="l1" pos="0 0 -0.4">
+        <joint name="j1" type="hinge" axis="0 1 0"/>
+        <geom type="capsule" fromto="0 0 0 0 0 -0.4" size="0.04"/>
+        <body name="l2" pos="0 0 -0.4">
+          <joint name="j2" type="hinge" axis="0 1 0"/>
+          <geom type="capsule" fromto="0 0 0 0 0 -0.4" size="0.04"/>
+        </body>
+      </body>
+    </body>
+  </worldbody>
+  <tendon>
+    <fixed name="curl"><joint joint="j1" coef="1"/><joint joint="j2" coef="1"/></fixed>
+  </tendon>
+  <actuator><position name="a1" joint="j1" kp="80" kv="8"/></actuator>
+</mujoco>
+""",
+    "connect": """
+<mujoco>
+  <worldbody>
+    <body name="a" pos="0 0 1"><joint type="free"/><geom type="sphere" size="0.2"/></body>
+    <body name="b" pos="1 0 1"><joint type="free"/><geom type="sphere" size="0.2"/></body>
+  </worldbody>
+  <equality><connect name="link" body1="a" body2="b" anchor="0.5 0 0"/></equality>
+</mujoco>
+""",
+    "gravcomp_mocap": """
+<mujoco>
+  <worldbody>
+    <geom type="plane" size="10 10 0.1"/>
+    <body name="float" pos="0 0 1" gravcomp="1">
+      <joint name="lift" type="slide" axis="0 0 1"/>
+      <geom type="ellipsoid" size="0.3 0.2 0.1" density="500"/>
+      <site name="s_base" pos="0 0 0.1"/>
+    </body>
+    <body name="target" pos="0.5 0 1.5" mocap="true">
+      <geom type="sphere" size="0.05" density="100"/>
+      <site name="s_tip" pos="0 0 0"/>
+    </body>
+  </worldbody>
+  <tendon><spatial name="cable"><site site="s_base"/><site site="s_tip"/></spatial></tendon>
+  <sensor><tendonpos name="cable_len" tendon="cable"/></sensor>
+  <keyframe><key name="home" qpos="0" mpos="0.5 0.5 2.0" mquat="1 0 0 0"/></keyframe>
+</mujoco>
+""",
+}
+
+
+def mjcf_model_world(name: str, use_multibody: bool = False, **world_kw):
+    """One of MJCF_MODELS loaded into a Z-up world.  Returns (world,
+    MjcfRobotHandles)."""
+    from rapier_tpu_torch.loaders.mjcf import load_mjcf
+
+    world_kw.setdefault("gravity", (0.0, 0.0, -9.81))
+    w = PhysicsWorld(**world_kw)
+    return w, load_mjcf(MJCF_MODELS[name], w, use_multibody=use_multibody)
+
+
 def replicate_scene(state, batch: int):
     """Copy one scene state `batch` times along a new leading scene axis.
     Numpy leaves stay numpy (host); tensor leaves are copied on their

@@ -15,7 +15,9 @@ numpy and gives the same `SceneState` leaves as the reference's `build()`;
 from __future__ import annotations
 
 import copy
+import dataclasses
 import math
+import operator
 from collections import Counter
 from dataclasses import dataclass, field
 from typing import Optional
@@ -44,6 +46,7 @@ from rapier_tpu_torch.types import (
     empty_contacts,
     empty_joints,
     from_numpy,
+    tree_map,
 )
 
 _IDQ = (0.0, 0.0, 0.0, 1.0)
@@ -62,6 +65,14 @@ def _as_quat(rotation) -> np.ndarray:
         s = math.sin(angle / 2)
         return np.array([axis[0] * s, axis[1] * s, axis[2] * s, math.cos(angle / 2)])
     raise ValueError(f"rotation must be quat (4,) or scaled axis (3,), got {r.shape}")
+
+
+def _hidx(h):
+    """A handle (int or `BodyHandle`) as a plain int index."""
+    try:
+        return operator.index(h)
+    except TypeError:
+        return h
 
 
 @dataclass
@@ -134,6 +145,18 @@ class RigidBodyBuilder:
     def lock_translations(self):
         return self._set(locked_axes=self.locked_axes | 0b111)
 
+    def enabled_rotations(self, x: bool, y: bool, z: bool):
+        """Lock every rotation axis whose flag is False (the translation
+        locks are kept)."""
+        mask = (0 if x else 1 << 3) | (0 if y else 1 << 4) | (0 if z else 1 << 5)
+        return self._set(locked_axes=(self.locked_axes & 0b111) | mask)
+
+    def enabled_translations(self, x: bool, y: bool, z: bool):
+        """Lock every translation axis whose flag is False (the rotation
+        locks are kept)."""
+        mask = (0 if x else 1) | (0 if y else 2) | (0 if z else 4)
+        return self._set(locked_axes=(self.locked_axes & (0b111 << 3)) | mask)
+
 
 @dataclass
 class ColliderBuilder:
@@ -166,6 +189,10 @@ class ColliderBuilder:
     # (translation, rotation, ColliderBuilder) children of a compound,
     # expanded into leaf colliders by PhysicsWorld.insert_collider.
     children: Optional[list] = field(default=None, repr=False, compare=False)
+    # Mass properties at unit density that replace the shape's own when the
+    # scene is built (the MJCF ellipsoid: its collision hull is inscribed).
+    mass_props_unit_density: Optional[mp.MassProperties] = field(
+        default=None, repr=False, compare=False)
 
     @staticmethod
     def ball(radius) -> "ColliderBuilder":
@@ -387,6 +414,9 @@ class ColliderBuilder:
 
     def as_sensor(self):
         return self._set(sensor=True)
+
+    def with_sensor(self, sensor: bool = True):
+        return self._set(sensor=bool(sensor))
 
     def with_collision_groups(self, groups: int):
         return self._set(collision_groups=int(groups))
@@ -619,17 +649,96 @@ def _round_up(x: int, m: int) -> int:
     return max(((x + m - 1) // m) * m, m)
 
 
+class BodyHandle:
+    """Generational handle (index, generation) of a body or collider slot
+    (the reference's Arena Index, src/data/arena.rs:28).  Usable directly as
+    an index while live (`__index__`); removing through a stale handle (its
+    slot reused) raises.  Not a tuple: numpy and torch would take a tuple as
+    a multi-dimensional index."""
+
+    __slots__ = ("index", "generation")
+
+    def __init__(self, index: int, generation: int):
+        object.__setattr__(self, "index", int(index))
+        object.__setattr__(self, "generation", int(generation))
+
+    def __setattr__(self, *_):
+        raise AttributeError("BodyHandle is immutable")
+
+    def __index__(self):
+        return self.index
+
+    def __int__(self):
+        return self.index
+
+    def __eq__(self, other):
+        if isinstance(other, BodyHandle):
+            return (self.index, self.generation) == (other.index, other.generation)
+        return NotImplemented
+
+    def __hash__(self):
+        return hash((self.index, self.generation))
+
+    def __repr__(self):
+        return f"BodyHandle({self.index}, gen={self.generation})"
+
+
+def _clone_state(state: SceneState) -> SceneState:
+    """A deep copy of a state on its own device: the world writes its
+    tensors in place, so a kept state must not share them."""
+    return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else copy.copy(x),
+                    state)
+
+
+def _state_structure(state: SceneState) -> str:
+    """The layout of a state: its parts (None where absent) and each part's
+    fields, in order."""
+    parts = []
+    for name in ("bodies", "colliders", "contacts", "joints", "multibodies", "meshes",
+                 "hulls"):
+        part = getattr(state, name)
+        parts.append(f"{name}=None" if part is None else (
+            f"{name}={type(part).__name__}("
+            + ",".join(f.name for f in dataclasses.fields(part)) + ")"))
+    return "SceneState(" + ";".join(parts) + ";step_count)"
+
+
+def _state_leaves(state: SceneState) -> list:
+    """Every leaf of a state, in `tree_map`'s order."""
+    leaves = []
+    tree_map(leaves.append, state)
+    return leaves
+
+
 class PhysicsWorld:
-    """Scene container + stepping facade (reference PhysicsWorld)."""
+    """Scene container + stepping facade (reference PhysicsWorld).
+
+    After `build()` the scene can change between steps: bodies and colliders
+    are inserted and removed at runtime (`insert_body_runtime`,
+    `insert_collider_runtime`, `remove_*_runtime`; slots are reused from a
+    free list and the tables grow by 8 past their capacity), velocities and
+    forces are set per body, the state is snapshotted in memory or on disk,
+    and ``nan_policy`` "trap" or "rollback" checks the bodies every
+    ``nan_check_every`` steps (one host sync each)."""
 
     def __init__(self, gravity=(0.0, -9.81, 0.0),
                  params: Optional[SimParams] = None,
                  max_pairs: Optional[int] = None,
                  body_capacity: Optional[int] = None,
                  collider_capacity: Optional[int] = None,
+                 nan_policy: str = "ignore", nan_check_every: int = 16,
                  device="cuda"):
+        assert nan_policy in ("ignore", "trap", "rollback")
+        self.nan_policy = nan_policy
+        self.nan_check_every = nan_check_every
+        self.nan_rollbacks = 0
+        self._nan_tick = 0
+        self._last_finite: Optional[SceneState] = None
         self._pending_bodies: list[RigidBodyBuilder] = []
         self._pending_colliders: list[tuple[ColliderBuilder, int]] = []
+        # collider index -> its mass properties at build (mesh and hull
+        # masses and `mass=` overrides included), for _recompute_body_mass.
+        self._collider_smp_cache: dict[int, mp.MassProperties] = {}
         # (joint, body1, body2)
         self._pending_joints: list[tuple] = []
         # (joint, parent body, child body, kinematic)
@@ -779,7 +888,12 @@ class PhysicsWorld:
             colliders["user_data"][i] = cb.user_data
             colliders["active_collision_types"][i] = cb.active_collision_types
             if parent >= 0 and not cb.sensor:
-                if i in hull_info:
+                unit = cb.mass_props_unit_density
+                if unit is not None:
+                    smp = mp.MassProperties(unit.mass * cb.density, unit.com,
+                                            unit.principal_inertia * cb.density,
+                                            unit.principal_frame)
+                elif i in hull_info:
                     _h, faces, verts, _lo, _hi = hull_info[i]
                     smp = mp.mesh_mass_properties(verts, faces, cb.density,
                                                   assume_convex=True)
@@ -792,6 +906,7 @@ class PhysicsWorld:
                     smp = mp.MassProperties(
                         cb.mass, smp.com, smp.principal_inertia * scale,
                         smp.principal_frame)
+                self._collider_smp_cache[i] = smp
                 body_parts[parent].append(
                     (smp, np.asarray(cb.translation, np.float64),
                      _as_quat(cb.rotation)))
@@ -851,6 +966,8 @@ class PhysicsWorld:
         self.state = from_numpy(replicate_scene(state, 1), self.device)
         if state.joints is not None:
             self.params = self.params.replace(joint_slots=used_slots(self.state.joints))
+        self.n_bodies = nb
+        self.n_colliders = nc
         return state
 
     def _build_meshes(self, c_cap: int):
@@ -1011,11 +1128,234 @@ class PhysicsWorld:
         self._mb_trees = trees
         return Multibodies(**arr)
 
-    def multibody_link_of(self, body: int) -> tuple:
+    # ------------------------------------------------------------------
+    # Runtime mutation (the reference's Arena insert and remove with
+    # generational handles; removal before the next step,
+    # physics_pipeline.rs:852-903).  Slots are reused from a free list over
+    # the padded capacity, freed slots first; past the capacity the body or
+    # collider table grows by 8 slots, which changes the step's shapes.
+    # ------------------------------------------------------------------
+    def _init_mutation_state(self):
+        if getattr(self, "_body_gen", None) is not None:
+            return
+        n_cap = self.state.bodies.n
+        c_cap = self.state.colliders.n
+        self._body_gen = np.zeros(n_cap, np.int32)
+        self._collider_gen = np.zeros(c_cap, np.int32)
+        self._free_bodies = list(range(self.n_bodies, n_cap))
+        self._free_colliders = list(range(self.n_colliders, c_cap))
+        # collider index -> (builder, parent) for _recompute_body_mass.
+        self._collider_meta = {i: (cb, parent)
+                               for i, (cb, parent) in enumerate(self._pending_colliders)}
+
+    def _resolve(self, h, gen_table):
+        if isinstance(h, BodyHandle):
+            assert gen_table[h.index] == h.generation, (
+                f"stale handle {h}: slot reused (generation {gen_table[h.index]})")
+            return h.index
+        return int(h)
+
+    def _grown(self, part, fresh, n_old: int):
+        """`part` with every leaf reallocated at `fresh`'s size on the
+        world's device, its first `n_old` rows kept."""
+        upd = {}
+        for f in dataclasses.fields(part):
+            old = getattr(part, f.name)
+            a = np.array(getattr(fresh, f.name))
+            base = torch.from_numpy(a.astype(np.int64) if a.dtype == np.uint32 else a).to(
+                device=old.device, dtype=old.dtype).unsqueeze(0)
+            base[:, :n_old] = old
+            upd[f.name] = base
+        return type(part)(**upd)
+
+    def _grow_bodies(self):
+        old = self.state.bodies
+        n_old = old.n
+        grown = self._grown(old, empty_bodies(n_old + 8), n_old)
+        # The reference grows into `empty_bodies`' arrays, where rot,
+        # principal_frame and next_rot are ONE array: each old row of the
+        # three ends up holding next_rot, the last written (ROADMAP R20).
+        grown.rot[:, :n_old] = old.next_rot
+        grown.principal_frame[:, :n_old] = old.next_rot
+        self.state = dataclasses.replace(self.state, bodies=grown)
+        self._body_gen = np.concatenate([self._body_gen, np.zeros(8, np.int32)])
+        self._free_bodies.extend(range(n_old, n_old + 8))
+
+    def _grow_colliders(self):
+        old = self.state.colliders
+        c_old = old.n
+        self.state = dataclasses.replace(
+            self.state, colliders=self._grown(old, empty_colliders(c_old + 8), c_old))
+        self._collider_gen = np.concatenate([self._collider_gen, np.zeros(8, np.int32)])
+        self._free_colliders.extend(range(c_old, c_old + 8))
+
+    def insert_body_runtime(self, builder: RigidBodyBuilder) -> BodyHandle:
+        """Insert a rigid body after build() (RigidBodySet::insert).  As in
+        the reference, only the builder's pose, velocities, type, flags,
+        damping and sleep state are written, and the mass is zero until a
+        collider is attached: a reused slot keeps the removed body's other
+        fields (force, torque, CCD, principal frame, user data; ROADMAP R18)."""
+        assert self.state is not None, "build() first"
+        self._init_mutation_state()
+        if not self._free_bodies:
+            self._grow_bodies()
+        i = self._free_bodies.pop(0)
+        bb = builder
+        q = _as_quat(bb.rotation).astype(np.float32)
+        t = np.asarray(bb.translation, np.float32)
+        self._write(self.state.bodies, i, pos=t, rot=q, next_pos=t, next_rot=q,
+                    linvel=np.asarray(bb.linvel, np.float32),
+                    angvel=np.asarray(bb.angvel, np.float32),
+                    body_type=int(bb.body_type), enabled=bb.enabled,
+                    locked_axes=bb.locked_axes, gravity_scale=bb.gravity_scale,
+                    linear_damping=bb.linear_damping, angular_damping=bb.angular_damping,
+                    dominance=bb.dominance_group, gyro_enabled=bb.gyroscopic_forces_enabled,
+                    can_sleep=bb.can_sleep, sleeping=bb.sleeping, sleep_timer=0.0,
+                    inv_mass=0.0, local_com=np.zeros(3, np.float32),
+                    inv_principal_inertia=np.zeros(3, np.float32))
+        self.n_bodies = max(self.n_bodies, i + 1)
+        return BodyHandle(i, int(self._body_gen[i]))
+
+    def insert_collider_runtime(self, builder: ColliderBuilder, body=-1) -> BodyHandle:
+        """Attach a collider after build() (ColliderSet::insert_with_parent)
+        and recompute its body's mass.  Meshes, hulls and compounds need the
+        scene's tables and are not insertable at runtime.  A new shape type
+        (or a second instance of one) enters `params.shape_types_present`,
+        so the narrow phase runs its kernels from the next step."""
+        assert self.state is not None, "build() first"
+        assert builder.mesh is None
+        assert builder.hull_points is None
+        assert builder.children is None
+        self._init_mutation_state()
+        if not self._free_colliders:
+            self._grow_colliders()
+        i = self._free_colliders.pop(0)
+        parent = (self._resolve(body, self._body_gen)
+                  if not isinstance(body, int) or body >= 0 else -1)
+        cb = builder
+        prm = np.zeros(12, np.float32)
+        prm[: len(cb.shape_params)] = cb.shape_params
+        self._write(self.state.colliders, i, parent=parent,
+                    local_pos=np.asarray(cb.translation, np.float32),
+                    local_rot=_as_quat(cb.rotation).astype(np.float32),
+                    shape_type=int(cb.shape_type), shape_params=prm,
+                    friction=cb.friction, restitution=cb.restitution,
+                    friction_combine=int(cb.friction_combine_rule),
+                    restitution_combine=int(cb.restitution_combine_rule),
+                    collision_groups=cb.collision_groups, solver_groups=cb.solver_groups,
+                    sensor=cb.sensor, enabled=cb.enabled, contact_skin=cb.contact_skin,
+                    active_events=cb.active_events, active_hooks=cb.active_hooks,
+                    contact_force_event_threshold=cb.contact_force_event_threshold,
+                    active_collision_types=cb.active_collision_types)
+        self._collider_meta[i] = (cb, parent)
+        self.n_colliders = max(self.n_colliders, i + 1)
+        if parent >= 0:
+            self._recompute_body_mass(parent)
+        census = dict(e if isinstance(e, tuple) else (e, 1 << 30)
+                      for e in self.params.shape_types_present)
+        census[int(cb.shape_type)] = census.get(int(cb.shape_type), 0) + 1
+        self.params = self.params.replace(shape_types_present=tuple(sorted(census.items())))
+        return BodyHandle(i, int(self._collider_gen[i]))
+
+    def _recompute_body_mass(self, body: int):
+        """Rebuild a body's mass properties from its attached, enabled,
+        non-sensor colliders (RigidBody::recompute_mass_properties_from_colliders);
+        as in the reference, whatever the body's type and without its
+        builder's additional mass."""
+        parts = []
+        for ci, (cb, parent) in self._collider_meta.items():
+            if parent != body or cb.sensor:
+                continue
+            if not bool(self.state.colliders.enabled[0, ci]):
+                continue
+            smp = self._collider_smp_cache.get(ci)
+            if smp is None:
+                prm = self.state.colliders.shape_params[0, ci].cpu().numpy()
+                smp = mp.shape_mass_properties(int(cb.shape_type), prm, cb.density)
+                if cb.mass is not None and smp.mass > 0:
+                    scale = cb.mass / smp.mass
+                    smp = mp.MassProperties(cb.mass, smp.com, smp.principal_inertia * scale,
+                                            smp.principal_frame)
+            parts.append((smp, np.asarray(cb.translation, np.float64), _as_quat(cb.rotation)))
+        combined = mp.combine(parts)
+        b = self.state.bodies
+        if combined.mass > 0:
+            with np.errstate(divide="ignore"):
+                inv_i = np.where(combined.principal_inertia > 0,
+                                 1.0 / combined.principal_inertia, 0.0)
+            self._write(b, body, inv_mass=1.0 / combined.mass,
+                        local_com=combined.com.astype(np.float32),
+                        inv_principal_inertia=inv_i.astype(np.float32),
+                        principal_frame=combined.principal_frame.astype(np.float32))
+        else:
+            self._write(b, body, inv_mass=0.0, inv_principal_inertia=np.zeros(3, np.float32))
+
+    def _detach_collider(self, i: int):
+        """Disable collider slot `i`, free it and drop its metadata."""
+        self._write(self.state.colliders, i, enabled=False, parent=-1)
+        self._collider_gen[i] += 1
+        self._free_colliders.insert(0, i)
+        self._collider_meta.pop(i, None)
+        self._collider_smp_cache.pop(i, None)
+
+    def remove_collider_runtime(self, handle, wake_up: bool = True):
+        """Detach and disable a collider (ColliderSet::remove); its body's
+        mass is recomputed and the body woken.  The contact cache keeps the
+        collider's lanes until the next step matches them no more (a slot
+        reused before that meets them: ROADMAP R19)."""
+        self._init_mutation_state()
+        i = self._resolve(handle, self._collider_gen)
+        parent = int(self.state.colliders.parent[0, i])
+        self._detach_collider(i)
+        if parent >= 0:
+            self._recompute_body_mass(parent)
+            if wake_up:
+                self.wake_up(parent)
+
+    def remove_body_runtime(self, handle):
+        """Remove a rigid body and its colliders (RigidBodySet::remove), and
+        disable the impulse joints that reference it: otherwise a joint would
+        first pin its partner to a disabled ghost, then bind to whatever body
+        reuses the slot."""
+        self._init_mutation_state()
+        i = self._resolve(handle, self._body_gen)
+        for ci in [ci for ci, (_, p) in self._collider_meta.items() if p == i]:
+            self._detach_collider(ci)
+        js = self.state.joints
+        if js is not None:
+            ref = (js.body1 == i) | (js.body2 == i)
+            js.enabled.masked_fill_(ref, False)
+            js.body1.masked_fill_(ref, -1)
+            js.body2.masked_fill_(ref, -1)
+        self._write(self.state.bodies, i, enabled=False, body_type=int(BodyType.FIXED),
+                    linvel=np.zeros(3, np.float32), angvel=np.zeros(3, np.float32),
+                    inv_mass=0.0)
+        self._body_gen[i] += 1
+        self._free_bodies.insert(0, i)   # LIFO reuse (the arena's free-list order)
+
+    @staticmethod
+    def _write(part, i, **values):
+        """Write row `i` of scene 0 of each named leaf of `part`, in place."""
+        for name, v in values.items():
+            leaf = getattr(part, name)
+            if isinstance(v, np.ndarray):
+                leaf[0, i] = torch.from_numpy(v).to(device=leaf.device, dtype=leaf.dtype)
+            else:
+                leaf[0, i] = v
+
+    # ------------------------------------------------------------------
+    # Multibody access
+    # ------------------------------------------------------------------
+    def multibody_link_of(self, body) -> tuple:
         """(tree, link) slot of the articulation link driving `body`."""
+        if isinstance(body, BodyHandle):
+            self._init_mutation_state()
+            b = self._resolve(body, self._body_gen)
+        else:
+            b = int(body)
         for ti, order in enumerate(self._mb_trees):
-            if int(body) in order:
-                return ti, order.index(int(body))
+            if b in order:
+                return ti, order.index(b)
         raise KeyError(f"body {body} is not a multibody link")
 
     def multibody_q(self, tree: int = 0) -> np.ndarray:
@@ -1035,6 +1375,9 @@ class PhysicsWorld:
         if target_vel is not None:
             mb.motor_target_vel[0, tree, link, axis] = float(target_vel)
 
+    # ------------------------------------------------------------------
+    # Stepping and the NaN guard
+    # ------------------------------------------------------------------
     def step(self, n: int = 1):
         from rapier_tpu_torch.pipeline.physics_pipeline import step as _step
 
@@ -1042,19 +1385,181 @@ class PhysicsWorld:
             self.build()
         for _ in range(n):
             self.state, self.last_events = _step(self.state, self.params)
+            if self.nan_policy != "ignore":
+                self._nan_guard()
         return self.state
 
-    def body_translation(self, h: int) -> np.ndarray:
-        return self.state.bodies.pos[0, int(h)].cpu().numpy()
+    def _nan_guard(self):
+        """NaN trap or rollback (the reference's snapshot-rollback recovery,
+        examples3d/debug_rollback3.rs): every `nan_check_every` steps the
+        bodies' positions and velocities are checked (one host sync); "trap"
+        raises, "rollback" restores the last state that passed a check (a
+        copy on the device) and counts it in `nan_rollbacks`."""
+        self._nan_tick += 1
+        if self._nan_tick % max(1, int(self.nan_check_every)) != 0:
+            return
+        b = self.state.bodies
+        finite = bool(torch.isfinite(b.pos).all() & torch.isfinite(b.linvel).all()
+                      & torch.isfinite(b.angvel).all())
+        if finite:
+            if self.nan_policy == "rollback":
+                self._last_finite = _clone_state(self.state)
+            return
+        if self.nan_policy == "trap":
+            raise FloatingPointError(
+                f"non-finite body state at step {self._nan_tick} (nan_policy='trap')")
+        self.nan_rollbacks += 1
+        if self._last_finite is None:
+            raise FloatingPointError("non-finite body state and no finite snapshot to roll "
+                                     "back to (nan_policy='rollback')")
+        self.state = _clone_state(self._last_finite)
 
-    def body_rotation(self, h: int) -> np.ndarray:
-        return self.state.bodies.rot[0, int(h)].cpu().numpy()
+    # ------------------------------------------------------------------
+    # Contact and intersection readers (NarrowPhase::contact_pairs_with,
+    # intersection_pairs; pure functions of the contacts and colliders)
+    # ------------------------------------------------------------------
+    def _contacts_np(self, *names):
+        c = self.state.contacts
+        return [getattr(c, n)[0].cpu().numpy() for n in names]
 
-    def body_linvel(self, h: int) -> np.ndarray:
-        return self.state.bodies.linvel[0, int(h)].cpu().numpy()
+    def intersection_pairs(self):
+        """[(collider1, collider2)] of the touching pairs in which either
+        collider is a sensor (the intersection graph)."""
+        c1, c2, touching = self._contacts_np("collider1", "collider2", "touching")
+        sens = self.state.colliders.sensor[0].cpu().numpy()
+        mask = touching & (c1 >= 0) & (sens[np.maximum(c1, 0)] | sens[np.maximum(c2, 0)])
+        return list(zip(c1[mask].tolist(), c2[mask].tolist()))
 
-    def body_angvel(self, h: int) -> np.ndarray:
-        return self.state.bodies.angvel[0, int(h)].cpu().numpy()
+    def is_intersecting(self, collider_a, collider_b) -> bool:
+        """Whether a sensor pair currently overlaps."""
+        a, b = sorted((_hidx(collider_a), _hidx(collider_b)))
+        return (a, b) in set(self.intersection_pairs())
 
-    def body_is_sleeping(self, h: int) -> bool:
-        return bool(self.state.bodies.sleeping[0, int(h)])
+    def contact_pairs_with(self, collider):
+        """Indices of the touching contact lanes that involve `collider`."""
+        collider = _hidx(collider)
+        c1, c2, touching = self._contacts_np("collider1", "collider2", "touching")
+        return np.where(touching & ((c1 == collider) | (c2 == collider)))[0]
+
+    def contacts_with(self, collider):
+        """[(other collider, normal, active points, their distances)] of the
+        touching pairs that involve `collider`."""
+        collider = _hidx(collider)
+        c1, c2, act, point, dist, normal = self._contacts_np(
+            "collider1", "collider2", "point_active", "point", "dist", "normal")
+        out = []
+        for p in self.contact_pairs_with(collider):
+            other = int(c2[p]) if int(c1[p]) == collider else int(c1[p])
+            a = act[:, p]
+            out.append((other, normal[:, p], point[:, :, p][a], dist[:, p][a]))
+        return out
+
+    def intersection_pairs_with(self, collider):
+        """The colliders touching `collider` in pairs where either is a
+        sensor."""
+        collider = _hidx(collider)
+        c1, c2 = self._contacts_np("collider1", "collider2")
+        sens = self.state.colliders.sensor[0].cpu().numpy()
+        out = []
+        for p in self.contact_pairs_with(collider):
+            a, b = int(c1[p]), int(c2[p])
+            if sens[a] or sens[b]:
+                out.append(b if a == collider else a)
+        return out
+
+    # ------------------------------------------------------------------
+    # Body readers and setters; each takes a BodyHandle or an int
+    # ------------------------------------------------------------------
+    def body_translation(self, h) -> np.ndarray:
+        return self.state.bodies.pos[0, _hidx(h)].cpu().numpy()
+
+    def body_rotation(self, h) -> np.ndarray:
+        return self.state.bodies.rot[0, _hidx(h)].cpu().numpy()
+
+    def body_linvel(self, h) -> np.ndarray:
+        return self.state.bodies.linvel[0, _hidx(h)].cpu().numpy()
+
+    def body_angvel(self, h) -> np.ndarray:
+        return self.state.bodies.angvel[0, _hidx(h)].cpu().numpy()
+
+    def body_is_sleeping(self, h) -> bool:
+        return bool(self.state.bodies.sleeping[0, _hidx(h)])
+
+    def _wake(self, i: int):
+        self._write(self.state.bodies, i, sleeping=False, sleep_timer=0.0)
+
+    def set_linvel(self, h, v, wake_up: bool = True):
+        i = _hidx(h)
+        self._write(self.state.bodies, i, linvel=np.asarray(v, np.float32))
+        if wake_up:
+            self._wake(i)
+
+    def apply_impulse(self, h, impulse, wake_up: bool = True):
+        """linvel += impulse * inv_mass (float32, as the reference)."""
+        i = _hidx(h)
+        b = self.state.bodies
+        dv = torch.as_tensor(np.asarray(impulse, np.float32), device=b.inv_mass.device) \
+            * b.inv_mass[0, i]
+        self.set_linvel(i, (b.linvel[0, i] + dv).cpu().numpy(), wake_up)
+
+    def add_force(self, h, force, wake_up: bool = True):
+        i = _hidx(h)
+        self.state.bodies.force[0, i] += torch.as_tensor(
+            np.asarray(force, np.float32), device=self.state.bodies.force.device)
+        if wake_up:
+            self._wake(i)
+
+    def reset_forces(self, h):
+        self._write(self.state.bodies, _hidx(h), force=0.0, torque=0.0)
+
+    def wake_up(self, h):
+        self._wake(_hidx(h))
+
+    def set_next_kinematic_translation(self, h, xyz):
+        self._write(self.state.bodies, _hidx(h), next_pos=np.asarray(xyz, np.float32))
+
+    # ------------------------------------------------------------------
+    # Snapshots (the reference's serde round trip).  In memory they are
+    # deep copies on the device; on disk an .npz of every leaf with the
+    # state's layout, refused by a world of another layout or capacity.
+    # ------------------------------------------------------------------
+    def snapshot(self) -> SceneState:
+        return _clone_state(self.state)
+
+    def restore(self, snap: SceneState):
+        self.state = _clone_state(snap)
+
+    def save_snapshot(self, path: str):
+        """Write the whole state to an .npz file."""
+        np.savez(path, *[x.cpu().numpy() for x in _state_leaves(self.state)],
+                 __structure__=np.frombuffer(_state_structure(self.state).encode(), np.uint8))
+
+    def load_snapshot(self, path: str):
+        """Restore a state written by `save_snapshot` onto the world's
+        device.  Its layout, leaf count and every leaf's shape must match the
+        world's (the same capacities), all checked before anything is
+        written."""
+        with np.load(path) as data:
+            saved = data["__structure__"].tobytes().decode()
+            current = _state_structure(self.state)
+            if saved != current:
+                raise ValueError(
+                    "snapshot structure mismatch: the saved world's state differs from this "
+                    "world's (other optional parts: joints, meshes, hulls, multibodies)."
+                    f"\n  saved:   {saved[:200]}...\n  current: {current[:200]}...")
+            arrs = [data[k] for k in data.files if k != "__structure__"]
+        leaves = _state_leaves(self.state)
+        if len(arrs) != len(leaves):
+            raise ValueError(f"snapshot leaf count mismatch: saved {len(arrs)}, current "
+                             f"world has {len(leaves)}")
+        for i, (a, cur) in enumerate(zip(arrs, leaves)):
+            if tuple(a.shape) != tuple(cur.shape):
+                raise ValueError(
+                    f"snapshot leaf {i} shape mismatch: saved {tuple(a.shape)} vs current "
+                    f"{tuple(cur.shape)} (world capacities must match: rebuild the world "
+                    "with the snapshot's sizes)")
+        it = iter(arrs)
+        self.state = tree_map(
+            lambda cur: torch.from_numpy(next(it)).to(device=cur.device, dtype=cur.dtype),
+            self.state)
+        return self.state

@@ -39,7 +39,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 import rapier_tpu.types as jt
 import test_torch_common as tp
@@ -359,30 +358,3 @@ def test_hull_sweeps_as_its_centre_plus_border():
         if clamped.any():
             hits.append(port_clamp(state, params)[0][1, 0])
     assert hits and abs(hits[0] - HULL_WALL_FACE) < 1e-3, hits
-
-
-def test_batched_cases_match_each_alone():
-    """Every non-mesh case's first clamped step in one batch through the
-    port: each scene clamps as it does alone (rows, pairs and caps are per
-    scene)."""
-    picked = []
-    for name in ("wall", "ccd3_flavour", "rod", "fairness", "halfspace", "hull"):
-        params, caps = captures(name)
-        state = next(s for s, _ in caps if port_clamp(s, params)[0].tolist()
-                     != s.bodies.next_pos[0].tolist())
-        picked.append(from_numpy(state))
-    # Every shape type's support branch: the cases' censuses differ.
-    params = params.replace(shape_types_present=())
-
-    def cat(part):
-        first = getattr(picked[0], part)
-        return dataclasses.replace(first, **{
-            f.name: torch.cat([getattr(getattr(s, part), f.name) for s in picked])
-            for f in dataclasses.fields(first)})
-
-    bodies, ovf = port_ccd.clamp_motions(cat("bodies"), cat("colliders"), params, None)
-    for i, s in enumerate(picked):
-        alone, ovf1 = port_ccd.clamp_motions(s.bodies, s.colliders, params, None)
-        torch.testing.assert_close(bodies.next_pos[i], alone.next_pos[0], rtol=0, atol=1e-6)
-        torch.testing.assert_close(bodies.next_rot[i], alone.next_rot[0], rtol=0, atol=1e-6)
-        assert int(ovf[i]) == int(ovf1[0])

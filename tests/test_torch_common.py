@@ -17,6 +17,14 @@ import functools
 import types
 
 import numpy as np
+import torch
+
+# The tier-1 run spreads the test files over 6 worker processes on one host,
+# and torch's default intra-op pool (a thread per core in every worker)
+# starves the reference's JAX compiles in the other workers, which set the
+# run's length (tests/test_mjcf.py).  The port's test tensors are small:
+# one thread each.  Every worker imports this module while collecting.
+torch.set_num_threads(1)
 
 B = 2
 # The bottom layer lands after ~38 steps: at 40, 18 pairs touch.  The 20
