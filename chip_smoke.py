@@ -6,7 +6,7 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; each prints its wall time), run in the
-order 1-6, 10, 11, 12, 9, 13, 7, 8:
+order 1-6, 10, 11, 12, 9, 13, 14, 15, 7, 8:
 
 1. Build the contact-sweep kernels from ``rapier_tpu_torch/csrc`` (one nvcc
    call, sm_90a) and print the compiler's register / shared-memory report.
@@ -85,7 +85,7 @@ order 1-6, 10, 11, 12, 9, 13, 7, 8:
    examples/joints3.py: revolute chain, prismatic slider with a position
    motor and limits, fixed-joint lattice, spherical rope with swing limits)
    and 4096 impulse-joint quadrupeds (`quadruped_world(use_multibody=False)`),
-   30 and 120 steps, then 25 timed steps.  Both take the masked sweep (the
+   30 and 120 steps, then 15 timed steps.  Both take the masked sweep (the
    reference's gate sends scenes with joints there), so neither may launch a
    contact-sweep kernel.  Checks zero overflow, finite state, every scene
    bitwise equal to scene 0, and for joints3 after 30 steps the example's
@@ -126,7 +126,7 @@ order 1-6, 10, 11, 12, 9, 13, 7, 8:
    valid lanes per scene and the scenes that keep them on chip; then 4096
    replicas of `scenes.heightfield3_world` (examples/heightfield3.py: 12
    balls, cuboids and capsules dropped on a 12 x 12 heightfield) take 90
-   steps (the example runs 300; every body has landed by ~81), then 50
+   steps (the example runs 300; every body has landed by ~81), then 25
    timed.  Checks zero broad-phase / solver
    overflow, no (convex, mesh) pair past max_mesh_pairs (the reference drops
    those uncounted, ROADMAP R12: counted here on the 90 steps and the step
@@ -216,6 +216,32 @@ order 1-6, 10, 11, 12, 9, 13, 7, 8:
    the card with each model's own check, then 2 single steps against the
    CPU.
 
+15. Hooks, the collision pipeline, scene queries and the controllers.  (a)
+   4096 one_way_platforms3 scenes (`scenes.one_way_platforms3_world`: the
+   one-way contact filter on the platform) for 60 steps: one
+   contact-sweep launch a step, of the kind the gate picks (K = 128: the
+   folded kernel), the ball from above resting above y = 0.4 and the one
+   from below passing y = 1.0 on every scene; then 256 scenes under a
+   modifier that scales the gated lanes' friction, 2 single steps from the
+   card's state against the CPU (impulses included).  (b) `collide` on
+   phase 4's settled 4096 bench scenes: its pair keys and touching flags
+   equal the cache a step from the same state writes, bodies bitwise
+   unchanged; its milliseconds.  (c) Queries at a lidar's size on those
+   scenes: a fan of 64 rays a scene from 12 m above (`cast_ray`; every ray
+   hits, each hit point within 1e-4 of its collider by `project_point_all`),
+   64 `project_point` points and 16 ball `cast_shape` casts a scene (every
+   cast hits), 2 scenes of each against the CPU; rays/s, points/s, casts/s.
+   (d) 4096 vehicles (`scenes.vehicle_world`, tests/test_controllers.py's
+   curve: `update_vehicle` then the step, 150 steps; |x| > 0.8 and y in (0.2,
+   1.0) on every scene) and 4096 characters (`scenes.character_world`: one
+   `move_shape` with the push impulses of an 80 kg character, then 10 steps;
+   the box pushed forward on every scene, 2 scenes' move and push against
+   the CPU), each stepping on the kernel the gate picks once a step;
+   env-steps/s, character moves/s, the traced env-step's kernels and busy
+   share.  Phase 7 takes 2 hooked platform scenes after 20 steps and 2
+   vehicles after 75 (10 free steps against the CPU), phase 8 reruns 64 of
+   each for 10 steps bitwise.
+
 The line before the last is the kernels' JSON record (with `bound_share`,
 bound over time, and each kernel's resources); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -223,7 +249,9 @@ bound over time, and each kernel's resources); the last line is
 With ``--s2d-only`` the script builds the kernels and runs phase 10 alone,
 with ``--meshes-only`` phase 11 (and (d) under ``--heightfield-full``),
 with ``--convex-only`` phase 12 (and (d) under ``--primitives-full``),
-with ``--ccd-only`` phase 13, with ``--world-only`` phase 14;
+with ``--ccd-only`` phase 13, with ``--world-only`` phase 14, with
+``--queries-only`` phase 15 (on a bench batch settled for it) and its
+phase 7 and 8 parts;
 with ``--rest-steps STEPS`` it steps the ``--pyramid`` stacks (default 31)
 STEPS steps each (at ``--colors N`` colors, else the default 16) and prints
 the top box's distance from rest and vertical velocity every 50 steps,
@@ -282,7 +310,9 @@ TRUNK = 1                       # body handle of the trunk
 # scenes of the joints3 batch after its timed run.
 IMPULSE_TRUNK_Z_REF = 0.188
 JOINT_SETTLE = {"joints3": 30, "impulse quadruped": 120}
-JOINT_TIMED = 25                # timed steps after the settle (launch-bound: ~0.2-0.6 s each)
+# Timed steps after the settle (launch-bound: ~0.2-0.6 s each); 25 until
+# phase 15 joined the script.
+JOINT_TIMED = 15
 # bench.py's default stack.  pyramid3.rs's stack 24 is opt-in (--pyramid 24),
 # as 31 is: its ~150 steps and ~36 s trace made room for phase 10 within the
 # script's time limit; the blocked path keeps a ~5,000-body scene in the
@@ -393,7 +423,7 @@ REST_EVERY = 50
 # of it above the field's surface at its (x, z) and its centre within
 # HF_FULL_NEAR of it (the largest half-extent is 2, a capsule on end).
 HF_SETTLE = 90
-HF_TIMED = 50
+HF_TIMED = 25                   # 50 until phase 15 joined the script
 HF_Y = (-2.5, 3.0)
 HF_K = 640
 HF_CHECK_STEPS = 60
@@ -469,6 +499,33 @@ WORLD_REPRO = 20                # steps after a restore or a load
 WORLD_GUARD = 16                # steps timed under the guard, at each interval
 WORLD_CPU_STEPS = 2             # card vs CPU single steps after a mutation
 LOADER_STEPS = 10               # loader scenes stepped on the card before the check
+# Phase 15: hooks, the collision pipeline, queries and the controllers.
+# tests/test_example_scenes.py:120 runs 150; both checks hold from step 50
+# (the ball from below passes y = 1.0 at ~20, the one from above rests at
+# 0.599 from ~50), so 60 for the script's time limit.
+OWP_STEPS = 60
+OWP_CAPTURE = 20                # phases 7 and 8 take the platforms after these steps
+OWP_MOD_SCENES = 256
+OWP_MOD_SETTLE = 50             # the ball from above rests on the platform from ~45
+OWP_MOD_CPU_STEPS = 2
+OWP_FRICTION_SCALE = 0.5
+LIDAR_RAYS = 64                 # an 8 x 8 fan a scene
+LIDAR_POINTS = 64
+LIDAR_CASTS = 16
+LIDAR_HEIGHT = 12.0
+LIDAR_HALF_ANGLE = 0.6          # rad: every ray meets the 100 m ground
+RAY_ON_SURFACE = 1e-4           # a hit point's distance to its collider
+CAST_RADIUS = 0.2
+CAST_MAX_TOI = 12.0
+QUERY_TOL = 1e-5                # relative, card vs CPU
+QUERY_CPU_SCENES = 2
+QUERY_WARM = 64                 # scenes of the untimed warm-up call
+VEHICLE_STEPS = 150             # tests/test_controllers.py's curve
+VEHICLE_CAPTURE = 75            # phases 7 and 8 take the vehicles after these steps
+# tests/test_controllers.py's push steps 30 after it; the pushed box moves
+# 0.3 m a step, so 10 for the script's time limit.
+CHAR_STEPS = 10
+RERUN_SCENES_15 = 64
 
 
 def _fail(msg: str, code: int = 1):
@@ -553,17 +610,24 @@ def impulse_quadruped_batch(device, n_scenes: int, seed=None):
     return state, world.params
 
 
-def run(state, params, n_steps: int):
-    """`n_steps` steps from `state`: (the last state, each overflow count's
-    largest value over the steps).  The counts are kept on the device and
-    read once at the end, so the host never waits for a step to finish."""
+def run(state, params, n_steps: int, hooks=None, control=None, each=None):
+    """`n_steps` steps from `state` (with the step's `hooks`, and
+    `control(state) -> state` before each step, a controller's update;
+    `each(state, steps done)` after each step): (the last state, each
+    overflow count's largest value over the steps).
+    The counts are kept on the device and read once at the end, so the host
+    never waits for a step to finish."""
     import torch
     from rapier_tpu_torch.pipeline.physics_pipeline import step
 
     keys = ("broadphase_overflow", "solver_overflow", "unsupported_pairs", "ccd_overflow")
     worst = None
-    for _ in range(n_steps):
-        state, ev = step(state, params)
+    for i in range(n_steps):
+        if control is not None:
+            state = control(state)
+        state, ev = step(state, params, hooks)
+        if each is not None:
+            each(state, i + 1)
         now = torch.stack([getattr(ev, k).max().to(torch.int64) for k in keys])
         worst = now if worst is None else torch.maximum(worst, now)
     counts = [0] * len(keys) if worst is None else worst.tolist()
@@ -1095,14 +1159,17 @@ def _multibody_phase_ms(state, params, step_ms, card):
           f"absorb_contact_impulses {c_ms:.3f} ms, of a {step_ms:.3f} ms step ({card})")
 
 
-def _cpu_agreement(what, state, params, settle):
+def _cpu_agreement(what, state, params, settle, hooks=None, control=None):
+    """`settle` steps on the card, then 10 steps on the card and on the CPU
+    from the same state (with the step's `hooks` and the `control` before
+    each step, see `run`), bodies (and joint impulses) compared."""
     from rapier_tpu_torch.types import tree_map
 
     t0 = time.time()
-    state, _ = run(state, params, settle)          # bodies in contact
+    state, _ = run(state, params, settle, hooks, control)          # bodies in contact
     cpu = tree_map(lambda x: x.cpu(), state)
-    gpu, _ = run(state, params, 10)
-    cpu, _ = run(cpu, params, 10)
+    gpu, _ = run(state, params, 10, hooks, control)
+    cpu, _ = run(cpu, params, 10, hooks, control)
     dp = float((gpu.bodies.pos.cpu() - cpu.bodies.pos).abs().max())
     dv = float((gpu.bodies.linvel.cpu() - cpu.bodies.linvel).abs().max())
     ok = dp <= CPU_TOL["pos"] and dv <= CPU_TOL["vel"]
@@ -1132,7 +1199,8 @@ def _nudge_up(state, body=None):
     return state
 
 
-def _cpu_step_agreement(what, state, params, steps: int = 10, witness: str = "free"):
+def _cpu_step_agreement(what, state, params, steps: int = 10, witness: str = "free",
+                        hooks=None):
     """The card against the CPU one step at a time along the card's
     trajectory: each CPU step starts from the card's state, and the step's
     bodies and contact cache (pair keys, touching flags, and the impulses
@@ -1163,13 +1231,13 @@ def _cpu_step_agreement(what, state, params, steps: int = 10, witness: str = "fr
     i = int(free.bodies.linvel[0, :, 1].abs().argmax())
     nudged = _nudge_up(tree_map(lambda x: x.clone(), free), i)
     for _ in range(steps):
-        nxt, _ = step(gpu, params)
-        cpu, _ = step(tree_map(lambda x: x.cpu(), gpu), params)
+        nxt, _ = step(gpu, params, hooks)
+        cpu, _ = step(tree_map(lambda x: x.cpu(), gpu), params, hooks)
         if witness == "free":
-            free, _ = step(free, params)
-            nudged, _ = step(nudged, params)
+            free, _ = step(free, params, hooks)
+            nudged, _ = step(nudged, params, hooks)
         elif witness == "step":
-            one, _ = step(_nudge_up(tree_map(lambda x: x.cpu().clone(), gpu)), params)
+            one, _ = step(_nudge_up(tree_map(lambda x: x.cpu().clone(), gpu)), params, hooks)
             wit = dict(pos=max(wit["pos"], gap(one, cpu, "bodies", "pos")),
                        vel=max(wit["vel"], gap(one, cpu, "bodies", "linvel"),
                                gap(one, cpu, "bodies", "angvel")),
@@ -1274,6 +1342,8 @@ def phase_cpu_agreement(device, captures):
     state, _ = run(state, params, ZOO_SETTLE)
     _cpu_step_agreement(f"2 convex zoo scenes after {ZOO_SETTLE} steps", state, params,
                         steps=P3_CPU_STEPS, witness=None)
+    if "owp" in captures:
+        _cpu_agreement_15(captures)
     if "ccd3" in captures:
         # Phase 13's: ccd3 from the step that first clamps a ball, single
         # steps from the card's state; the arms free for 10 steps.
@@ -1288,13 +1358,13 @@ def phase_cpu_agreement(device, captures):
         print(f"[phase 7, phase 13's scenes: {time.time() - t0:.1f} s]")
 
 
-def _rerun_equal(what, state, params, parts, steps: int = 10):
+def _rerun_equal(what, state, params, parts, steps: int = 10, hooks=None, control=None):
     import torch
     from rapier_tpu_torch.types import tree_map
 
     t0 = time.time()
-    a, _ = run(tree_map(lambda x: x.clone(), state), params, steps)
-    b, _ = run(tree_map(lambda x: x.clone(), state), params, steps)
+    a, _ = run(tree_map(lambda x: x.clone(), state), params, steps, hooks, control)
+    b, _ = run(tree_map(lambda x: x.clone(), state), params, steps, hooks, control)
     for part in parts:
         pa, pb = getattr(a, part), getattr(b, part)
         for f in dataclasses.fields(pa):
@@ -1302,6 +1372,37 @@ def _rerun_equal(what, state, params, parts, steps: int = 10):
                 _fail(f"{what} rerun differs in {part}.{f.name}")
     print(f"determinism: two {steps}-step reruns of the {what} batch are bitwise equal "
           f"[{time.time() - t0:.1f} s]")
+
+
+def _cpu_agreement_15(captures):
+    """Phase 7's part for phase 15's captures: the hooked platforms and the
+    vehicles, 2 scenes free for 10 steps on the card and the CPU."""
+    t0 = time.time()
+    state, params, hooks = captures["owp"]
+    _cpu_agreement(f"one_way_platforms3 with the one-way hook (after {OWP_CAPTURE} steps)",
+                   *_first((state, params), 2), 0, hooks=hooks)
+    state, params, control = captures["vehicles"]
+    _cpu_agreement(f"vehicles (after {VEHICLE_CAPTURE} steps)", *_first((state, params), 2), 0,
+                   control=control)
+    print(f"[phase 7, phase 15's scenes: {time.time() - t0:.1f} s]")
+
+
+def _rerun_15(captures):
+    """Phase 8's part for phase 15's captures: 10-step bitwise reruns."""
+    t0 = time.time()
+    state, params, hooks = captures["owp"]
+    _rerun_equal(f"{RERUN_SCENES_15}-scene one_way_platforms3", state, params,
+                 ("bodies", "contacts"), hooks=hooks)
+    state, params, control = captures["vehicles"]
+    _rerun_equal(f"{RERUN_SCENES_15}-scene vehicle", state, params, ("bodies", "contacts"),
+                 control=control)
+    print(f"[phase 8, phase 15's scenes: {time.time() - t0:.1f} s]")
+
+
+def phase_cpu_agreement_15(device, captures):
+    """With --queries-only: phases 7's and 8's parts for phase 15."""
+    _cpu_agreement_15(captures)
+    _rerun_15(captures)
 
 
 def phase_determinism(device, captures):
@@ -1321,6 +1422,8 @@ def phase_determinism(device, captures):
         _rerun_equal(name, state, params, ("bodies", "contacts"), S2D_RERUN)
     _rerun_equal("heightfield3", *captures["heightfield3"], ("bodies", "contacts"))
     _rerun_equal("primitives3", *captures["primitives3"], ("bodies", "contacts"))
+    if "owp" in captures:
+        _rerun_15(captures)
     if "ccd3" in captures:
         t0 = time.time()
         _rerun_equal("ccd3", *captures["ccd3"], ("bodies", "contacts"), RERUN_STEPS_13)
@@ -2690,6 +2793,429 @@ def phase_world(device, card):
     return launches, dict(bench_world=bench, loaders=loaders)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: hooks, the collision pipeline, scene queries and the controllers
+
+
+def owp_batch(device, n_scenes: int, hooks=None, active_hooks=None):
+    """`scenes.one_way_platforms3_world` replicated to `n_scenes` on
+    `device`; returns (state, params, hooks, handles)."""
+    from rapier_tpu_torch.scenes import one_way_platforms3_world, replicate_scene
+    from rapier_tpu_torch.types import from_numpy
+
+    kw = {} if hooks is None else {"hooks": hooks}
+    world, h = one_way_platforms3_world(active_hooks=active_hooks, device=device, **kw)
+    return (replicate_scene(from_numpy(world.build(), device), n_scenes), world.params,
+            world.hooks, h)
+
+
+def _friction_hooks():
+    """The one-way filter and a modifier that scales the friction of the
+    lanes it gates by OWP_FRICTION_SCALE."""
+    from rapier_tpu_torch.pipeline.hooks import PhysicsHooks, one_way_platform_hook
+
+    def scale_friction(bodies, colliders, man):
+        return man._replace(friction=man.friction * OWP_FRICTION_SCALE)
+
+    return PhysicsHooks(filter_contact_pair=one_way_platform_hook(
+        (0.0, 1.0, 0.0)).filter_contact_pair, modify_solver_contacts=scale_friction)
+
+
+def _launches_ok(what, launches, steps: int, k: int):
+    """One launch a step of the kernel the gate picks at K lanes, none of
+    the other; returns that kernel's count."""
+    want = (0, steps) if k <= 128 else (steps, 0)
+    kind = "contact_sweep_folded_kernel" if k <= 128 else "contact_sweep_kernel"
+    print(f"{what}: K={k}, {steps} steps: contact_sweep_kernel {launches[0]}, folded "
+          f"{launches[1]} launches ({kind} expected once a step)")
+    if tuple(launches) != want:
+        _fail(f"{what}: launches {launches}, expected {want}")
+    return launches[1] if k <= 128 else launches[0]
+
+
+def _counted_run(state, params, steps: int, hooks=None, control=None, each=None):
+    """`run` with the contact-sweep counts set to 0 just before and read just
+    after.  Returns (state, worst, launches, seconds)."""
+    import torch
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+
+    torch.cuda.synchronize()
+    cs.KERNEL.launches = cs.KERNEL.launches_folded = 0
+    t0 = time.time()
+    state, worst = run(state, params, steps, hooks, control, each)
+    torch.cuda.synchronize()
+    return state, worst, (cs.KERNEL.launches, cs.KERNEL.launches_folded), time.time() - t0
+
+
+def _owp(device, card):
+    """Phase 15(a): the one-way platforms on the contact-sweep kernel."""
+    import torch
+    from rapier_tpu_torch.pipeline.physics_pipeline import solve_path
+    from rapier_tpu_torch.types import ACTIVE_HOOKS_FILTER_CONTACT_PAIR as FILTER
+    from rapier_tpu_torch.types import ACTIVE_HOOKS_MODIFY_SOLVER_CONTACTS as MODIFY
+    from rapier_tpu_torch.types import tree_map
+
+    state, params, hooks, h = owp_batch(device, N_SCENES)
+    k, path = state.contacts.max_pairs, solve_path(state, params)
+    if path != "kernel":
+        _fail(f"one_way_platforms3 takes the {path} path")
+    max_below = torch.full((N_SCENES,), -1e9, device=device)
+    capture = {}
+
+    def each(st, done):
+        max_below.copy_(torch.maximum(max_below, st.bodies.pos[:, h["below"], 1]))
+        if done == OWP_CAPTURE:
+            capture["owp"] = (tree_map(lambda x: x[:RERUN_SCENES_15].clone(), st), params,
+                              hooks)
+
+    state, worst, launches, secs = _counted_run(state, params, OWP_STEPS, hooks, each=each)
+    rate = N_SCENES * OWP_STEPS / secs
+    above = state.bodies.pos[:, h["above"], 1]
+    print(f"one_way_platforms3 x {N_SCENES}: {rate:.1f} env-steps/s ({OWP_STEPS} steps in "
+          f"{secs:.3f} s, the filter hook on every step; {card}); the ball from above at "
+          f"y in [{float(above.min()):.4f}, {float(above.max()):.4f}] (must be > 0.4), the "
+          f"ball from below reached y in [{float(max_below.min()):.4f}, "
+          f"{float(max_below.max()):.4f}] (must be > 1.0); overflow {worst}")
+    _finite(state)
+    if any(worst.values()):
+        _fail(f"one_way_platforms3 overflows: {worst}")
+    if not (bool((above > 0.4).all()) and bool((max_below > 1.0).all())):
+        _fail("one_way_platforms3: a ball from above fell through or one from below "
+              "did not pass")
+    n_launch = _launches_ok("one_way_platforms3", launches, OWP_STEPS, k)
+    _replicas_equal("one_way_platforms3", state, ("bodies", "contacts"))
+
+    # The modifier: friction scaled on the gated lanes, held to the CPU.
+    mhooks = _friction_hooks()
+    mstate, mparams, _, _ = owp_batch(device, OWP_MOD_SCENES, mhooks, FILTER | MODIFY)
+    mstate, mworst = run(mstate, mparams, OWP_MOD_SETTLE, mhooks)
+    touching = int(mstate.contacts.touching.sum())
+    print(f"one_way_platforms3 with the friction modifier x {OWP_MOD_SCENES}: "
+          f"{touching} touching lanes after {OWP_MOD_SETTLE} steps; overflow {mworst}")
+    if touching < OWP_MOD_SCENES:
+        _fail("one_way_platforms3 with the modifier: the ball from above is not in contact")
+    _cpu_step_agreement(f"2 one_way_platforms3 scenes with the friction modifier after "
+                        f"{OWP_MOD_SETTLE} steps", *_first((mstate, mparams), 2),
+                        steps=OWP_MOD_CPU_STEPS, witness=None, hooks=mhooks)
+    return n_launch, k, dict(env_steps_per_s=rate, k=k, **worst), capture["owp"]
+
+
+def _collide(bench):
+    """Phase 15(b): `collide` on the settled bench batch against the contact
+    cache a step writes from the same state."""
+    import torch
+    from rapier_tpu_torch.pipeline.collision_pipeline import collide
+    from rapier_tpu_torch.pipeline.physics_pipeline import step
+    from rapier_tpu_torch.types import tree_map
+
+    state, params = bench
+    before = tree_map(lambda x: x.clone(), state)
+    collided, ev = collide(state, params)
+    stepped, _ = step(state, params)
+    ms = _time_ms(lambda: collide(state, params), 5)
+    for f in dataclasses.fields(before.bodies):
+        if not torch.equal(getattr(collided.bodies, f.name), getattr(before.bodies, f.name)):
+            _fail(f"collide changed bodies.{f.name}")
+    for name in ("pair_key", "touching"):
+        if not torch.equal(getattr(collided.contacts, name), getattr(stepped.contacts, name)):
+            _fail(f"collide's {name} differs from the step's contact cache")
+    n = state.bodies.pos.shape[0]
+    print(f"collide on {n} settled bench scenes: {ms:.3f} ms ({n * 1e3 / ms:.1f} scenes/s); "
+          f"pair keys and touching flags equal to a step's cache from the same state "
+          f"({int(collided.contacts.touching.sum())} touching lanes); bodies bitwise "
+          f"unchanged; started {int(ev.started_pairs.sum())}")
+    return dict(collide_ms=ms)
+
+
+def _query_inputs(device, n_scenes: int):
+    """The seeded lidar fan, points and cast starts over the bench pile."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(15)
+    side = int(round(LIDAR_RAYS ** 0.5))
+    a = np.linspace(-LIDAR_HALF_ANGLE, LIDAR_HALF_ANGLE, side, dtype=np.float32)
+    ax, az = np.meshgrid(a, a, indexing="ij")
+    fan = np.stack([np.sin(ax), -np.cos(ax) * np.cos(az), np.sin(az)], -1).reshape(-1, 3)
+    jitter = rng.normal(0, 0.02, (n_scenes, LIDAR_RAYS, 3)).astype(np.float32)
+    dirs = fan[None] + jitter
+    dirs[..., 1] = -np.abs(dirs[..., 1])
+    origin = np.zeros((n_scenes, LIDAR_RAYS, 3), np.float32)
+    origin[..., 1] = LIDAR_HEIGHT
+    points = rng.uniform((-4, 0, -4), (4, 6, 4), (n_scenes, LIDAR_POINTS, 3)).astype(np.float32)
+    starts = rng.uniform((-3, 9, -3), (3, 10, 3), (n_scenes, LIDAR_CASTS, 3)).astype(np.float32)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    return t(origin), t(dirs), t(points), t(starts)
+
+
+def _lidar_queries(state, origin, dirs, points, starts):
+    """(rays, projections, casts) of `_query_inputs` on `state`."""
+    from rapier_tpu_torch.geometry import queries
+
+    b, c = state.bodies, state.colliders
+    return (queries.cast_ray(b, c, origin, dirs, meshes=state.meshes, hulls=state.hulls),
+            queries.project_point(b, c, points, meshes=state.meshes, hulls=state.hulls),
+            _casts(state, starts))
+
+
+def _casts(state, starts):
+    """A ball of CAST_RADIUS cast straight down from each start."""
+    from rapier_tpu_torch.geometry import queries
+    from rapier_tpu_torch.types import ShapeType
+
+    n = starts.shape[0]
+    down = starts.new_tensor([0.0, -1.0, 0.0]).expand(n, LIDAR_CASTS, 3)
+    ident = starts.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(n, LIDAR_CASTS, 4)
+    return queries.cast_shape(state.bodies, state.colliders, int(ShapeType.BALL),
+                              [CAST_RADIUS], starts, ident, down, CAST_MAX_TOI,
+                              meshes=state.meshes, hulls=state.hulls)
+
+
+def _queries(device, bench, card):
+    """Phase 15(c): lidar-sized queries on the settled bench batch."""
+    import torch
+    from rapier_tpu_torch.geometry import queries
+    from rapier_tpu_torch.types import tree_map
+
+    state, _ = bench
+    n = state.bodies.pos.shape[0]
+    origin, dirs, points, starts = _query_inputs(device, n)
+    # Warm up on QUERY_WARM scenes, then time the checked calls.
+    warm = tree_map(lambda x: x[:QUERY_WARM], state)
+    _lidar_queries(warm, *(x[:QUERY_WARM] for x in (origin, dirs, points, starts)))
+    rows, out = {}, {}
+    for what, fn, count in (
+            ("rays", lambda: queries.cast_ray(state.bodies, state.colliders, origin, dirs),
+             n * LIDAR_RAYS),
+            ("points", lambda: queries.project_point(state.bodies, state.colliders, points),
+             n * LIDAR_POINTS),
+            ("casts", lambda: _casts(state, starts), n * LIDAR_CASTS)):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out[what] = fn()
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        rows[f"{what}_per_s"] = count / secs
+        print(f"queries: {count} {what} over {n} bench scenes in {secs * 1e3:.1f} ms: "
+              f"{count / secs:.1f} {what}/s ({card})")
+    rays, proj, casts = out["rays"], out["points"], out["casts"]
+    if not bool(rays.hit.all()):
+        _fail(f"lidar: {int((~rays.hit).sum())} downward rays missed")
+    # Each hit point lies on its collider's surface.
+    pts, dist, seen = queries.project_point_all(state.bodies, state.colliders, rays.point,
+                                                solid=False)
+    d_hit = torch.gather(dist, 2, rays.collider.unsqueeze(-1)).squeeze(-1)
+    worst = float(d_hit.abs().max())
+    print(f"lidar: every one of {n * LIDAR_RAYS} rays hit ({int((rays.collider == 0).sum())} "
+          f"on the ground); each hit point's distance to its collider at most {worst:.3e} "
+          f"(tol {RAY_ON_SURFACE})")
+    if not worst <= RAY_ON_SURFACE:
+        _fail(f"lidar: a hit point lies {worst} from its collider")
+    if not (bool(casts.hit.all()) and bool(torch.isfinite(proj.distance).all())):
+        _fail("queries: a downward cast missed or a projection is not finite")
+    # Two scenes against the CPU.
+    sl = slice(0, QUERY_CPU_SCENES)
+    cpu = tree_map(lambda x: x[sl].cpu(), state)
+    got = _lidar_queries(cpu, *(x[sl].cpu() for x in (origin, dirs, points, starts)))
+    card_r = [tuple(f[sl].cpu() for f in r) for r in (rays, proj, casts)]
+    ray_tol = QUERY_TOL * max(1.0, float(rays.toi[sl].abs().max()))
+    cast_tol = 2 * CAST_MAX_TOI / 8 / 2 ** 12
+    gaps = {}
+    for name, a, b, tol, t_idx, c_idx in (("ray toi", card_r[0], got[0], ray_tol, 1, 2),
+                                          ("projection distance", card_r[1], got[1],
+                                           QUERY_TOL, 2, 0),
+                                          ("cast toi", card_r[2], got[2], cast_tol, 1, 2)):
+        d = float((a[t_idx] - b[t_idx]).abs().max())
+        other = a[c_idx] != b[c_idx]
+        gaps[name] = d
+        print(f"queries GPU vs CPU, {QUERY_CPU_SCENES} scenes: max |d {name}| {d:.3e} (tol "
+              f"{tol:.3e}), colliders differing in {int(other.sum())} queries")
+        if not (d <= tol and not bool(other.any())):
+            _fail(f"queries: the card's {name} disagrees with the CPU")
+    rows.update(max_ray_gap_to_surface=worst, **{f"cpu_gap_{k.replace(' ', '_')}": v
+                                                for k, v in gaps.items()})
+    return rows
+
+
+def vehicle_batch(device, n_scenes: int):
+    """`scenes.vehicle_world` replicated to `n_scenes` with its controller:
+    (state, params, control(state) -> state, chassis)."""
+    from rapier_tpu_torch.control.vehicle import (
+        default_wheels,
+        update_vehicle,
+        with_chassis_velocities,
+    )
+    from rapier_tpu_torch.scenes import (
+        VEHICLE_ENGINE,
+        VEHICLE_STEER,
+        VEHICLE_WHEELS,
+        replicate_scene,
+        vehicle_world,
+    )
+    from rapier_tpu_torch.types import from_numpy
+
+    world, h = vehicle_world(device=device)
+    state = replicate_scene(from_numpy(world.build(), device), n_scenes)
+    params, chassis = world.params, h["chassis"]
+    wheels = default_wheels(VEHICLE_WHEELS, radius=0.25, rest_length=0.3, device=device)
+    engine = [VEHICLE_ENGINE] * 4
+    dt = float(params.dt)
+
+    def control(st):
+        upd = update_vehicle(st.bodies, st.colliders, chassis, wheels, engine, [0.0] * 4,
+                             VEHICLE_STEER, dt)
+        return dataclasses.replace(st, bodies=with_chassis_velocities(st.bodies, chassis, upd))
+
+    return state, params, control, chassis
+
+
+def _vehicles(device, card):
+    """Phase 15(d), vehicles: tests/test_controllers.py's curve on every
+    scene."""
+    import torch
+    from rapier_tpu_torch.pipeline.physics_pipeline import step
+    from rapier_tpu_torch.types import tree_map
+    from rapier_tpu_torch.utils import counters
+
+    state, params, control, chassis = vehicle_batch(device, N_SCENES)
+    k = state.contacts.max_pairs
+    capture = {}
+
+    def each(st, done):
+        if done == VEHICLE_CAPTURE:
+            capture["vehicles"] = (tree_map(lambda x: x[:RERUN_SCENES_15].clone(), st),
+                                   params, control)
+
+    state, worst, launches, secs = _counted_run(state, params, VEHICLE_STEPS, control=control,
+                                                each=each)
+    rate = N_SCENES * VEHICLE_STEPS / secs
+    p = state.bodies.pos[:, chassis]
+    _finite(state)
+    print(f"vehicles x {N_SCENES}: {rate:.1f} env-steps/s ({VEHICLE_STEPS} steps of "
+          f"update_vehicle and step in {secs:.3f} s; {card}); chassis |x| in "
+          f"[{float(p[:, 0].abs().min()):.4f}, {float(p[:, 0].abs().max()):.4f}] (must be "
+          f"> 0.8), y in [{float(p[:, 1].min()):.4f}, {float(p[:, 1].max()):.4f}] (must be in "
+          f"(0.2, 1.0)); overflow {worst}")
+    if any(worst.values()):
+        _fail(f"vehicles overflow: {worst}")
+    if not (bool((p[:, 0].abs() > 0.8).all()) and bool(((p[:, 1] > 0.2) & (p[:, 1] < 1.0)).all())):
+        _fail("vehicles: a vehicle did not hold the curve")
+    n_launch = _launches_ok("vehicles", launches, VEHICLE_STEPS, k)
+    tr = counters.trace_step(state, params, steps=3,
+                             step_fn=lambda s, pr: step(control(s), pr))
+    _print_trace("vehicles", tr, card)
+    return n_launch, k, dict(env_steps_per_s=rate, k=k, **worst, **tr), capture["vehicles"]
+
+
+def _print_trace(what, tr, card):
+    share = "not measured" if tr["device_share"] is None else f"{tr['device_share']:.1%}"
+    print(f"{what}: under the profiler an env-step is {tr['wall_ms']:.3f} ms with "
+          f"{tr['kernels']:.0f} device kernels and copies (device busy {share}) ({card})")
+
+
+def _characters(device, card):
+    """Phase 15(d), characters: tests/test_controllers.py's push on every
+    scene."""
+    import torch
+    from rapier_tpu_torch.control.character import (
+        CharacterControllerOptions,
+        move_shape,
+        solve_character_collision_impulses,
+    )
+    from rapier_tpu_torch.scenes import (
+        CHARACTER_CAPSULE,
+        CHARACTER_MASS,
+        CHARACTER_MOVE,
+        CHARACTER_START,
+        character_world,
+        replicate_scene,
+    )
+    from rapier_tpu_torch.types import ShapeType, from_numpy, tree_map
+    from rapier_tpu_torch.utils import counters
+
+    world, h = character_world(device=device)
+    state = replicate_scene(from_numpy(world.build(), device), N_SCENES)
+    params, box = world.params, h["box"]
+    prm = torch.zeros(12)
+    prm[:7] = torch.tensor(CHARACTER_CAPSULE)
+    opts = CharacterControllerOptions()
+    rot = torch.tensor([0.0, 0.0, 0.0, 1.0], device=device)
+    start = torch.tensor(CHARACTER_START, device=device)
+
+    def push(st):
+        dev = st.bodies.pos.device
+        mv = move_shape(st.bodies, st.colliders, int(ShapeType.CAPSULE), prm, start.to(dev),
+                        rot.to(dev), CHARACTER_MOVE, opts)
+        bodies = solve_character_collision_impulses(
+            st.bodies, st.colliders, int(ShapeType.CAPSULE), prm, start.to(dev) + mv.translation,
+            rot.to(dev), mv.remaining, float(params.dt), CHARACTER_MASS, opts)
+        return dataclasses.replace(st, bodies=bodies), mv
+
+    two = tree_map(lambda x: x[:QUERY_CPU_SCENES].clone(), state)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state, mv = push(state)
+    torch.cuda.synchronize()
+    move_s = time.time() - t0
+    x0 = state.bodies.pos[:, box, 0].clone()
+    v1 = state.bodies.linvel[:, box, 0]
+    state, worst, launches, secs = _counted_run(state, params, CHAR_STEPS)
+    moved = state.bodies.pos[:, box, 0] - x0
+    print(f"characters x {N_SCENES}: the move and push in {move_s * 1e3:.1f} ms "
+          f"({N_SCENES / move_s:.1f} character moves/s), then {CHAR_STEPS} steps at "
+          f"{N_SCENES * CHAR_STEPS / secs:.1f} env-steps/s ({card}); hit an obstacle in "
+          f"{int(mv.hit_obstacle.sum())} scenes, box velocity after the push in "
+          f"[{float(v1.min()):.4f}, {float(v1.max()):.4f}] (must be > 0.3), box moved "
+          f"[{float(moved.min()):.4f}, {float(moved.max()):.4f}] (must be > 0.05); "
+          f"overflow {worst}")
+    _finite(state)
+    if any(worst.values()):
+        _fail(f"characters overflow: {worst}")
+    if not (bool(mv.hit_obstacle.all()) and bool((v1 > 0.3).all())
+            and bool((moved > 0.05).all())):
+        _fail("characters: a box was not pushed forward")
+    n_launch = _launches_ok("characters", launches, CHAR_STEPS, state.contacts.max_pairs)
+    # Two scenes' move and push on the CPU.
+    card_two, card_mv = push(two)
+    cpu_two, cpu_mv = push(tree_map(lambda x: x.cpu(), two))
+    tol = 2 * (float(torch.linalg.norm(torch.tensor(CHARACTER_MOVE))) + opts.offset) / 8 / 2 ** 12
+    dt_ = float((card_mv.translation.cpu() - cpu_mv.translation).abs().max())
+    dv = float((card_two.bodies.linvel.cpu() - cpu_two.bodies.linvel).abs().max())
+    scale = float(cpu_two.bodies.linvel.abs().max())
+    print(f"characters GPU vs CPU, {QUERY_CPU_SCENES} scenes: max |d translation| {dt_:.3e} "
+          f"(tol {tol:.3e}), max |d linvel| after the push {dv:.3e} (tol {QUERY_TOL} x "
+          f"{scale:.4g})")
+    if not (dt_ <= tol and dv <= QUERY_TOL * max(1.0, scale)):
+        _fail("characters: the card's move or push disagrees with the CPU")
+    rate = N_SCENES * CHAR_STEPS / secs
+    tr = counters.trace_step(state, params, steps=3)
+    _print_trace("characters (the steps after the push)", tr, card)
+    return n_launch, state.contacts.max_pairs, dict(
+        moves_per_s=N_SCENES / move_s, env_steps_per_s=rate, **worst, **tr)
+
+
+def phase_queries(device, card, bench):
+    """Phase 15: hooks on the kernel, the collision pipeline, queries at a
+    lidar's size and the controllers.  `bench`: phase 4's settled bench
+    batch with its params.  Returns (launches by path and kernel, the rows,
+    the captures phases 7 and 8 reuse)."""
+    t_phase = time.time()
+    owp_n, owp_k, owp, owp_cap = _owp(device, card)
+    rows = dict(one_way_platforms3=owp, collide=_collide(bench), queries=_queries(device, bench,
+                                                                                  card))
+    veh_n, veh_k, rows["vehicles"], veh_cap = _vehicles(device, card)
+    chr_n, chr_k, rows["characters"] = _characters(device, card)
+    launches = {"one_way_platforms3": (owp_k, owp_n), "vehicles": (veh_k, veh_n),
+                "characters": (chr_k, chr_n)}
+    took = time.time() - t_phase
+    rows["phase_s"] = took
+    print(f"[phase 15: {took:.1f} s]")
+    return launches, rows, dict(owp=owp_cap, vehicles=veh_cap)
+
+
 LANE_KEYS = ("b1", "b2", "valid", "color", "normal", "point", "point_active", "dist",
              "friction", "restitution", "prev_impulse", "ws_n", "ws_t", "ws_tw",
              "dyn1", "dyn2")
@@ -2877,6 +3403,9 @@ def main():
                          "--primitives-full) only")
     ap.add_argument("--ccd-only", action="store_true",
                     help="run the build and phase 13 (CCD and the multibody remainder) only")
+    ap.add_argument("--queries-only", action="store_true",
+                    help="run the build and phase 15 (hooks, the collision pipeline, queries "
+                         "and the controllers; on a bench batch settled here) only")
     args = ap.parse_args()
     try:
         import torch
@@ -2939,6 +3468,13 @@ def main():
         print(json.dumps({"ccd_multibody": phase(phase_ccd_multibody, device, card)[1],
                           "card": card}))
         return
+    if args.queries_only:
+        state, params = bench_world(device, N_SCENES)
+        state, _ = run(state, params, SETTLE)
+        launches, rows, captures = phase(phase_queries, device, card, (state, params))
+        phase(phase_cpu_agreement_15, device, captures)
+        print(json.dumps({"queries": rows, "launches": launches, "card": card}))
+        return
 
     block = phase(phase_kernel, device, card)
     folded, quadrupeds = phase(phase_folded_kernel, device, card)
@@ -2958,16 +3494,18 @@ def main():
     joints, joints3 = phase(phase_joints, device, card)
     by_path, ccd_multibody, ccd_captures = phase(phase_ccd_multibody, device, card)
     world_launches, world = phase(phase_world, device, card)
+    q_launches, queries, q_captures = phase(phase_queries, device, card, bench)
     captures = dict(bench=bench, quadruped=quadrupeds, pyramid=pyramid16, s2d_big=s2d_big,
                     heightfield3=hf_in_contact, primitives3=p3_in_contact, joints3=joints3,
-                    **ccd_captures)
+                    **ccd_captures, **q_captures)
     phase(phase_cpu_agreement, device, captures)
     phase(phase_determinism, device, captures)
     print(f"[all phases, the build included: {time.time() - start:.1f} s of the 1,200 allowed]")
 
     print(json.dumps({"pyramid": pyramids, "s2d": s2d, "bench_step": bench_stages,
                       "joints": joints, "meshes": meshes, "convex": convex,
-                      "ccd_multibody": ccd_multibody, "world": world, "card": card}))
+                      "ccd_multibody": ccd_multibody, "world": world, "queries": queries,
+                      "card": card}))
     # Each path's launches, its counts set to 0 just before it and read just
     # after; `launches` is the bench's, the contract's main path.
     block["launches_by_path"] = {"bench": block["launches"], "heightfield3": hf_launches,
@@ -2977,6 +3515,8 @@ def main():
     block["primitives3_k256"] = p3_kernel
     folded["launches_by_path"] = {"robots": folded["launches"],
                                   "multibody_arm": by_path["multibody_arm"]}
+    for path, (k, n) in q_launches.items():
+        (folded if k <= 128 else block)["launches_by_path"][path] = n
     source = "rapier_tpu_torch/csrc/contact_sweep.cu"
     print(json.dumps({"kernels": [
         {"name": "contact_sweep_kernel", "route": "cuda", "source": source,

@@ -25,8 +25,11 @@ before the contact passes.
 
 Every convex shape of the reference is carried: the analytic pair kernels,
 the generic GJK/EPA fallback (`geometry/narrowphase_convex.py`), the
-halfspace kernels and the convex hulls (the `hulls` slot).  Not ported:
-hooks (the step takes none) and f64 (NotImplementedError).
+halfspace kernels and the convex hulls (the `hulls` slot).  User hooks
+(`pipeline/hooks.py`) apply after the narrow phase and before the warmstart
+join, as the reference's do (:291-327); they do not change the solve path, so
+a hooked scene takes the kernel where the gate picks it.  Not ported: f64
+(NotImplementedError).
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ from rapier_tpu_torch.geometry.dispatch import (
     parent_body_cols,
 )
 from rapier_tpu_torch.math import quat
+from rapier_tpu_torch.pipeline.hooks import apply_contact_filter, apply_contact_modifier
 from rapier_tpu_torch.types import (
     ACTIVE_EVENTS_COLLISION,
     ACTIVE_EVENTS_CONTACT_FORCE,
@@ -418,9 +422,10 @@ def _solve_masked(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_n
     return sb, imp, solver_overflow, rows
 
 
-def step(state: SceneState, params: SimParams):
+def step(state: SceneState, params: SimParams, hooks=None):
     """Advance every scene of the batch by params.dt.  Returns
-    (new_state, StepEvents)."""
+    (new_state, StepEvents).  `hooks`: an optional
+    `pipeline.hooks.PhysicsHooks`."""
     path = solve_path(state, params)
     bodies = state.bodies
     colliders = state.colliders
@@ -494,6 +499,13 @@ def step(state: SceneState, params: SimParams):
                 bodies, colliders, state.meshes, c1, c2, pair_valid, prediction,
                 params.max_mesh_pairs, params.tris_per_pair,
                 present=params.shape_types_present))
+
+    # User hooks on the pairs whose colliders flag them (either collider):
+    # the filter drops pairs from the solve, the modifier rewrites their
+    # solver payload (physics_pipeline.py:291-327).
+    if hooks is not None:
+        man = apply_contact_filter(hooks, bodies, colliders, man)
+        man = apply_contact_modifier(hooks, bodies, colliders, man)
 
     # 4. Warmstart matching + events bookkeeping.
     with stage("contact_match"):

@@ -607,6 +607,76 @@ def multibody_arm_world(coupled: bool = False, **world_kw):
     return w, {"links": links, "ball": ball, "pedestal": pedestal}
 
 
+def one_way_platforms3_world(active_hooks=None, **world_kw):
+    """examples3d/one_way_platforms3.rs as tests/test_example_scenes.py:101
+    builds it: a 5 x 0.1 x 5 platform whose collider flags the contact
+    filter, under the one-way hook that keeps contacts pushing +y; a ball
+    dropped from above (lands on it) and one thrown up from below at 14 m/s
+    (passes through it).  `active_hooks` replaces the platform collider's
+    flags (ACTIVE_HOOKS_FILTER_CONTACT_PAIR); `hooks=` the world's hooks.
+    Returns (world, {"platform", "above", "below"})."""
+    from rapier_tpu_torch.pipeline.hooks import one_way_platform_hook
+    from rapier_tpu_torch.types import ACTIVE_HOOKS_FILTER_CONTACT_PAIR
+
+    rb, cb = RigidBodyBuilder, ColliderBuilder
+    world_kw.setdefault("hooks", one_way_platform_hook((0.0, 1.0, 0.0)))
+    w = PhysicsWorld(**world_kw)
+    plat = w.insert_body(rb.fixed().with_translation((0, 0, 0)))
+    flags = ACTIVE_HOOKS_FILTER_CONTACT_PAIR if active_hooks is None else active_hooks
+    w.insert_collider(cb.cuboid(5.0, 0.1, 5.0).with_active_hooks(flags), plat)
+    above = w.insert_body(rb.dynamic().with_translation((1, 3, 0)))
+    w.insert_collider(cb.ball(0.5), above)
+    below = w.insert_body(rb.dynamic().with_translation((-1, -3, 0)).with_linvel((0, 14.0, 0)))
+    w.insert_collider(cb.ball(0.5), below)
+    return w, {"platform": plat, "above": above, "below": below}
+
+
+# tests/test_controllers.py::test_vehicle_holds_curve's vehicle: four wheels
+# at these chassis-local hard points, radius 0.25, rest length 0.3, the
+# front pair steered by VEHICLE_STEER.
+VEHICLE_WHEELS = ((-0.5, 0.0, -0.8), (0.5, 0.0, -0.8), (-0.5, 0.0, 0.8), (0.5, 0.0, 0.8))
+VEHICLE_STEER = (0.35, 0.35, 0.0, 0.0)
+VEHICLE_ENGINE = 6.0
+
+
+def vehicle_world(**world_kw):
+    """tests/test_controllers.py::test_vehicle_holds_curve: a 0.6 x 0.2 x 1.0
+    chassis of density 3 at y = 0.6 over a 200 x 200 ground cuboid of
+    friction 1 (drive it with `control.vehicle.update_vehicle` and
+    `default_wheels(VEHICLE_WHEELS, radius=0.25, rest_length=0.3)`).
+    Returns (world, {"ground", "chassis"})."""
+    rb, cb = RigidBodyBuilder, ColliderBuilder
+    w = PhysicsWorld(**world_kw)
+    g = w.insert_body(rb.fixed().with_translation((0, -0.5, 0)))
+    w.insert_collider(cb.cuboid(200, 0.5, 200).with_friction(1.0), g)
+    chassis = w.insert_body(rb.dynamic().with_translation((0, 0.6, 0)))
+    w.insert_collider(cb.cuboid(0.6, 0.2, 1.0).with_density(3.0), chassis)
+    return w, {"ground": g, "chassis": chassis}
+
+
+# tests/test_controllers.py::test_character_pushes_dynamic_box's character:
+# a capsule (half-height 0.4, radius 0.3) at CHARACTER_START walking
+# CHARACTER_MOVE into the box with CHARACTER_MASS behind it.
+CHARACTER_CAPSULE = (0.0, -0.4, 0.0, 0.0, 0.4, 0.0, 0.3)
+CHARACTER_START = (0.0, 0.75, 0.0)
+CHARACTER_MOVE = (0.6, 0.0, 0.0)
+CHARACTER_MASS = 80.0
+
+
+def character_world(**world_kw):
+    """tests/test_controllers.py::test_character_pushes_dynamic_box: a
+    dynamic 0.4 box of friction 0.1 at (1, 0.4, 0) on a 20 x 1 x 20 ground
+    cuboid of friction 0.1 (the character is a query shape, not a body).
+    Returns (world, {"ground", "box"})."""
+    rb, cb = RigidBodyBuilder, ColliderBuilder
+    w = PhysicsWorld(**world_kw)
+    g = w.insert_body(rb.fixed().with_translation((0, -1, 0)))
+    w.insert_collider(cb.cuboid(20, 1, 20).with_friction(0.1), g)
+    box = w.insert_body(rb.dynamic().with_translation((1.0, 0.4, 0.0)))
+    w.insert_collider(cb.cuboid(0.4, 0.4, 0.4).with_friction(0.1), box)
+    return w, {"ground": g, "box": box}
+
+
 # examples/urdf_pendulum.py's robot: a fixed base and two arms on continuous
 # joints about Z.
 URDF_PENDULUM = """

@@ -129,6 +129,12 @@ class MotorModel(enum.IntEnum):
 ACTIVE_EVENTS_COLLISION = 1 << 0
 ACTIVE_EVENTS_CONTACT_FORCE = 1 << 1
 
+# ActiveHooks bit flags (physics_hooks.rs): which hooks of a
+# `pipeline.hooks.PhysicsHooks` see a collider's pairs.
+ACTIVE_HOOKS_FILTER_CONTACT_PAIR = 1 << 0
+ACTIVE_HOOKS_FILTER_INTERSECTION_PAIR = 1 << 1
+ACTIVE_HOOKS_MODIFY_SOLVER_CONTACTS = 1 << 2
+
 
 @dataclass
 class Bodies:

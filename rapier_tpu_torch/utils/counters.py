@@ -106,9 +106,11 @@ def profile_step(state, params, iters: int = PROFILE_ITERS) -> StageTimings:
                         solver_ms=ms.get("solve", 0.0) - joints, total_ms=total, extra=extra)
 
 
-def trace_step(state, params, steps: int = 3, warm: bool = True) -> dict:
+def trace_step(state, params, steps: int = 3, warm: bool = True, step_fn=None) -> dict:
     """`steps` steps from `state` under torch.profiler (after one unmeasured
     step unless `warm` is False: the caller has just stepped from `state`).
+    `step_fn(state, params)`: the step to trace (default the pipeline's
+    `step`; e.g. a controller's update and then the step).
     Returns per step: wall_ms (host clock to a synchronisation),
     kernels (device kernels and copies), device_ms (the time at least one of
     them ran: the union of their intervals), device_share = device_ms /
@@ -120,6 +122,7 @@ def trace_step(state, params, steps: int = 3, warm: bool = True) -> dict:
 
     from rapier_tpu_torch.pipeline.physics_pipeline import step
 
+    step = step_fn or step
     _on_card(state)
     if warm:
         step(state, params)

@@ -418,6 +418,16 @@ class ColliderBuilder:
     def with_sensor(self, sensor: bool = True):
         return self._set(sensor=bool(sensor))
 
+    def with_active_collision_types(self, mask: int):
+        """ActiveCollisionTypes bitmask (collider_components.rs:282): the
+        body-type pairs this collider makes contacts with."""
+        return self._set(active_collision_types=int(mask))
+
+    def with_active_hooks(self, flags: int):
+        """ACTIVE_HOOKS_* bitmask: the hooks a step applies to this
+        collider's pairs."""
+        return self._set(active_hooks=int(flags))
+
     def with_collision_groups(self, groups: int):
         return self._set(collision_groups=int(groups))
 
@@ -432,6 +442,14 @@ class ColliderBuilder:
 
     def with_contact_skin(self, skin: float):
         return self._set(contact_skin=float(skin))
+
+
+def _pad_params(shape_params) -> np.ndarray:
+    """Shape parameters as the 12-slot row of the collider table."""
+    prm = np.zeros(12, np.float32)
+    sp = np.asarray(shape_params, np.float32).reshape(-1)
+    prm[: len(sp)] = sp
+    return prm
 
 
 def _np_quat_mul(a, b):
@@ -727,8 +745,10 @@ class PhysicsWorld:
                  body_capacity: Optional[int] = None,
                  collider_capacity: Optional[int] = None,
                  nan_policy: str = "ignore", nan_check_every: int = 16,
-                 device="cuda"):
+                 hooks=None, device="cuda"):
         assert nan_policy in ("ignore", "trap", "rollback")
+        # An optional pipeline.hooks.PhysicsHooks, passed to every step.
+        self.hooks = hooks
         self.nan_policy = nan_policy
         self.nan_check_every = nan_check_every
         self.nan_rollbacks = 0
@@ -1384,9 +1404,21 @@ class PhysicsWorld:
         if self.state is None:
             self.build()
         for _ in range(n):
-            self.state, self.last_events = _step(self.state, self.params)
+            self.state, self.last_events = _step(self.state, self.params, self.hooks)
             if self.nan_policy != "ignore":
                 self._nan_guard()
+        return self.state
+
+    def collide(self, n: int = 1):
+        """Collision detection only, no dynamics (CollisionPipeline::step,
+        collision_pipeline.rs:29): the contact cache and `last_events` of
+        externally posed scenes.  The contact filter hook applies."""
+        from rapier_tpu_torch.pipeline.collision_pipeline import collide
+
+        if self.state is None:
+            self.build()
+        for _ in range(n):
+            self.state, self.last_events = collide(self.state, self.params, self.hooks)
         return self.state
 
     def _nan_guard(self):
@@ -1517,6 +1549,123 @@ class PhysicsWorld:
 
     def set_next_kinematic_translation(self, h, xyz):
         self._write(self.state.bodies, _hidx(h), next_pos=np.asarray(xyz, np.float32))
+
+    # ------------------------------------------------------------------
+    # Scene queries (PhysicsWorld::cast_ray & co, physics_world.rs:103-790):
+    # the batched functions of geometry/queries.py on this world's one
+    # scene, returning what the reference's single-scene calls return.
+    # ------------------------------------------------------------------
+    def _vec(self, x, width: int = 3):
+        return torch.as_tensor(np.asarray(x, np.float32).reshape(1, 1, width),
+                               device=self.device)
+
+    @staticmethod
+    def _one(result):
+        """A query's ``[1, 1, ...]`` result fields as single-query values."""
+        return type(result)(*[x[0, 0] for x in result])
+
+    def _tables(self):
+        return dict(meshes=self.state.meshes, hulls=self.state.hulls)
+
+    def cast_ray(self, origin, direction, max_toi=1e30, **kw):
+        from rapier_tpu_torch.geometry import queries
+
+        s = self.state
+        return self._one(queries.cast_ray(s.bodies, s.colliders, self._vec(origin),
+                                          self._vec(direction), max_toi=max_toi,
+                                          **self._tables(), **kw))
+
+    def project_point(self, point, solid: bool = True, **kw):
+        from rapier_tpu_torch.geometry import queries
+
+        s = self.state
+        return self._one(queries.project_point(s.bodies, s.colliders, self._vec(point),
+                                               solid=solid, **self._tables(), **kw))
+
+    def intersections_with_point(self, point, **kw):
+        """``[C]`` bool: the colliders containing `point`."""
+        from rapier_tpu_torch.geometry import queries
+
+        s = self.state
+        return queries.intersections_with_point(s.bodies, s.colliders, self._vec(point),
+                                                hulls=s.hulls, **kw)[0, 0]
+
+    def cast_shape(self, shape_type, shape_params, pos, rot, direction, max_toi, **kw):
+        from rapier_tpu_torch.geometry import queries
+
+        s = self.state
+        return self._one(queries.cast_shape(
+            s.bodies, s.colliders, int(shape_type), _pad_params(shape_params),
+            self._vec(pos), self._vec(rot, 4), self._vec(direction), max_toi,
+            **self._tables(), **kw))
+
+    def cast_shape_nonlinear(self, shape_type, shape_params, pos, rot, linvel, angvel,
+                             max_toi, **kw):
+        """Sweep a shape along a rigid motion, translation and rotation
+        (QueryPipeline::cast_shape_nonlinear, query_pipeline.rs:510)."""
+        from rapier_tpu_torch.geometry import queries
+
+        s = self.state
+        return self._one(queries.cast_shape_nonlinear(
+            s.bodies, s.colliders, int(shape_type), _pad_params(shape_params),
+            self._vec(pos), self._vec(rot, 4), self._vec(linvel), self._vec(angvel),
+            max_toi, **self._tables(), **kw))
+
+    def intersections_with_shape(self, shape_type, shape_params, pos, rot,
+                                 **kw) -> np.ndarray:
+        """Indices of the colliders a placed convex shape overlaps
+        (QueryPipeline::intersect_shape, query_pipeline.rs:537)."""
+        from rapier_tpu_torch.geometry import queries
+
+        s = self.state
+        mask = queries.intersect_shape(s.bodies, s.colliders, int(shape_type),
+                                       _pad_params(shape_params), self._vec(pos),
+                                       self._vec(rot, 4), **self._tables(), **kw)
+        return np.nonzero(mask[0, 0].cpu().numpy())[0]
+
+    def colliders_with_aabb_intersecting_aabb(self, aabb_min, aabb_max, **kw) -> np.ndarray:
+        """Indices of the colliders whose conservative AABB meets [min, max]
+        (QueryPipeline::intersect_aabb_conservative)."""
+        from rapier_tpu_torch.geometry import queries
+
+        s = self.state
+        mask = queries.intersect_aabb_conservative(
+            s.bodies, s.colliders, self._vec(aabb_min).view(1, 3),
+            self._vec(aabb_max).view(1, 3), **kw)
+        return np.nonzero(mask[0].cpu().numpy())[0]
+
+    def move_character(self, shape_type, shape_params, pos, rot, desired_translation,
+                       options=None, character_mass: float = 0.0, dt: float = None,
+                       apply_impulses: bool = None, **kw):
+        """A kinematic character's move, and with character_mass > 0 (or
+        apply_impulses) the push impulses on the dynamic bodies it met,
+        written into the world's state at once
+        (KinematicCharacterController::move_shape and
+        solve_character_collision_impulses, character_controller.rs:267,
+        :840).  Returns the CharacterMovement of the one scene."""
+        from rapier_tpu_torch.control.character import (
+            CharacterControllerOptions,
+            move_shape,
+            solve_character_collision_impulses,
+        )
+
+        s = self.state
+        opts = options or CharacterControllerOptions()
+        prm = _pad_params(shape_params)
+        pos_t, rot_t = self._vec(pos).view(1, 3), self._vec(rot, 4).view(1, 4)
+        mv = move_shape(s.bodies, s.colliders, int(shape_type), prm, pos_t, rot_t,
+                        self._vec(desired_translation).view(1, 3), opts,
+                        **self._tables(), **kw)
+        if apply_impulses is None:
+            apply_impulses = character_mass > 0.0
+        if apply_impulses:
+            bodies = solve_character_collision_impulses(
+                s.bodies, s.colliders, int(shape_type), prm, pos_t + mv.translation, rot_t,
+                mv.remaining, dt if dt is not None else self.params.dt, character_mass, opts,
+                hulls=s.hulls, **{k: v for k, v in kw.items()
+                                  if k in ("exclude_collider", "exclude_body")})
+            self.state = dataclasses.replace(s, bodies=bodies)
+        return type(mv)(*[x[0] for x in mv])
 
     # ------------------------------------------------------------------
     # Snapshots (the reference's serde round trip).  In memory they are

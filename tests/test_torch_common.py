@@ -197,12 +197,13 @@ def reference_rollout(jax_step, start, jparams, n_steps):
     return ref
 
 
-def rollouts(start, jparams, n_steps, jax_step=None, **port_params):
+def rollouts(start, jparams, n_steps, jax_step=None, hooks=None, **port_params):
     """`n_steps` steps of the reference (jit of the vmapped step, or
     `jax_step`, such a function compiled before) and of the port (its
-    parameters `jparams` but for `port_params`) from the numpy batch
-    `start`: (the port's solve path, reference states, port states), each
-    state with numpy leaves.  The port's steps must not overflow."""
+    parameters `jparams` but for `port_params`, with the step's `hooks`)
+    from the numpy batch `start`: (the port's solve path, reference states,
+    port states), each state with numpy leaves.  The port's steps must not
+    overflow."""
     import jax
     import jax.numpy as jnp
     import rapier_tpu.pipeline.physics_pipeline as jpp
@@ -216,7 +217,7 @@ def rollouts(start, jparams, n_steps, jax_step=None, **port_params):
     path = pp.solve_path(ps, params)
     port = []
     for _ in range(n_steps):
-        ps, ev = pp.step(ps, params)
+        ps, ev = pp.step(ps, params, hooks)
         assert int(ev.solver_overflow.max()) == 0 and int(ev.broadphase_overflow.max()) == 0
         port.append(to_numpy(ps))
     return path, ref, port
@@ -607,3 +608,178 @@ def witness_verdicts(lanes, ref_lane, port, close, nudge=(("pA", 3), ("pB", 3), 
         else:
             verdict.append("differs")
     return np.array(verdict)
+
+
+# ---------------------------------------------------------------------------
+# Scene queries (tests/test_torch_queries*.py)
+
+QUERY_TOL = 1e-5           # toi, points, distances: relative
+QUERY_NORMAL_TOL = 1e-4    # analytic normals
+GJK_NORMAL_TOL = 2e-3      # normals from GJK (separated lanes agree to ~1e-3)
+QUERY_UNSTABLE_SHARE = 0.05
+
+
+def query_zoo(package, kinds=None):
+    """One fixed collider of every query shape type (rotated by seeded
+    quaternions, the round shapes and a hull included; a heightfield and a
+    trimesh apart from the others; a tilted halfspace below them all), or
+    of the named `kinds` only, built with `package`'s builders
+    ("rapier_tpu" or "rapier_tpu_torch").  Returns (world, [(name, centre,
+    extent)] of each target)."""
+    import importlib
+
+    w_mod = importlib.import_module(f"{package}.world")
+    rb, cb = w_mod.RigidBodyBuilder, w_mod.ColliderBuilder
+    kw = {"device": "cpu"} if package == "rapier_tpu_torch" else {}
+    w = w_mod.PhysicsWorld(**kw)
+    rng = np.random.default_rng(11)
+    hull = [(x, y, z) for x in (-0.5, 0.5) for y in (-1.0, 1.0) for z in (-0.5, 0.5)]
+    hull += [(0.0, 1.3, 0.0), (0.7, 0.0, 0.2)]
+    shapes = [
+        ("ball", cb.ball(0.5), 0.5),
+        ("cuboid", cb.cuboid(0.5, 1.0, 0.4), 1.0),
+        ("round_cuboid", cb.round_cuboid(0.4, 0.3, 0.5, 0.1), 0.6),
+        ("capsule", cb.capsule_x(0.6, 0.3), 0.9),
+        ("cylinder", cb.cylinder(1.0, 0.5), 1.0),
+        ("round_cylinder", cb.round_cylinder(0.6, 0.4, 0.05), 0.65),
+        ("cone", cb.cone(1.0, 0.5), 1.0),
+        ("round_cone", cb.round_cone(0.7, 0.5, 0.05), 0.75),
+        ("hull", cb.convex_hull(hull), 1.3),
+    ]
+    targets = []
+
+    def want(name):
+        return kinds is None or name in kinds
+
+    for i, (name, col, ext) in enumerate(shapes):
+        q = rng.normal(size=4)
+        q = (q / np.linalg.norm(q)).astype(np.float32)
+        centre = (4.0 * i, 1.5, 0.0)
+        if not want(name):
+            continue
+        b = w.insert_body(rb.fixed().with_translation(centre).with_rotation(tuple(q)))
+        w.insert_collider(col, b)
+        targets.append((name, centre, ext))
+    heights = rng.uniform(0.0, 1.0, (5, 5)).astype(np.float32)
+    if want("heightfield"):
+        hf = w.insert_body(rb.fixed().with_translation((40.0, 0.0, 0.0)))
+        w.insert_collider(cb.heightfield(heights, (6.0, 1.0, 6.0)), hf)
+        targets.append(("heightfield", (40.0, 0.5, 0.0), 2.5))
+    verts = np.array([[-2, 0, -2], [2, 0.5, -2], [2, 0, 2], [-2, -0.5, 2], [0, 1.5, 0]],
+                     np.float32)
+    tris = np.array([[0, 1, 4], [1, 2, 4], [2, 3, 4], [3, 0, 4]], np.int32)
+    if want("trimesh"):
+        tm = w.insert_body(rb.fixed().with_translation((50.0, 0.5, 0.0)))
+        w.insert_collider(cb.trimesh(verts, tris), tm)
+        targets.append(("trimesh", (50.0, 1.0, 0.0), 2.0))
+    if want("halfspace"):
+        ground = w.insert_body(rb.fixed().with_translation((0.0, -3.0, 0.0)))
+        n = np.array([0.1, 1.0, 0.05])
+        w.insert_collider(cb.halfspace(tuple(n / np.linalg.norm(n))), ground)
+        targets.append(("halfspace", (20.0, -3.0, 0.0), 3.0))
+    w.build()
+    return w, targets
+
+
+def aimed_rays(targets, per_target, seed):
+    """`per_target` seeded rays at each target: (origin, direction) ``[R,
+    3]`` float32, a tenth of them starting inside their target, and the
+    target of each."""
+    rng = np.random.default_rng(seed)
+    o, d, which = [], [], []
+    for k, (_, centre, ext) in enumerate(targets):
+        aim = np.asarray(centre) + rng.uniform(-ext, ext, (per_target, 3))
+        start = aim + rng.normal(0.0, 1.0, (per_target, 3)) * (2.0 + 2.0 * ext)
+        inside = rng.uniform(size=per_target) < 0.1
+        start[inside] = np.asarray(centre) + rng.uniform(-0.1, 0.1, (int(inside.sum()), 3))
+        scale = rng.uniform(0.5, 2.0, (per_target, 1))
+        o.append(start)
+        d.append((aim - start) * scale / np.maximum(
+            np.linalg.norm(aim - start, axis=1, keepdims=True), 1e-3))
+        which += [k] * per_target
+    return (np.concatenate(o).astype(np.float32), np.concatenate(d).astype(np.float32),
+            np.array(which))
+
+
+def near_points(targets, per_target, seed):
+    """`per_target` seeded points around each target ``[P, 3]``."""
+    rng = np.random.default_rng(seed)
+    pts = [np.asarray(c) + rng.normal(0.0, 0.8, (per_target, 3)) * ext for _, c, ext in targets]
+    return np.concatenate(pts).astype(np.float32)
+
+
+def nudged(x, seed_axes=3):
+    """The 2 x `seed_axes` copies of ``x [N, 3]`` moved 1 ulp up and down
+    along each axis: the reference's own spread on rounding ties."""
+    out = []
+    for ax in range(seed_axes):
+        for sign in (1.0, -1.0):
+            y = x.copy()
+            y[:, ax] = np.nextafter(y[:, ax], np.float32(sign * np.inf))
+            out.append(y)
+    return out
+
+
+def assert_rows_with_witnesses(port, ref, witnesses, tols, what, mask=None,
+                               share=QUERY_UNSTABLE_SHARE):
+    """Rows of `port` that agree with `ref` (every field within its
+    tolerance), or with one of the reference's own runs from inputs 1 ulp
+    apart (`witnesses`), or where such a run parts from `ref` (the
+    reference is unstable there: at most `share` of the rows).  `port`,
+    `ref` and each witness are lists of ``[N, ...]`` arrays, `tols` a
+    tolerance a field (a scalar or ``[N]``; 0 for flags and indices)."""
+    def close(a, b):
+        return rows_close(a, b, tols)
+
+    rows = np.ones(len(port[0]), bool) if mask is None else np.asarray(mask)
+    ok = close(port, ref)
+    wit = np.zeros_like(ok)
+    unstable = np.zeros_like(ok)
+    for w in witnesses:
+        wit |= close(port, w)
+        unstable |= ~close(w, ref)
+    bad = rows & ~ok & ~wit & ~unstable
+    assert not bad.any(), (f"{what}: {int(bad.sum())} of {int(rows.sum())} rows differ, e.g. "
+                           f"row {np.flatnonzero(bad)[:3]}: port "
+                           f"{[np.asarray(x)[bad][:1] for x in port]} ref "
+                           f"{[np.asarray(x)[bad][:1] for x in ref]}")
+    n_unstable = int((rows & ~ok & ~wit).sum())
+    assert n_unstable <= share * max(1, int(rows.sum())), (
+        f"{what}: {n_unstable} rows only explained by the reference's instability")
+
+
+def rows_close(a, b, tols):
+    """Per row: every field of `a` within its tolerance of `b` (lists of
+    ``[N, ...]`` arrays; a tolerance a field, scalar or ``[N]``)."""
+    ok = np.ones(len(a[0]), bool)
+    for x, y, t in zip(a, b, tols):
+        g = np.abs(np.asarray(x, np.float64) - np.asarray(y, np.float64))
+        ok &= g.reshape(g.shape[0], -1).max(axis=1) <= t
+    return ok
+
+
+def lazy_witnesses(ref, args, base, rows, nudge_args=(0,)):
+    """The 1-ulp witnesses of the compiled reference `ref(*args)` (numpy
+    inputs ``[N, ...]``, result `base`): one for each component of each of
+    the `nudge_args` inputs, up and down.  They run only for `rows` (a bool
+    mask) and equal `base` on the others; the nudged rows are packed into
+    batches of N, so `ref` runs at its compiled shape."""
+    import jax
+    import jax.numpy as jnp
+
+    n = len(args[0])
+    idx = np.flatnonzero(rows)
+    nudges = [(a, y) for a in nudge_args
+              for y in nudged(np.asarray(args[a])[idx], np.asarray(args[a]).shape[1])]
+    wits = [jax.tree.map(np.array, base) for _ in nudges]
+    todo = [(j, i) for j in range(len(nudges)) for i in range(len(idx))]
+    for s in range(0, len(todo), n):
+        chunk = todo[s:s + n]
+        pad = chunk + [chunk[-1]] * (n - len(chunk))
+        batch = [np.stack([nudges[j][1][i] if a == nudges[j][0] else np.asarray(x)[idx[i]]
+                           for j, i in pad]) for a, x in enumerate(args)]
+        out = jax.tree.map(np.asarray, ref(*[jnp.asarray(x) for x in batch]))
+        for m, (j, i) in enumerate(chunk):
+            for w_leaf, o_leaf in zip(jax.tree.leaves(wits[j]), jax.tree.leaves(out)):
+                w_leaf[idx[i]] = o_leaf[m]
+    return wits

@@ -1,6 +1,6 @@
-"""The CUDA contact-sweep kernels, the non-kernel solves and the
-impulse-joint step on the card (marker `gpu`; skipped without a CUDA
-device).  Run on a machine with one
+"""The CUDA contact-sweep kernels, the non-kernel solves, the
+impulse-joint step, a hooked batch on the kernel and the ray casts on the
+card (marker `gpu`; skipped without a CUDA device).  Run on a machine with one
 card:
 
     python -m pytest tests/test_torch_cuda.py -m gpu -q
@@ -407,3 +407,78 @@ def test_mesh_narrow_phase_on_the_card(heightfield_capture):
                         torch.where(pv.unsqueeze(2), cpu.point, 0.0))):
         err = (x - y).abs().reshape(x.shape[0], -1, x.shape[-1]).amax(dim=1)
         assert bool((err <= tol).all()), (name, float(err.max()))
+
+
+def test_hooked_batch_on_the_kernel(device):
+    """one_way_platforms3 with the one-way filter and a friction modifier:
+    64 scenes on the card launch the folded contact-sweep kernel once a
+    step, and 2 single steps from the card's state agree with the CPU
+    (bodies 1e-4 / 1e-3, impulses 1e-3 of the largest, keys and flags
+    exact)."""
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.pipeline import physics_pipeline as pp
+    from rapier_tpu_torch.pipeline.hooks import PhysicsHooks, one_way_platform_hook
+    from rapier_tpu_torch.scenes import one_way_platforms3_world, replicate_scene
+    from rapier_tpu_torch.types import (
+        ACTIVE_HOOKS_FILTER_CONTACT_PAIR,
+        ACTIVE_HOOKS_MODIFY_SOLVER_CONTACTS,
+        from_numpy,
+        tree_map,
+    )
+
+    hooks = PhysicsHooks(
+        filter_contact_pair=one_way_platform_hook((0.0, 1.0, 0.0)).filter_contact_pair,
+        modify_solver_contacts=lambda b, c, m: m._replace(friction=m.friction * 0.5))
+    w, h = one_way_platforms3_world(
+        active_hooks=ACTIVE_HOOKS_FILTER_CONTACT_PAIR | ACTIVE_HOOKS_MODIFY_SOLVER_CONTACTS,
+        hooks=hooks, device=device)
+    state, params = replicate_scene(from_numpy(w.build(), device), 64), w.params
+    assert pp.solve_path(state, params) == "kernel" and state.contacts.max_pairs <= 128
+    cs.KERNEL.launches = cs.KERNEL.launches_folded = 0
+    for _ in range(50):
+        state, _ = pp.step(state, params, hooks)
+    assert (cs.KERNEL.launches, cs.KERNEL.launches_folded) == (0, 50)
+    assert bool((state.bodies.pos[:, h["above"], 1] > 0.4).all())
+    assert bool(state.contacts.touching.any())
+    for _ in range(2):
+        gpu, _ = pp.step(state, params, hooks)
+        cpu, _ = pp.step(tree_map(lambda x: x.cpu(), state), params, hooks)
+        for name in ("pair_key", "touching"):
+            assert torch.equal(getattr(gpu.contacts, name).cpu(), getattr(cpu.contacts, name))
+        assert float((gpu.bodies.pos.cpu() - cpu.bodies.pos).abs().max()) <= 1e-4
+        assert float((gpu.bodies.linvel.cpu() - cpu.bodies.linvel).abs().max()) <= 1e-3
+        scale = max(1.0, float(cpu.contacts.impulse.abs().max()))
+        for name in ("impulse", "tangent_impulse", "warmstart_impulse"):
+            gap = float((getattr(gpu.contacts, name).cpu() - getattr(cpu.contacts, name))
+                        .abs().max())
+            assert gap <= 1e-3 * scale, (name, gap)
+        state = gpu
+
+
+def test_cast_ray_on_the_card(device):
+    """cast_ray on the card against the CPU: 256 seeded rays a scene over 4
+    settled scenes of the parity scene shape (hit flags and colliders exact,
+    toi and points 1e-5 of the scale, normals 1e-4 of it)."""
+    from rapier_tpu_torch.geometry import queries
+    from rapier_tpu_torch.pipeline import physics_pipeline as pp
+    from rapier_tpu_torch.scenes import mixed_primitives_world, replicate_scene
+    from rapier_tpu_torch.types import from_numpy, tree_map
+
+    w = mixed_primitives_world(num_layers=3, grid=3, max_pairs=256)
+    state = replicate_scene(from_numpy(w.build(), device), 4)
+    for _ in range(60):
+        state, _ = pp.step(state, w.params)
+    rng = np.random.default_rng(5)
+    origin = rng.uniform((-4, 4, -4), (4, 8, 4), (4, 256, 3)).astype(np.float32)
+    aim = rng.uniform((-2, 0, -2), (2, 2, 2), (4, 256, 3)).astype(np.float32)
+    o, d = torch.from_numpy(origin), torch.from_numpy(aim - origin)
+    gpu = queries.cast_ray(state.bodies, state.colliders, o.to(device), d.to(device))
+    cpu_state = tree_map(lambda x: x.cpu(), state)
+    cpu = queries.cast_ray(cpu_state.bodies, cpu_state.colliders, o, d)
+    assert torch.equal(gpu.hit.cpu(), cpu.hit) and torch.equal(gpu.collider.cpu(), cpu.collider)
+    assert int(cpu.hit.sum()) > 512
+    scale = 1e-5 * max(1.0, float(o.abs().max()), float(d.norm(dim=-1).max()))
+    h = cpu.hit
+    assert float((gpu.toi.cpu() - cpu.toi)[h].abs().max()) <= scale
+    assert float((gpu.point.cpu() - cpu.point)[h].abs().max()) <= scale
+    assert float((gpu.normal.cpu() - cpu.normal)[h].abs().max()) <= 10 * scale
