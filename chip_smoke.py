@@ -6,7 +6,7 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; each prints its wall time), run in the
-order 1-6, 10, 11, 12, 9, 13, 14, 15, 7, 8:
+order 1-6, 10, 11, 12, 9, 13, 14, 15, 16, 7, 8:
 
 1. Build the contact-sweep kernels from ``rapier_tpu_torch/csrc`` (one nvcc
    call, sm_90a) and print the compiler's register / shared-memory report.
@@ -58,10 +58,10 @@ order 1-6, 10, 11, 12, 9, 13, 14, 15, 7, 8:
    batch after its timed run), 2 quadruped scenes (of phase 3's capture
    batch), 2 joints3 scenes (of phase 9's batch after its timed run), 2
    impulse-joint quadrupeds and 2
-   high-mass-ratio 2D scenes for 10 steps each (with the joints' row
+   high-mass-ratio 2D scenes for 5 steps each (with the joints' row
    impulses within 1e-3 of the largest); the stack-16 pyramid after 30
-   steps on the card (mid-landing) and after phase 6's 150 (at rest), 2
-   steps each, 2 10-row 2D pyramids and 2 Coulomb stacks after 3, 5 steps
+   steps on the card (mid-landing) and after phase 6's 150 (at rest), 1
+   step each, 2 10-row 2D pyramids and 2 Coulomb stacks after 3, 5 steps
    each, and phase 10's 5,050-box 2D pile after its 60, 1 step, 2 heightfield3
    scenes of phase 11's capture batch (after 60 steps, in contact), 5 steps,
    and 2 trimesh3 scenes after
@@ -76,7 +76,7 @@ order 1-6, 10, 11, 12, 9, 13, 14, 15, 7, 8:
    10-row 2D checks it
    prints the free card-vs-CPU gap and, as its witness, the gap between two
    free CPU runs whose start differs by 1 ulp in one body's height.
-8. Determinism: 10 steps run twice from one state are bitwise equal, for
+8. Determinism: 5 steps run twice from one state are bitwise equal, for
    64 scenes of phase 4's bench batch, phase 3's quadruped capture batch,
    256 scenes of phase 9's joints3 batch and phase 11's heightfield3 capture
    batch; 2 steps for the stack-16 pyramid; 3 steps for a 10-row 2D pyramid
@@ -85,7 +85,7 @@ order 1-6, 10, 11, 12, 9, 13, 14, 15, 7, 8:
    examples/joints3.py: revolute chain, prismatic slider with a position
    motor and limits, fixed-joint lattice, spherical rope with swing limits)
    and 4096 impulse-joint quadrupeds (`quadruped_world(use_multibody=False)`),
-   30 and 120 steps, then 15 timed steps.  Both take the masked sweep (the
+   30 and 120 steps, then 10 timed steps.  Both take the masked sweep (the
    reference's gate sends scenes with joints there), so neither may launch a
    contact-sweep kernel.  Checks zero overflow, finite state, every scene
    bitwise equal to scene 0, and for joints3 after 30 steps the example's
@@ -103,7 +103,7 @@ order 1-6, 10, 11, 12, 9, 13, 14, 15, 7, 8:
    Luby rounds leave ~1,000 lanes to the Jacobi tail and the pile explodes,
    as the reference's blocked solve does with such a tail (ROADMAP F6; each
    reading prints the tail 16 colors would leave).  The blocked solve with
-   the 2x2 flag on every pass, 50 steps, then 10 timed (examples/s2d_pyramid.py
+   the 2x2 flag on every pass, 55 steps, then 5 timed (examples/s2d_pyramid.py
    runs 600; cut for the run's time limit), the top box and the tail read
    every 10 steps; checks zero overflow, finite state, z and the x / y spins
    exactly 0, and that the pile holds (after its top row lands at step ~30
@@ -111,10 +111,10 @@ order 1-6, 10, 11, 12, 9, 13, 14, 15, 7, 8:
    box above 0.9 x 99 and within 1.5 of rest, its swing shrinking); prints
    whether it is at rest (it still swings after 60 steps: F6), steps/s, the
    largest row-height deviation, how far the boxes sank and one traced step.
-   (b) 4096 replicas of the 10-row pyramid, 10 steps, then 10 timed, and (c)
+   (b) 4096 replicas of the 10-row pyramid, 5 steps, then 5 timed, and (c)
    4096 of the Coulomb stack with its kicked slider
    (`scenes.s2d_coulomb_stack_world`), 75 steps (the slider comes to rest
-   at ~80), then 10 timed, each on the masked sweep; checks zero overflow,
+   at ~80), then 5 timed, each on the masked sweep; checks zero overflow,
    no contact-kernel launch, every scene bitwise equal to scene 0,
    tests/test_s2d.py's own checks on every scene (boxes within 0.15 of their
    starts; the slider at rest between x = 20.5 and 30); prints env-steps/s,
@@ -189,8 +189,8 @@ order 1-6, 10, 11, 12, 9, 13, 14, 15, 7, 8:
    from seeded joint angles: every target within 2e-3
    (tests/test_multibody.py's), the CPU's result on the first 1024 within
    1e-4 of the card's.  Phase 7 adds 2 ccd3 scenes of (b) from the step
-   that first clamps a ball (2 single steps) and 2 arms and 2 coupled arms
-   (10 steps); phase 8 64 ccd3 scenes and 256 arms, 2 steps each.
+   that first clamps a ball (1 single step) and 2 arms and 2 coupled arms
+   (5 steps); phase 8 64 ccd3 scenes and 256 arms, 1 step each.
 14. The world's runtime API and the loaders.  (a) The bench scene as one
    `PhysicsWorld` (101 bodies, capacity 104, P = 512, K = 256), settled 60
    steps (the last 30 timed, plain), then for 60 steps, every 10 steps: a
@@ -239,8 +239,34 @@ order 1-6, 10, 11, 12, 9, 13, 14, 15, 7, 8:
    the CPU), each stepping on the kernel the gate picks once a step;
    env-steps/s, character moves/s, the traced env-step's kernels and busy
    share.  Phase 7 takes 2 hooked platform scenes after 20 steps and 2
-   vehicles after 75 (10 free steps against the CPU), phase 8 reruns 64 of
-   each for 10 steps bitwise.
+   vehicles after 75 (5 free steps against the CPU), phase 8 reruns 64 of
+   each for 5 steps bitwise.
+
+16. The f64 axis, scene sharding and debug render.  (a) Upstream's far
+   pyramid (`scenes.s2d_far_pyramid_world`, 55 boxes at (1e5, -8e4)) built
+   at f64, one scene, FAR_STEPS steps (the reference test's 300, cut to
+   60 for the time limit): the route
+   printed (the masked sweep: an f64 scene never takes the kernel), zero
+   contact-sweep launches, the largest rest-height error below FAR_TOL
+   (tests/test_2d_core.py's check), steps/s.  4096 bench scenes built at f64
+   and the same scenes at float32 with solver_backend="jax" (the same masked
+   route, which separates the dtype's cost from the route's), 10 + 10 steps
+   each: zero overflow and zero launches, every scene bitwise equal to scene
+   0, env-steps/s, peak device memory and one traced step.  (b) 4096 bench
+   scenes (`parallel/sharding.py`) for 30 steps, the last 10 timed: a mesh
+   of the one card in this process (one NCCL rank a card on a machine with
+   several), then 2 gloo ranks sharing card 0, spawned; the state gathered
+   on rank 0 bitwise equal (SHA-256 of every leaf) to the unsharded step's
+   over the same 30 steps, one `contact_sweep_kernel` launch a step on each
+   rank, env-steps/s per rank and in total, the seconds from the spawn to
+   the first finished step.  (c) Debug render (`utils/debug_render.py`) of
+   scene 0 of phase 4's settled bench batch, phase 9's joints3, phase 11's
+   heightfield3 and the trimesh-and-hull scene of tests/test_world_api.py,
+   on the card and again from the same state on the CPU: line counts and
+   colors equal, coordinates within RENDER_TOL; the milliseconds of each.
+   Phase 7 steps 2 f64 bench scenes (settled 45 steps on the card) 5 steps
+   on the card and on the CPU, held to an f64 1-ulp witness; phase 8 reruns
+   64 f64 bench scenes for 5 steps bitwise.
 
 The line before the last is the kernels' JSON record (with `bound_share`,
 bound over time, and each kernel's resources); the last line is
@@ -251,7 +277,8 @@ with ``--meshes-only`` phase 11 (and (d) under ``--heightfield-full``),
 with ``--convex-only`` phase 12 (and (d) under ``--primitives-full``),
 with ``--ccd-only`` phase 13, with ``--world-only`` phase 14, with
 ``--queries-only`` phase 15 (on a bench batch settled for it) and its
-phase 7 and 8 parts;
+phase 7 and 8 parts, with ``--remainder-only`` phase 16 (on batches
+settled for it) and its phase 7 and 8 parts;
 with ``--rest-steps STEPS`` it steps the ``--pyramid`` stacks (default 31)
 STEPS steps each (at ``--colors N`` colors, else the default 16) and prints
 the top box's distance from rest and vertical velocity every 50 steps,
@@ -292,6 +319,10 @@ KERNEL_TOL = dict(bodies=1e-4, impulses=1e-3)   # atol, summation order only
 # atol over 10 contact steps; impulses: atol times the largest impulse's
 # magnitude (at least 1), since they scale with the weight a contact bears.
 CPU_TOL = dict(pos=1e-4, vel=1e-3, imp=1e-3)
+# Phase 7's free runs on the card and the CPU, and phase 8's reruns, of the
+# small-scene batches (10 each until phase 16 joined the script).
+CPU_FREE_STEPS = 5
+RERUN_STEPS = 5
 # A tall pile's single steps may differ up to this many times a 1-ulp
 # witness's gap (`_cpu_step_agreement`), as the reference's own float32
 # rounding bounds the port's in the CPU tests.
@@ -311,8 +342,8 @@ TRUNK = 1                       # body handle of the trunk
 IMPULSE_TRUNK_Z_REF = 0.188
 JOINT_SETTLE = {"joints3": 30, "impulse quadruped": 120}
 # Timed steps after the settle (launch-bound: ~0.2-0.6 s each); 25 until
-# phase 15 joined the script.
-JOINT_TIMED = 15
+# phase 15 joined the script, 15 until phase 16 did.
+JOINT_TIMED = 10
 # bench.py's default stack.  pyramid3.rs's stack 24 is opt-in (--pyramid 24),
 # as 31 is: its ~150 steps and ~36 s trace made room for phase 10 within the
 # script's time limit; the blocked path keeps a ~5,000-body scene in the
@@ -328,13 +359,15 @@ PYRAMID_TIMED = 30
 PYRAMID_CPU_SETTLE = 30
 # Single steps of the card against the CPU from each pyramid state, and
 # steps of its rerun: each single step takes a card step and three CPU
-# steps of the 1,496-box pile (3 until the script outran its limit).
-PYRAMID_CPU_STEPS = 2
+# steps of the 1,496-box pile (3 until the script outran its limit, 2 until
+# phase 16 joined it).
+PYRAMID_CPU_STEPS = 1
 # Steps traced under torch.profiler, and steps the stage timers average,
 # for the launch-bound paths (pyramid and joints): each of their steps
 # launches the same kernels, and the profiler's processing grows with the
 # 15,000-105,000 launches a step.
 TRACE_STEPS_LONG = 1
+TRACE_STEPS_BENCH = 1           # 3 until phase 16 joined the script
 # A settled pyramid's top box rests at 2 * stack - 1 (boxes 2 high, the
 # ground's top at 0); it starts 0.5 m a level higher.  Stacks 16 and 24 have
 # come to rest by the end of the timed run: their top box must lie within
@@ -383,8 +416,8 @@ STATIC_ARGS = ("n_sub", "pgs_iters", "stab_iters", "max_colors")
 # then S2D_TIMED timed.  Both masked.
 S2D_BIG_BASE = 100
 S2D_BIG_COLORS = 24
-S2D_BIG_SETTLE = 50
-S2D_BIG_TIMED = 10
+S2D_BIG_SETTLE = 55             # 55 + 5: readings every 10 steps up to 60, as
+S2D_BIG_TIMED = 5               # 50 + 10 did until phase 16 joined the script
 S2D_READ_EVERY = 10
 S2D_BIG_LANDING = 30
 S2D_BIG_FALL = 4.905            # m/s: g x 30 steps of 1/60 s
@@ -392,9 +425,9 @@ S2D_BIG_REST = 99.5
 S2D_BIG_TOP_TOL = 1.5           # the pile holds: its top box within 1.5 of rest
 S2D_REST_TOL = 0.1              # at rest: within 0.1 of rest, slower than 0.1 m/s
 S2D_REST_VY = 0.1
-S2D_SETTLE = 10
+S2D_SETTLE = 5                  # 10 until phase 16 joined the script
 S2D_SLIDE = 75
-S2D_TIMED = 10
+S2D_TIMED = 5                   # 10 until phase 16 joined the script
 S2D_CPU_SETTLE = 3              # 2D piles touch from their first step
 # Single steps from the card's state of the 10-row pyramids and the Coulomb
 # stacks, and the 2D reruns' steps (10 and 5 until the whole script outran
@@ -475,7 +508,7 @@ CCD3_TIMED = 3                  # the last 3 of them
 CCD3_EXIT_SPEED = 600.0         # m/s, tests/test_ccd.py:84's bound
 CCD3_BOX_MOVED = 0.2
 CCD3_BAND = 1.0                 # a wall's clamp ends within this of its faces
-CCD3_CPU_STEPS = 2
+CCD3_CPU_STEPS = 1              # 2 until phase 16 joined the script
 CCD3_RERUN_SCENES = 64
 # The example runs 300 steps; its checks hold from step ~55 on (a CPU run
 # of the port), so 80.
@@ -489,7 +522,7 @@ IK_ITERS = 100
 IK_TARGET_TOL = 2e-3            # tests/test_multibody.py:252's
 IK_CPU_TOL = 1e-4
 IK_CPU_SCENES = 1024            # the CPU repeats the first 1024
-RERUN_STEPS_13 = 2
+RERUN_STEPS_13 = 1              # 2 until phase 16 joined the script
 # Phase 14: the bench scene as one mutating PhysicsWorld, and the loaders.
 WORLD_SETTLE = 60
 WORLD_PLAIN_TIMED = 30          # the last 30 settle steps, timed
@@ -526,6 +559,32 @@ VEHICLE_CAPTURE = 75            # phases 7 and 8 take the vehicles after these s
 # 0.3 m a step, so 10 for the script's time limit.
 CHAR_STEPS = 10
 RERUN_SCENES_15 = 64
+# Phase 16: the f64 axis, scene sharding and debug render.  (a) upstream's
+# far pyramid at f64, one scene, FAR_STEPS steps with its rest-height check
+# (the reference test's 300, cut for the script's time limit: 3.2-4.3
+# steps/s, launch-bound; the pile has landed by ~60 steps, and on the CPU its
+# largest error is 0.0244 at 60 and 0.0171 at 300,
+# tests/test_torch_precision_scenes.py);
+# 4096 bench scenes at f64 and at float32 on the same masked route
+# (solver_backend="jax"), F64_SETTLE + F64_TIMED steps each.
+FAR_STEPS = 60
+FAR_TOL = 0.15
+F64_SETTLE = 10
+F64_TIMED = 10
+# (b) 4096 bench scenes sharded: SHARD_STEPS steps, the last SHARD_TIMED timed.
+SHARD_STEPS = 30
+SHARD_TIMED = 10
+RENDER_TOL = 1e-5               # card vs CPU render coordinates
+# Phase 7's f64 bench scenes: settled on the card, then F64_CPU_STEPS free
+# steps on the card and the CPU, held to F64_WITNESS_FACTOR times the gap of
+# two CPU runs whose starts differ by 1 ulp in every body's height, or
+# F64_ULPS float64 ulps of the field's largest magnitude.
+F64_CPU_SCENES = 2
+F64_CPU_SETTLE = 45
+F64_CPU_STEPS = 5
+F64_WITNESS_FACTOR = 16.0
+F64_ULPS = 64
+F64_RERUN_SCENES = 64           # phase 8's bitwise rerun
 
 
 def _fail(msg: str, code: int = 1):
@@ -932,7 +991,8 @@ def phase_main_path(device, card):
               f"{float(y.max())}]")
     print(f"settled heights: min {float(y.min()):.4f}, max {float(y.max()):.4f}; "
           f"sleeping {int(b.sleeping.sum())} of {N_SCENES * 100}")
-    stages = _stages(f"bench step, {N_SCENES} scenes", state, params, card)
+    stages = _stages(f"bench step, {N_SCENES} scenes", state, params, card,
+                     trace_steps=TRACE_STEPS_BENCH)
     return launches, rate, stages, (state, params)
 
 
@@ -1160,7 +1220,7 @@ def _multibody_phase_ms(state, params, step_ms, card):
 
 
 def _cpu_agreement(what, state, params, settle, hooks=None, control=None):
-    """`settle` steps on the card, then 10 steps on the card and on the CPU
+    """`settle` steps on the card, then CPU_FREE_STEPS steps on the card and on the CPU
     from the same state (with the step's `hooks` and the `control` before
     each step, see `run`), bodies (and joint impulses) compared."""
     from rapier_tpu_torch.types import tree_map
@@ -1168,8 +1228,8 @@ def _cpu_agreement(what, state, params, settle, hooks=None, control=None):
     t0 = time.time()
     state, _ = run(state, params, settle, hooks, control)          # bodies in contact
     cpu = tree_map(lambda x: x.cpu(), state)
-    gpu, _ = run(state, params, 10, hooks, control)
-    cpu, _ = run(cpu, params, 10, hooks, control)
+    gpu, _ = run(state, params, CPU_FREE_STEPS, hooks, control)
+    cpu, _ = run(cpu, params, CPU_FREE_STEPS, hooks, control)
     dp = float((gpu.bodies.pos.cpu() - cpu.bodies.pos).abs().max())
     dv = float((gpu.bodies.linvel.cpu() - cpu.bodies.linvel).abs().max())
     ok = dp <= CPU_TOL["pos"] and dv <= CPU_TOL["vel"]
@@ -1180,7 +1240,7 @@ def _cpu_agreement(what, state, params, settle, hooks=None, control=None):
         joints = (f", max |d joint impulse| {di:.3e} (tol {CPU_TOL['imp']} x {scale:.4g}, "
                   f"the largest)")
         ok = ok and di <= CPU_TOL["imp"] * scale
-    print(f"GPU vs CPU path, {state.bodies.pos.shape[0]} {what} scene(s) x 10 "
+    print(f"GPU vs CPU path, {state.bodies.pos.shape[0]} {what} scene(s) x {CPU_FREE_STEPS} "
           f"steps: max |d pos| {dp:.3e} "
           f"(tol {CPU_TOL['pos']}), max |d linvel| {dv:.3e} (tol {CPU_TOL['vel']}){joints} "
           f"[{time.time() - t0:.1f} s]")
@@ -1344,9 +1404,11 @@ def phase_cpu_agreement(device, captures):
                         steps=P3_CPU_STEPS, witness=None)
     if "owp" in captures:
         _cpu_agreement_15(captures)
+    if "bench_f64" in captures:
+        _f64_cpu_agreement(*captures["bench_f64"])
     if "ccd3" in captures:
         # Phase 13's: ccd3 from the step that first clamps a ball, single
-        # steps from the card's state; the arms free for 10 steps.
+        # steps from the card's state; the arms free for CPU_FREE_STEPS steps.
         t0 = time.time()
         _cpu_step_agreement(f"2 ccd3 scenes from step {captures['ccd3_step']} (the first "
                             f"ball's first clamp)", *_first(captures["ccd3"], 2),
@@ -1358,7 +1420,8 @@ def phase_cpu_agreement(device, captures):
         print(f"[phase 7, phase 13's scenes: {time.time() - t0:.1f} s]")
 
 
-def _rerun_equal(what, state, params, parts, steps: int = 10, hooks=None, control=None):
+def _rerun_equal(what, state, params, parts, steps: int = RERUN_STEPS, hooks=None,
+                 control=None):
     import torch
     from rapier_tpu_torch.types import tree_map
 
@@ -1376,7 +1439,7 @@ def _rerun_equal(what, state, params, parts, steps: int = 10, hooks=None, contro
 
 def _cpu_agreement_15(captures):
     """Phase 7's part for phase 15's captures: the hooked platforms and the
-    vehicles, 2 scenes free for 10 steps on the card and the CPU."""
+    vehicles, 2 scenes free for CPU_FREE_STEPS steps on the card and the CPU."""
     t0 = time.time()
     state, params, hooks = captures["owp"]
     _cpu_agreement(f"one_way_platforms3 with the one-way hook (after {OWP_CAPTURE} steps)",
@@ -1388,7 +1451,7 @@ def _cpu_agreement_15(captures):
 
 
 def _rerun_15(captures):
-    """Phase 8's part for phase 15's captures: 10-step bitwise reruns."""
+    """Phase 8's part for phase 15's captures: bitwise reruns."""
     t0 = time.time()
     state, params, hooks = captures["owp"]
     _rerun_equal(f"{RERUN_SCENES_15}-scene one_way_platforms3", state, params,
@@ -1424,6 +1487,9 @@ def phase_determinism(device, captures):
     _rerun_equal("primitives3", *captures["primitives3"], ("bodies", "contacts"))
     if "owp" in captures:
         _rerun_15(captures)
+    if "bench_f64" in captures:
+        _rerun_equal(f"{F64_RERUN_SCENES}-scene f64 bench",
+                     *_first(captures["bench_f64"], F64_RERUN_SCENES), ("bodies", "contacts"))
     if "ccd3" in captures:
         t0 = time.time()
         _rerun_equal("ccd3", *captures["ccd3"], ("bodies", "contacts"), RERUN_STEPS_13)
@@ -3216,6 +3282,311 @@ def phase_queries(device, card, bench):
     return launches, rows, dict(owp=owp_cap, vehicles=veh_cap)
 
 
+def _f64(fn, *args, **kw):
+    """`fn` with the precision axis at f64 (the builders read it), restored
+    after."""
+    from rapier_tpu_torch import precision
+
+    precision.set_precision("f64")
+    try:
+        return fn(*args, **kw)
+    finally:
+        precision.set_precision("f32")
+
+
+def _peak_gib(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _far_pyramid_f64(device, card):
+    """Phase 16(a), part 1: upstream's far pyramid at f64, one scene."""
+    import numpy as np
+    import torch
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.pipeline.physics_pipeline import solve_path
+    from rapier_tpu_torch.scenes import s2d_far_pyramid_world
+
+    world, h = _f64(s2d_far_pyramid_world, device=device)
+    _f64(world.build)
+    state, params = world.state, world.params
+    if state.bodies.pos.dtype != torch.float64:
+        _fail(f"the far pyramid built at f64 holds {state.bodies.pos.dtype}")
+    route = solve_path(state, params)
+    cs.KERNEL.launches = cs.KERNEL.launches_folded = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, worst = run(state, params, FAR_STEPS)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    launches = cs.KERNEL.launches + cs.KERNEL.launches_folded
+    pos = state.bodies.pos[0].cpu().numpy()
+    origin = np.asarray(h["origin"])
+    err, idx = 0.0, 0
+    for row in range(10):
+        for _ in range(10 - row):
+            err = max(err, abs(pos[h["boxes"][idx], 1] - origin[1] - (0.5 + row)))
+            idx += 1
+    print(f"far pyramid at f64 (55 boxes at (1e5, -8e4), one scene, route {route}): "
+          f"{FAR_STEPS / took:.3f} steps/s ({FAR_STEPS} steps in {took:.3f} s; {card}); "
+          f"largest rest-height error {err:.6f} (tol {FAR_TOL}); contact-sweep launches "
+          f"{launches}; overflow {worst}")
+    if route == "kernel" or launches:
+        _fail("an f64 scene reached the contact-sweep kernel")
+    if not err < FAR_TOL or any(worst.values()):
+        _fail(f"the far pyramid does not stand at f64 (error {err}, overflow {worst})")
+    return dict(steps_per_s=FAR_STEPS / took, rest_error=err, route=route, launches=launches)
+
+
+def _bench_dtypes(device, card):
+    """Phase 16(a), part 2: 4096 bench scenes at f64 (its masked route) and
+    at float32 with solver_backend="jax" (the same route)."""
+    import torch
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.pipeline.physics_pipeline import solve_path
+
+    rows, capture = {}, None
+    for kind in ("f64", "f32"):
+        state, params = (_f64(bench_world, device, N_SCENES) if kind == "f64"
+                         else bench_world(device, N_SCENES))
+        if kind == "f32":
+            params = params.replace(solver_backend="jax")
+        route = solve_path(state, params)
+        cs.KERNEL.launches = cs.KERNEL.launches_folded = 0
+        state, worst = run(state, params, F64_SETTLE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (state, worst_t), peak = _peak_gib(lambda: run(state, params, F64_TIMED))
+        took = time.perf_counter() - t0
+        launches = cs.KERNEL.launches + cs.KERNEL.launches_folded
+        rate = N_SCENES * F64_TIMED / took
+        worst = {k: max(worst[k], worst_t[k]) for k in worst}
+        print(f"bench at {kind}, {N_SCENES} scenes, route {route}: {rate:.1f} env-steps/s "
+              f"({F64_TIMED} steps in {took:.3f} s after {F64_SETTLE}; {card}); peak device "
+              f"memory in the timed steps {peak:.3f} GiB; contact-sweep launches {launches}; "
+              f"overflow {worst}; dtype {state.bodies.pos.dtype}")
+        if route != "masked" or launches or any(worst.values()):
+            _fail(f"bench at {kind}: route {route}, launches {launches}, overflow {worst}")
+        _replicas_equal(f"bench at {kind}", state, ("bodies", "contacts"))
+        print(f"bench at {kind}: all {N_SCENES} scenes bitwise equal to scene 0 after "
+              f"{F64_SETTLE + F64_TIMED} steps")
+        stages = _stages(f"bench step at {kind}, {N_SCENES} scenes, masked", state, params,
+                         card, trace_steps=1)
+        rows[kind] = dict(env_steps_per_s=rate, peak_gib=peak, route=route,
+                          launches=launches, kernels=stages["kernels"],
+                          device_share=stages["device_share"])
+        if kind == "f64":
+            capture = (state, params)
+        del state
+    rows["f64_over_f32"] = rows["f64"]["env_steps_per_s"] / rows["f32"]["env_steps_per_s"]
+    print(f"bench masked route: f64 / f32 env-steps/s = {rows['f64_over_f32']:.3f}")
+    return rows, capture
+
+
+def _sharded_bench(device, card):
+    """Phase 16(b): 4096 bench scenes sharded: a mesh of every card (in
+    process with one card, one NCCL rank a card with several), then 2 gloo
+    ranks sharing card 0; the gathered state bitwise equal to the unsharded
+    step's."""
+    import torch
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.parallel import sharding as sh
+    from rapier_tpu_torch.scenes import mixed_primitives_world
+
+    world = mixed_primitives_world(num_layers=4, grid=5, max_pairs=512, device=device)
+    world.params = world.params.replace(max_solver_pairs=256)
+    scene, params = world.build(), world.params        # one scene, numpy leaves
+    n_cards = torch.cuda.device_count()
+    rows = {}
+
+    # The unsharded step of the same 4096 scenes: a mesh of the one card.
+    state, _ = bench_world(device, N_SCENES)
+    mesh = sh.make_mesh([device])
+    block = sh.shard_batch(state, mesh)
+    del state
+    sharded_step = sh.make_sharded_step(mesh)
+    cs.KERNEL.launches = cs.KERNEL.launches_folded = 0
+    worst = 0
+    for i in range(SHARD_STEPS):
+        if i == SHARD_STEPS - SHARD_TIMED:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        block, ev = sharded_step(block, params)
+        worst = max(worst, int(ev.broadphase_overflow.max()) + int(ev.solver_overflow.max()))
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    one = dict(launches=cs.KERNEL.launches, launches_folded=cs.KERNEL.launches_folded,
+               env_steps_per_s=N_SCENES * SHARD_TIMED / took)
+    digest = sh.state_digest(sh.gather_batch(block, mesh))
+    del block
+    print(f"sharded bench, a mesh of the one card in this process: {one['env_steps_per_s']:.1f} "
+          f"env-steps/s ({N_SCENES} scenes x {SHARD_TIMED} steps in {took:.3f} s after "
+          f"{SHARD_STEPS - SHARD_TIMED}; {card}); launches {one['launches']} + folded "
+          f"{one['launches_folded']}; overflow {worst}")
+    if one["launches"] != SHARD_STEPS or one["launches_folded"] or worst:
+        _fail(f"sharded bench on one card: {one}, overflow {worst}")
+    rows["one_card"] = one
+    torch.cuda.empty_cache()        # the ranks are other processes on this card
+    runs = [("2 gloo ranks on card 0", ["cuda:0", "cuda:0"], "gloo")]
+    if n_cards > 1:
+        runs.insert(0, (f"{n_cards} NCCL ranks, a card each",
+                        [f"cuda:{i}" for i in range(n_cards)], "nccl"))
+    for what, devices, backend in runs:
+        stats, first_s = sh.sharded_rollout(scene, params, SHARD_STEPS, devices,
+                                            replicate=N_SCENES, timed=SHARD_TIMED,
+                                            backend=backend)
+        per_rank = [s["scenes"] * SHARD_TIMED / s["timed_s"] for s in stats]
+        total = N_SCENES * SHARD_TIMED / max(s["timed_s"] for s in stats)
+        launches = [(s["launches"], s["launches_folded"]) for s in stats]
+        print(f"sharded bench, {what}: {total:.1f} env-steps/s in total, per rank "
+              + ", ".join(f"{r:.1f}" for r in per_rank)
+              + f" ({[s['scenes'] for s in stats]} scenes; {card}); spawn to the first "
+              f"finished step {first_s:.1f} s; launches per rank (block, folded) {launches}; "
+              f"gathered state {'bitwise equal' if stats[0]['digest'] == digest else 'DIFFERS'}"
+              f" to the unsharded step's")
+        if stats[0]["digest"] != digest:
+            _fail(f"sharded bench ({what}) differs from the unsharded step")
+        if any(l != (SHARD_STEPS, 0) for l in launches) or any(s["overflow"] for s in stats):
+            _fail(f"sharded bench ({what}): launches {launches}")
+        rows[what] = dict(env_steps_per_s=total, per_rank=per_rank, spawn_to_first_s=first_s,
+                          launches=[l[0] for l in launches])
+    return rows
+
+
+def _render_pair(what, state):
+    """Phase 16(c): debug render of scene 0 on the card, then of the same
+    state moved to the CPU: counts and colors equal, coordinates within
+    RENDER_TOL."""
+    import numpy as np
+    import torch
+    from rapier_tpu_torch.types import tree_map
+    from rapier_tpu_torch.utils.debug_render import DebugRenderMode, debug_render
+
+    one = tree_map(lambda x: x[:1] if x.dim() else x, state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = debug_render(one, mode=DebugRenderMode.ALL)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    cpu_state = tree_map(lambda x: x.cpu(), one)
+    t0 = time.perf_counter()
+    cpu = debug_render(cpu_state, mode=DebugRenderMode.ALL)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    gap = max(float(np.abs(a - b).max(initial=0.0)) for a, b in zip(card[:2], cpu[:2]))
+    print(f"debug render, {what}: {len(card[0])} lines in {card_ms:.1f} ms from the card, "
+          f"{cpu_ms:.1f} ms from the CPU; largest coordinate gap {gap:.3e} (tol {RENDER_TOL})")
+    if len(card[0]) != len(cpu[0]) or not np.array_equal(card[2], cpu[2]) or gap > RENDER_TOL:
+        _fail(f"debug render differs between the card and the CPU ({what})")
+    if not len(card[0]):
+        _fail(f"debug render drew nothing ({what})")
+    return dict(lines=len(card[0]), card_ms=card_ms, cpu_ms=cpu_ms)
+
+
+def _hull_mesh_world(device):
+    """tests/test_world_api.py's debug-render scene: a trimesh quad and a
+    convex hull."""
+    import numpy as np
+    from rapier_tpu_torch.world import ColliderBuilder, PhysicsWorld, RigidBodyBuilder
+
+    w = PhysicsWorld(device=device)
+    g = w.insert_body(RigidBodyBuilder.fixed())
+    verts = np.array([[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1]], np.float32)
+    w.insert_collider(ColliderBuilder.trimesh(verts, np.array([[0, 1, 2], [0, 2, 3]],
+                                                               np.int32)), g)
+    hb = w.insert_body(RigidBodyBuilder.dynamic().with_translation((0, 2, 0)))
+    w.insert_collider(ColliderBuilder.convex_hull(
+        [(x, y, z) for x in (-0.5, 0.5) for y in (-0.5, 0.5) for z in (-0.5, 0.5)]), hb)
+    w.build()
+    w.step(3)
+    return w.state
+
+
+def phase_remainder(device, card, captures):
+    """Phase 16: the f64 axis, scene sharding and debug render.  `captures`
+    holds phase 4's settled bench batch ("bench"), phase 9's joints3 batch
+    ("joints3") and phase 11's heightfield3 capture ("heightfield3"), each
+    with its params.  Returns (the launches of its paths, its rows, phase
+    7's and 8's f64 capture)."""
+    t_phase = time.time()
+    rows = dict(far_pyramid_f64=_far_pyramid_f64(device, card))
+    rows["bench_dtypes"], bench64 = _bench_dtypes(device, card)
+    rows["sharding"] = _sharded_bench(device, card)
+    rows["render"] = {
+        "bench": _render_pair("scene 0 of the settled bench batch", captures["bench"][0]),
+        "joints3": _render_pair("joints3 scene 0", captures["joints3"][0]),
+        "heightfield3": _render_pair("heightfield3 scene 0", captures["heightfield3"][0]),
+        "trimesh_hull": _render_pair("the trimesh and hull scene", _hull_mesh_world(device)),
+    }
+    shard = rows["sharding"]
+    launches = {"far_pyramid_f64": 0, "bench_f64": 0, "bench_f32_jax": 0,
+                "sharded_bench_one_card": shard["one_card"]["launches"],
+                "sharded_bench_2_ranks": sum(shard["2 gloo ranks on card 0"]["launches"])}
+    took = time.time() - t_phase
+    rows["phase_s"] = took
+    print(f"[phase 16: {took:.1f} s]")
+    return launches, rows, bench64
+
+
+def _remainder_captures(device):
+    """With --remainder-only: the batches phase 16 renders, made here (a
+    bench batch of 64 scenes settled 60 steps, 2 joints3 scenes after 30,
+    2 heightfield3 scenes after 60)."""
+    from rapier_tpu_torch.scenes import heightfield3_world
+
+    bench = bench_world(device, 64)
+    joints = joints3_batch(device, 2)[:2]
+    hf = mesh_batch(device, heightfield3_world, 2)[:2]
+    return dict(bench=(run(*bench, 60)[0], bench[1]), joints3=(run(*joints, 30)[0], joints[1]),
+                heightfield3=(run(*hf, 60)[0], hf[1]))
+
+
+def _f64_cpu_agreement(state, params):
+    """Phase 7's f64 part: F64_CPU_SCENES bench scenes at f64 settled on the
+    card, then F64_CPU_STEPS free steps on the card and on the CPU, against
+    an f64 1-ulp witness (two CPU runs whose starts differ by 1 ulp in every
+    body's height)."""
+    import torch
+    from rapier_tpu_torch.types import tree_map
+
+    t0 = time.time()
+    state, _ = run(tree_map(lambda x: x[:F64_CPU_SCENES].clone(), state), params,
+                   F64_CPU_SETTLE)
+    cpu = tree_map(lambda x: x.cpu(), state)
+    wit = _nudge_up(tree_map(lambda x: x.clone(), cpu))
+    gpu, _ = run(state, params, F64_CPU_STEPS)
+    cpu, _ = run(cpu, params, F64_CPU_STEPS)
+    wit, _ = run(wit, params, F64_CPU_STEPS)
+    imp = ("impulse", "tangent_impulse", "warmstart_impulse")
+    worst = []
+    for part, names in (("bodies", ("pos", "rot", "linvel", "angvel")), ("contacts", imp)):
+        scale = max(float(getattr(getattr(cpu, part), n).abs().max()) for n in names)
+        for n in names:
+            a = getattr(getattr(gpu, part), n).cpu()
+            b, w = getattr(getattr(cpu, part), n), getattr(getattr(wit, part), n)
+            gap, wgap = float((a - b).abs().max()), float((w - b).abs().max())
+            tol = max(F64_WITNESS_FACTOR * wgap,
+                      F64_ULPS * torch.finfo(torch.float64).eps * scale)
+            worst.append((n, gap, tol))
+    print(f"GPU vs CPU path at f64, {F64_CPU_SCENES} bench scenes after {F64_CPU_SETTLE} "
+          f"steps, {F64_CPU_STEPS} free steps: " + ", ".join(
+              f"{n} {g:.3e} (tol {t:.3e})" for n, g, t in worst)
+          + f" [{time.time() - t0:.1f} s]")
+    if gpu.bodies.pos.dtype != torch.float64 or any(g > t for _, g, t in worst):
+        _fail("the card disagrees with the CPU at f64")
+
+
+def phase_cpu_agreement_16(device, captures):
+    """With --remainder-only: phases 7's and 8's parts for phase 16."""
+    _f64_cpu_agreement(*captures["bench_f64"])
+    _rerun_equal(f"{F64_RERUN_SCENES}-scene f64 bench", *_first(captures["bench_f64"],
+                                                                   F64_RERUN_SCENES),
+                 ("bodies", "contacts"))
+
+
 LANE_KEYS = ("b1", "b2", "valid", "color", "normal", "point", "point_active", "dist",
              "friction", "restitution", "prev_impulse", "ws_n", "ws_t", "ws_tw",
              "dyn1", "dyn2")
@@ -3403,6 +3774,9 @@ def main():
                          "--primitives-full) only")
     ap.add_argument("--ccd-only", action="store_true",
                     help="run the build and phase 13 (CCD and the multibody remainder) only")
+    ap.add_argument("--remainder-only", action="store_true",
+                    help="run the build and phase 16 (the f64 axis, scene sharding and debug "
+                         "render; on batches settled for it) and its phase 7 and 8 parts only")
     ap.add_argument("--queries-only", action="store_true",
                     help="run the build and phase 15 (hooks, the collision pipeline, queries "
                          "and the controllers; on a bench batch settled here) only")
@@ -3476,6 +3850,13 @@ def main():
         print(json.dumps({"queries": rows, "launches": launches, "card": card}))
         return
 
+    if args.remainder_only:
+        launches, rows, bench64 = phase(phase_remainder, device, card,
+                                        _remainder_captures(device))
+        phase(phase_cpu_agreement_16, device, dict(bench_f64=bench64))
+        print(json.dumps({"remainder": rows, "launches": launches, "card": card}))
+        return
+
     block = phase(phase_kernel, device, card)
     folded, quadrupeds = phase(phase_folded_kernel, device, card)
     block["launches"], _, bench_stages, bench = phase(phase_main_path, device, card)
@@ -3498,6 +3879,8 @@ def main():
     captures = dict(bench=bench, quadruped=quadrupeds, pyramid=pyramid16, s2d_big=s2d_big,
                     heightfield3=hf_in_contact, primitives3=p3_in_contact, joints3=joints3,
                     **ccd_captures, **q_captures)
+    r_launches, remainder, captures["bench_f64"] = phase(phase_remainder, device, card,
+                                                         captures)
     phase(phase_cpu_agreement, device, captures)
     phase(phase_determinism, device, captures)
     print(f"[all phases, the build included: {time.time() - start:.1f} s of the 1,200 allowed]")
@@ -3505,7 +3888,7 @@ def main():
     print(json.dumps({"pyramid": pyramids, "s2d": s2d, "bench_step": bench_stages,
                       "joints": joints, "meshes": meshes, "convex": convex,
                       "ccd_multibody": ccd_multibody, "world": world, "queries": queries,
-                      "card": card}))
+                      "remainder": remainder, "card": card}))
     # Each path's launches, its counts set to 0 just before it and read just
     # after; `launches` is the bench's, the contract's main path.
     block["launches_by_path"] = {"bench": block["launches"], "heightfield3": hf_launches,
@@ -3517,6 +3900,12 @@ def main():
                                   "multibody_arm": by_path["multibody_arm"]}
     for path, (k, n) in q_launches.items():
         (folded if k <= 128 else block)["launches_by_path"][path] = n
+    # Phase 16: the sharded bench (K = 256) on the block kernel; the f64
+    # paths, and the float32 bench on the masked route beside them, on neither.
+    for path, n in r_launches.items():
+        block["launches_by_path"][path] = n
+        if path.startswith(("far_pyramid", "bench_f")):
+            folded["launches_by_path"][path] = n
     source = "rapier_tpu_torch/csrc/contact_sweep.cu"
     print(json.dumps({"kernels": [
         {"name": "contact_sweep_kernel", "route": "cuda", "source": source,

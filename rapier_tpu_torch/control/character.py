@@ -69,10 +69,10 @@ def move_shape(bodies, colliders, shape_type, shape_params, pos, rot, desired_tr
     `desired_translation` in each scene."""
     dev = bodies.pos.device
     bsz = bodies.pos.shape[0]
-    up = torch.tensor(options.up, dtype=torch.float32, device=dev)
-    pos = torch.as_tensor(pos, dtype=torch.float32, device=dev).expand(bsz, 3)
-    rot = torch.as_tensor(rot, dtype=torch.float32, device=dev).expand(bsz, 4)
-    desired = torch.as_tensor(desired_translation, dtype=torch.float32,
+    up = torch.tensor(options.up, dtype=bodies.pos.dtype, device=dev)
+    pos = torch.as_tensor(pos, dtype=bodies.pos.dtype, device=dev).expand(bsz, 3)
+    rot = torch.as_tensor(rot, dtype=bodies.pos.dtype, device=dev).expand(bsz, 4)
+    desired = torch.as_tensor(desired_translation, dtype=bodies.pos.dtype,
                               device=dev).expand(bsz, 3)
     kw = dict(flags=flags, exclude_collider=exclude_collider, exclude_body=exclude_body,
               meshes=meshes, hulls=hulls)
@@ -164,10 +164,10 @@ def solve_character_collision_impulses(
     dev = bodies.pos.device
     bsz, n_b = bodies.pos.shape[:2]
     n_c = colliders.shape_type.shape[1]
-    pos = torch.as_tensor(pos, dtype=torch.float32, device=dev).expand(bsz, 3)
-    rot = torch.as_tensor(rot, dtype=torch.float32, device=dev).expand(bsz, 4)
-    rem = torch.as_tensor(translation_remaining, dtype=torch.float32, device=dev).expand(bsz, 3)
-    prm = torch.as_tensor(shape_params, dtype=torch.float32, device=dev).expand(bsz, 12)
+    pos = torch.as_tensor(pos, dtype=bodies.pos.dtype, device=dev).expand(bsz, 3)
+    rot = torch.as_tensor(rot, dtype=bodies.pos.dtype, device=dev).expand(bsz, 4)
+    rem = torch.as_tensor(translation_remaining, dtype=bodies.pos.dtype, device=dev).expand(bsz, 3)
+    prm = torch.as_tensor(shape_params, dtype=bodies.pos.dtype, device=dev).expand(bsz, 12)
 
     w_pos, w_rot = collider_world_poses(bodies, colliders)
     ok = queries._filter_mask(
@@ -183,13 +183,13 @@ def solve_character_collision_impulses(
     pB, rB = w_pos.reshape(-1, 3), w_rot.reshape(-1, 4)
     tB, prmB = colliders.shape_type.reshape(-1), colliders.shape_params.reshape(-1, 12)
     hvA = None if shape_hull is None else torch.as_tensor(
-        shape_hull, dtype=torch.float32, device=dev).expand((bsz * n_c,) + tuple(
+        shape_hull, dtype=bodies.pos.dtype, device=dev).expand((bsz * n_c,) + tuple(
             shape_hull.shape[-2:]))
     hvB = None if hv_table is None else hv_table.reshape((-1,) + hv_table.shape[2:])
     supp = _gjk.make_support(pA, rA, stA, prmA, pB, rB, tB, prmB, hullA=hvA, hullB=hvB)
     d0 = pB - pA
     d0 = torch.where((torch.linalg.norm(d0, dim=-1) < 1e-9).unsqueeze(-1),
-                     torch.tensor([0.0, 1.0, 0.0], device=dev), d0)
+                     torch.tensor([0.0, 1.0, 0.0], dtype=d0.dtype, device=dev), d0)
     g = _gjk.gjk(supp, d0)
     b_B = _gjk._border_radius(tB, prmB)
     gap = torch.where(g["intersect"], 0.0, g["dist"] - _gjk._border_radius(stA, prmA) - b_B)
@@ -202,8 +202,8 @@ def solve_character_collision_impulses(
     parent = colliders.parent.clamp(min=0).long()
     dyn = (torch.gather(bodies.body_type, 1, parent) == BodyType.DYNAMIC) & (colliders.parent >= 0)
     push = touching & dyn
-    dt = torch.as_tensor(dt, dtype=torch.float32, device=dev)
-    inv_dt = torch.where(dt == 0, 0.0, 1.0 / dt)
+    dt = torch.as_tensor(dt, dtype=bodies.pos.dtype, device=dev)
+    inv_dt = torch.where(dt == 0, 0.0, 1.0 / dt).to(dt.dtype)
     v_transfer = _dot(n_c3, rem.unsqueeze(1)) * inv_dt       # [B, C] along n
 
     def at_parent(x):
@@ -216,7 +216,7 @@ def solve_character_collision_impulses(
     delta = v_transfer - _dot(v_at, n_c3)
     im_p = at_parent(bodies.inv_mass)
     m_body = torch.where(im_p > 0, 1.0 / torch.clamp(im_p, min=1e-12), 0.0)
-    m_char = torch.as_tensor(character_mass, dtype=torch.float32, device=dev)
+    m_char = torch.as_tensor(character_mass, dtype=bodies.pos.dtype, device=dev)
     mass_ratio = m_body * m_char / torch.clamp(m_body + m_char, min=1e-9)
     imp = n_c3 * (torch.clamp(delta, min=0.0) * mass_ratio * push).unsqueeze(-1)
     # At the point: dv = im imp, dw = I_w^-1 (arm x imp), summed per body.

@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from rapier_tpu_torch import precision as _prec
 from rapier_tpu_torch.dynamics.solver.velocity_solver import effective_world_inv_inertia
 from rapier_tpu_torch.geometry import queries
 from rapier_tpu_torch.math import quat
@@ -48,13 +49,16 @@ class WheelDesc:
 
 def default_wheels(connections, direction=(0, -1, 0), axle=(1, 0, 0), radius=0.3,
                    rest_length=0.4, device="cuda") -> WheelDesc:
-    conns = torch.as_tensor(connections, dtype=torch.float32, device=device)
+    """The wheel table at `precision.FLOAT` (a builder: it reads the
+    precision axis when it runs)."""
+    ft = _prec.FLOAT
+    conns = torch.as_tensor(connections, dtype=ft, device=device)
     w = conns.shape[0]
-    ones = torch.ones((w,), dtype=torch.float32, device=device)
+    ones = torch.ones((w,), dtype=ft, device=device)
     return WheelDesc(
         chassis_connection=conns,
-        direction=torch.as_tensor(direction, dtype=torch.float32, device=device).expand(w, 3),
-        axle=torch.as_tensor(axle, dtype=torch.float32, device=device).expand(w, 3),
+        direction=torch.as_tensor(direction, dtype=ft, device=device).expand(w, 3),
+        axle=torch.as_tensor(axle, dtype=ft, device=device).expand(w, 3),
         radius=ones * radius,
         suspension_rest_length=ones * rest_length,
         suspension_stiffness=ones * 5.88,
@@ -100,10 +104,12 @@ def update_vehicle(bodies, colliders, chassis: int, wheels: WheelDesc, engine_fo
     dev = bodies.pos.device
     bsz = bodies.pos.shape[0]
     wheels = wheels.to(dev)
+    wheels = dataclasses.replace(wheels, **{f.name: getattr(wheels, f.name).to(bodies.pos.dtype)
+                                            for f in dataclasses.fields(wheels)})
     w = wheels.radius.shape[0]
 
     def per_wheel(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=dev).expand(bsz, w)
+        return torch.as_tensor(x, dtype=bodies.pos.dtype, device=dev).expand(bsz, w)
 
     engine_force, brake, steering = per_wheel(engine_force), per_wheel(brake), per_wheel(steering)
     pos, rot = bodies.pos[:, chassis], bodies.rot[:, chassis]
@@ -112,7 +118,7 @@ def update_vehicle(bodies, colliders, chassis: int, wheels: WheelDesc, engine_fo
     inv_mass = bodies.inv_mass[:, chassis]
     mass = torch.where(inv_mass > 0, 1.0 / torch.clamp(inv_mass, min=1e-12), 0.0)
     ii = effective_world_inv_inertia(bodies, torch.ones_like(bodies.enabled))[:, chassis]
-    e_up = torch.zeros(3, device=dev)
+    e_up = torch.zeros(3, dtype=pos.dtype, device=dev)
     e_up[up_axis] = 1.0
     up_w = quat.rotate(rot, e_up.expand(bsz, 3))
 

@@ -168,17 +168,17 @@ def _mesh_distance(A, M, tA, prmA, v0, v1, v2, tok):
     return dist
 
 
-def _time_of_impact(dist, n: int, device):
+def _time_of_impact(dist, n: int, device, dtype):
     """Each lane's time of impact ``[n]`` (1 where none) under `dist`:
     t = 0 and the coarse samples as one call, then the bisections on the
     lanes with an impact."""
-    ts = torch.arange(0, _N_COARSE + 1, device=device, dtype=torch.float32) / _N_COARSE
+    ts = torch.arange(0, _N_COARSE + 1, device=device, dtype=dtype) / _N_COARSE
     d = dist(ts.unsqueeze(1).expand(_N_COARSE + 1, n).contiguous())
     neg = d[1:] <= 0.0
-    first = torch.argmax(neg.to(torch.int32), dim=0).to(torch.float32)
+    first = torch.argmax(neg.to(torch.int32), dim=0).to(dtype)
     seg = 1.0 / _N_COARSE
     hit = torch.any(neg, dim=0) & ~(d[0] <= 0.0)
-    toi = torch.ones((n,), device=device)
+    toi = torch.ones((n,), dtype=dtype, device=device)
     idx = torch.nonzero(hit).flatten()
     if idx.numel() == 0:
         return toi
@@ -372,9 +372,9 @@ def _clamp_pass(bodies, colliders, params, meshes=None):
     if not groups:
         return bodies, overflow
     # Each body's least time of impact.
-    body_toi = torch.ones((bsz * (n + 1),), device=dev)
+    body_toi = torch.ones((bsz * (n + 1),), dtype=bodies.pos.dtype, device=dev)
     for bi, body, dist, count in groups:
-        toi = _time_of_impact(dist, count, dev)
+        toi = _time_of_impact(dist, count, dev, bodies.pos.dtype)
         body_toi.scatter_reduce_(0, (bi * (n + 1) + body).long(), toi, "amin")
     body_toi = body_toi.view(bsz, n + 1)[:, :n]
 

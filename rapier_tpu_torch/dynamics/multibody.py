@@ -119,10 +119,11 @@ def empty_multibodies(m: int, l: int, k_couplings: int = 4) -> Multibodies:
 
 
 def free_mask(mb: Multibodies) -> torch.Tensor:
-    """``[B, M, L, 6]`` f32: 1 where the axis slot is a live generalized dof."""
+    """``[B, M, L, 6]`` (the table's float dtype): 1 where the axis slot is a
+    live generalized dof."""
     bits = torch.arange(6, dtype=mb.locked_axes.dtype, device=mb.locked_axes.device)
     locked = (mb.locked_axes.unsqueeze(-1) >> bits) & 1
-    return (1 - locked).to(torch.float32) * mb.link_valid.unsqueeze(-1)
+    return (1 - locked).to(mb.q.dtype) * mb.link_valid.unsqueeze(-1)
 
 
 def _cross_mat(v):
@@ -183,10 +184,10 @@ def forward_kinematics(mb: Multibodies, bodies, root_pos, root_rot):
 
 
 def _link_onehot(mb: Multibodies, valid, n: int):
-    """``[B, M, L, N]`` f32 link->body routing matrix + ``[B, N]`` is-link."""
+    """``[B, M, L, N]`` link->body routing matrix + ``[B, N]`` is-link."""
     lb = torch.clamp(mb.link_body, 0, n - 1).long()
     ids = torch.arange(n, device=lb.device)
-    oh = (lb.unsqueeze(-1) == ids).to(torch.float32) * valid.unsqueeze(-1)
+    oh = (lb.unsqueeze(-1) == ids).to(mb.q.dtype) * valid.unsqueeze(-1)
     return oh, torch.einsum("bmln->bn", oh) > 0
 
 
@@ -216,7 +217,7 @@ def compute_jacobians(mb: Multibodies, l2w_pos, l2w_rot, bodies):
     then angular; column k = link slot k // 6, axis k % 6), plus the link
     coms, joint anchors and mass properties."""
     bsz, m, l, d6 = mb.link_valid.shape[0], mb.m, mb.l, mb.d6
-    dev = l2w_pos.device
+    dev, ft = l2w_pos.device, l2w_pos.dtype
     fm = free_mask(mb)
     mass, principal, pframe, local_com, valid = _link_mass_props(mb, bodies)
     coms = l2w_pos + quat.rotate(l2w_rot, local_com)
@@ -225,9 +226,9 @@ def compute_jacobians(mb: Multibodies, l2w_pos, l2w_rot, bodies):
     jac_list = []
     for i in range(l):
         if i == 0:
-            jac_parent = torch.zeros((bsz, m, SPATIAL, d6), device=dev)
-            par_rot = quat.identity((bsz, m), device=dev)
-            shift02 = torch.zeros((bsz, m, 3), device=dev)
+            jac_parent = torch.zeros((bsz, m, SPATIAL, d6), dtype=ft, device=dev)
+            par_rot = quat.identity((bsz, m), device=dev, dtype=ft)
+            shift02 = torch.zeros((bsz, m, 3), dtype=ft, device=dev)
         else:
             par = _parent(mb, i)
             jac_parent = _take_link(torch.stack(jac_list, dim=2), par)
@@ -240,7 +241,7 @@ def compute_jacobians(mb: Multibodies, l2w_pos, l2w_rot, bodies):
 
         # Joint columns in this link's slots, in parent_rot * local_frame1.
         rotm = quat.to_matrix(quat.mul(par_rot, mb.local_rot1[:, :, i]))
-        jcols = torch.zeros((bsz, m, SPATIAL, d6), device=dev)
+        jcols = torch.zeros((bsz, m, SPATIAL, d6), dtype=ft, device=dev)
         jcols[..., 0:3, i * SPATIAL:i * SPATIAL + 3] = rotm * fm[:, :, i, None, :3]
         jcols[..., 3:6, i * SPATIAL + 3:(i + 1) * SPATIAL] = rotm * fm[:, :, i, None, 3:]
         jv = jv + jcols[..., :3, :]
@@ -259,7 +260,7 @@ def live_mask(mb: Multibodies) -> torch.Tensor:
     """``[B, M, D6]`` f32: 1 where the flat dof slot is free and not
     kinematic."""
     fm = free_mask(mb).flatten(-2)
-    kin = torch.repeat_interleave(mb.kinematic.to(torch.float32), SPATIAL, dim=-1)
+    kin = torch.repeat_interleave(mb.kinematic.to(fm.dtype), SPATIAL, dim=-1)
     return fm * (1.0 - kin)
 
 
@@ -286,7 +287,7 @@ def mass_matrix(mb: Multibodies, jac, l2w_rot, mass, principal, pframe,
     )
     a = a * live.unsqueeze(-1) * live.unsqueeze(-2)
     diag = diag_extra * live + (1.0 - live)
-    return a + torch.eye(d6, device=a.device) * diag.unsqueeze(-2)
+    return a + torch.eye(d6, dtype=a.dtype, device=a.device) * diag.unsqueeze(-2)
 
 
 def velocities_from_qd(mb: Multibodies, jac, qd=None):
@@ -314,7 +315,7 @@ def generalized_forces(mb: Multibodies, jac, coms, anchors, l2w_rot, mass,
     acc_list = []
     for i in range(l):
         if i == 0:
-            acc = torch.zeros((bsz, m, SPATIAL), device=dev)
+            acc = torch.zeros((bsz, m, SPATIAL), dtype=mb.q.dtype, device=dev)
         else:
             par = _parent(mb, i)
             acc_p = _take_link(torch.stack(acc_list, dim=2), par)
@@ -344,7 +345,7 @@ def generalized_forces(mb: Multibodies, jac, coms, anchors, l2w_rot, mass,
     f_user = torch.einsum("bmln,bnj->bmlj", oh, bodies.force)
     t_user = torch.einsum("bmln,bnj->bmlj", oh, bodies.torque)
     gscale = torch.einsum("bmln,bn->bml", oh, bodies.gravity_scale)
-    g = torch.as_tensor(np.asarray(gravity, np.float32), device=dev)
+    g = torch.as_tensor(np.asarray(gravity), dtype=mass.dtype, device=dev)
     f_ext_lin = (f_user + mass.unsqueeze(-1) * g * gscale.unsqueeze(-1)
                  - mass.unsqueeze(-1) * accs[..., :3])
     f_ext_ang = t_user - gyro - _matvec(iw, accs[..., 3:])
@@ -377,7 +378,7 @@ def forward_dynamics(mb: Multibodies, bodies, gravity, dt, root_pos, root_rot):
                     vel[..., 3:], dt)
     tau = generalized_forces(mb, jac, coms, anchors, l2w_rot, mass, principal,
                              pframe, valid, bodies, gravity, dt)
-    chol = torch.linalg.cholesky(a + torch.eye(mb.d6, device=a.device) * 1e-9)
+    chol = torch.linalg.cholesky(a + torch.eye(mb.d6, dtype=a.dtype, device=a.device) * 1e-9)
     qdd = torch.cholesky_solve(tau.unsqueeze(-1), chol).squeeze(-1)
     aux = dict(l2w_pos=l2w_pos, l2w_rot=l2w_rot, jac=jac, coms=coms,
                mass_mat=a, chol=chol, valid=valid)
@@ -399,14 +400,15 @@ def apply_couplings(mb: Multibodies, qd, chol):
     eye = torch.arange(d6, device=qd.device)
     ia = torch.clamp(mb.coupling_a, 0, d6 - 1).unsqueeze(-1)
     ib = torch.clamp(mb.coupling_b, 0, d6 - 1).unsqueeze(-1)
-    rows = ((ia == eye).to(torch.float32)
-            - mb.coupling_ratio.unsqueeze(-1) * (ib == eye).to(torch.float32)
+    ft = qd.dtype
+    rows = ((ia == eye).to(ft)
+            - mb.coupling_ratio.unsqueeze(-1) * (ib == eye).to(ft)
             ) * act.unsqueeze(-1)                                  # [B, M, K, D6]
     viol = torch.einsum("bmkd,bmd->bmk", rows, qd)
     aic = torch.cholesky_solve(rows.transpose(-1, -2), chol)       # [B, M, D6, K]
     s = torch.einsum("bmkd,bmdj->bmkj", rows, aic)
-    inact = 1.0 - act.to(torch.float32)
-    s = s + torch.eye(kc, device=qd.device) * (1e-9 + inact).unsqueeze(-2)
+    inact = 1.0 - act.to(ft)
+    s = s + torch.eye(kc, dtype=ft, device=qd.device) * (1e-9 + inact).unsqueeze(-2)
     lam = torch.linalg.solve(s, -viol.unsqueeze(-1)).squeeze(-1) * act
     return qd + torch.einsum("bmdj,bmj->bmd", aic, lam)
 
@@ -590,19 +592,19 @@ def inverse_kinematics(mb: Multibodies, bodies, target_link, target_pos, target_
     An articulation within eps_linear and eps_angular stops moving.  Returns
     the Multibodies with new q and joint_rot and qd as it was."""
     l = mb.l
-    dev = mb.q.device
+    dev, ft = mb.q.device, mb.q.dtype
     act = target_link >= 0                                           # [B, M]
     link_oh = (torch.clamp(target_link, 0, l - 1).unsqueeze(-1)
-               == torch.arange(l, device=dev)).to(torch.float32) * act.unsqueeze(-1)
+               == torch.arange(l, device=dev)).to(ft) * act.unsqueeze(-1)
     axes = torch.tensor([float((constrained_axes >> k) & 1) for k in range(SPATIAL)],
-                        device=dev)
+                        dtype=ft, device=dev)
     if joint_can_move is None:
-        col_mask = torch.ones(mb.qd.shape, device=dev)
+        col_mask = torch.ones(mb.qd.shape, dtype=ft, device=dev)
     else:
-        col_mask = torch.repeat_interleave(joint_can_move.to(torch.float32), SPATIAL, dim=-1)
+        col_mask = torch.repeat_interleave(joint_can_move.to(ft), SPATIAL, dim=-1)
     root_pos, root_rot = _root_pose(mb, bodies)
     saved_qd = mb.qd
-    reg = (damping * damping) * torch.eye(SPATIAL, device=dev)
+    reg = (damping * damping) * torch.eye(SPATIAL, dtype=ft, device=dev)
     for _ in range(max_iters):
         l2w_pos, l2w_rot = forward_kinematics(mb, bodies, root_pos, root_rot)
         jac, coms, _a, _m, _pr, _pf, _v = compute_jacobians(mb, l2w_pos, l2w_rot, bodies)
@@ -621,6 +623,6 @@ def inverse_kinematics(mb: Multibodies, bodies, target_link, target_pos, target_
                       | (torch.linalg.norm(delta[..., 3:], dim=-1) > eps_angular))
         jj = torch.einsum("bmak,bmck->bmac", jt, jt) + reg
         y = torch.linalg.solve(jj, delta.unsqueeze(-1)).squeeze(-1)
-        dq = torch.einsum("bmak,bma->bmk", jt, y) * live.unsqueeze(-1).to(torch.float32)
+        dq = torch.einsum("bmak,bma->bmk", jt, y) * live.unsqueeze(-1).to(ft)
         mb = integrate(mb.replace(qd=dq), 1.0).replace(qd=mb.qd)
     return mb.replace(qd=saved_qd)

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from rapier_tpu_torch.math import quat
@@ -174,7 +175,7 @@ def generate_from(b1, b2, valid, color, normal, point, point_active, dist,
     tangent1 = compute_tangent_directions(dir1, v1l, v2l)
     tangent2 = cross_cl(dir1, tangent1)
 
-    fmask = point_active.to(torch.float32)
+    fmask = point_active.to(normal.dtype)
     npts = fmask[:, 0] + fmask[:, 1] + fmask[:, 2] + fmask[:, 3]
     inv_np = 1.0 / torch.clamp(npts, min=1.0)
 
@@ -206,8 +207,8 @@ def generate_from(b1, b2, valid, color, normal, point, point_active, dist,
     rest = restitution.unsqueeze(1)
     # `prev_impulse == 0` exactly: a contact new this step bounces whenever
     # restitution > 0, a persisting one only at restitution >= 1.
-    is_bouncy = torch.where(prev_impulse == 0.0, (rest > 0.0).to(torch.float32),
-                            (rest >= 1.0).to(torch.float32))
+    is_bouncy = torch.where(prev_impulse == 0.0, (rest > 0.0).to(rest.dtype),
+                            (rest >= 1.0).to(rest.dtype))
     normal_vel_rhs = is_bouncy * rest * proj_vel
 
     fc = sum(point[:, kk] * fmask[:, kk].unsqueeze(1) for kk in range(4)) \
@@ -306,7 +307,7 @@ def update(c: ContactConstraints, sb: SolverBodies, *, cfm_factor, inv_dt,
         tan_impulse_acc=c.tan_impulse_acc + c.tan_impulse,
         twist_impulse=c.twist_impulse * warmstart_coeff,
         twist_impulse_acc=c.twist_impulse_acc + c.twist_impulse,
-        cfm_factor=cfm_factor,
+        cfm_factor=float(np.float32(cfm_factor)),   # float32, as the reference stores it (:619)
     )
 
 
@@ -314,7 +315,7 @@ def warmstart(c: ContactConstraints, sb: SolverBodies,
               route: RoutePlan = None) -> SolverBodies:
     """Apply the cached impulses of ALL lanes to body velocities (a pure
     accumulation, so no coloring is needed)."""
-    act = (c.valid.unsqueeze(1) & c.point_mask).to(torch.float32)
+    act = (c.valid.unsqueeze(1) & c.point_mask).to(c.impulse.dtype)
     imp = c.impulse * act
     imp_sum = imp[:, 0] + imp[:, 1] + imp[:, 2] + imp[:, 3]
 
@@ -323,7 +324,7 @@ def warmstart(c: ContactConstraints, sb: SolverBodies,
     dw1 = sum(c.ii_torque_dir1[:, kk] * imp[:, kk].unsqueeze(1) for kk in range(4))
     dw2 = sum(c.ii_torque_dir2[:, kk] * imp[:, kk].unsqueeze(1) for kk in range(4))
 
-    vmask = c.valid.to(torch.float32)
+    vmask = c.valid.to(c.impulse.dtype)
     t2 = cross_cl(c.dir1, c.tangent1)
     ti = c.tan_impulse * vmask.unsqueeze(1)
     tan_lin = c.tangent1 * ti[:, 0:1] + t2 * ti[:, 1:2]
@@ -369,7 +370,7 @@ def _block_pair(c, mask, imp_rows, v1, w1, v2, w2, rhs, cfm):
     # Sequential candidates for points 0 and 1 on the lanes not paired.
     seq = [imp_rows[0], imp_rows[1], v1, w1, v2, w2]
     for kk in range(2):
-        pm = (mask & c.point_mask[:, kk] & ~pair_ok).to(torch.float32)
+        pm = (mask & c.point_mask[:, kk] & ~pair_ok).to(c.impulse.dtype)
         seq[kk], *seq[2:] = _normal_row(c, kk, pm, seq[kk], *seq[2:], rhs, cfm)
 
     # The block candidate on the paired lanes.
@@ -408,7 +409,7 @@ def _block_pair(c, mask, imp_rows, v1, w1, v2, w2, rhs, cfm):
         keep1, cfm * n1x, torch.where(keep2 | keep3, zero, prev0)))
     sely = torch.where(keep0, cfm * n0y, torch.where(
         keep1, zero, torch.where(keep2, cfm * n2y, torch.where(keep3, zero, prev1))))
-    fpair = pair_ok.to(torch.float32)
+    fpair = pair_ok.to(c.impulse.dtype)
     dl0 = ((selx - prev0) * fpair).unsqueeze(1)
     dl1 = ((sely - prev1) * fpair).unsqueeze(1)
     blk = (v1 + c.dir1 * c.im1 * (dl0 + dl1),
@@ -435,7 +436,7 @@ def solve_color(c: ContactConstraints, sb: SolverBodies, color_id, *,
     integration_parameters.rs:9) that PhysicsWorld2D turns on; points 2-3
     follow one at a time."""
     mask = c.valid & (c.color == color_id)
-    fmask = mask.to(torch.float32)
+    fmask = mask.to(c.impulse.dtype)
 
     vw = torch.cat([sb.v_lin, sb.v_ang], dim=1)
     V1, V2 = gather_cols(vw, c.b1), gather_cols(vw, c.b2)
@@ -453,13 +454,13 @@ def solve_color(c: ContactConstraints, sb: SolverBodies, color_id, *,
         imp_rows[0], imp_rows[1], v1, w1, v2, w2 = _block_pair(
             c, mask, imp_rows, v1, w1, v2, w2, rhs, cfm)
     for kk in range(start_k, 4):
-        pm = (mask & c.point_mask[:, kk]).to(torch.float32)
+        pm = (mask & c.point_mask[:, kk]).to(c.impulse.dtype)
         imp_rows[kk], v1, w1, v2, w2 = _normal_row(c, kk, pm, imp_rows[kk], v1, w1, v2, w2,
                                                    rhs, cfm)
     impulses = torch.stack(imp_rows, dim=1)
 
     # Friction limits scale with the solved normal impulses.
-    act = c.point_mask.to(torch.float32)
+    act = c.point_mask.to(c.impulse.dtype)
     act_rows = [act[:, kk] * imp_rows[kk] for kk in range(4)]
     tangent_limit = (act_rows[0] + act_rows[1] + act_rows[2] + act_rows[3]) * c.limit
     twist_limit = sum(act_rows[kk] * c.twist_dists[:, kk] for kk in range(4)) * c.limit
@@ -497,7 +498,7 @@ def solve_color(c: ContactConstraints, sb: SolverBodies, color_id, *,
 
     # Twist (only with >= 2 points), clamped to the twist limit.
     npts = act[:, 0] + act[:, 1] + act[:, 2] + act[:, 3]
-    has_twist = (npts > 1.5).to(torch.float32)
+    has_twist = (npts > 1.5).to(c.impulse.dtype)
     dvel_tw = dot_cl(c.dir1, w1 - w2)
     new_tw = torch.clamp(c.twist_impulse - c.twist_r * dvel_tw,
                          -twist_limit, twist_limit)

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from rapier_tpu_torch.dynamics.solver.contact_constraints import (
@@ -141,8 +142,8 @@ def generate(man, sb: SolverBodies, prev_impulse, color, n_bodies: int):
     rest = man.restitution.unsqueeze(1)
     # A contact new this step bounces whenever restitution > 0, a persisting
     # one only at restitution >= 1.
-    is_bouncy = torch.where(prev_impulse == 0.0, (rest > 0.0).to(torch.float32),
-                            (rest >= 1.0).to(torch.float32))
+    is_bouncy = torch.where(prev_impulse == 0.0, (rest > 0.0).to(rest.dtype),
+                            (rest >= 1.0).to(rest.dtype))
     normal_vel_rhs = is_bouncy * rest * proj_vel
 
     z4 = torch.zeros_like(man.dist)
@@ -197,7 +198,7 @@ def update(c: CoulombConstraints, sb: SolverBodies, *, cfm_factor, inv_dt,
         tan_rhs=c.tan_rhs_wo_bias + torch.stack(bias_k, dim=1),
         tan_impulse_acc=c.tan_impulse_acc + c.tan_impulse,
         tan_impulse=c.tan_impulse * warmstart_coeff,
-        cfm_factor=cfm_factor,
+        cfm_factor=float(np.float32(cfm_factor)),   # float32, as the reference stores it (:231)
     )
 
 
@@ -205,7 +206,7 @@ def warmstart(c: CoulombConstraints, sb: SolverBodies,
               route: RoutePlan = None) -> SolverBodies:
     """Apply the cached impulses of ALL lanes' active points to the body
     velocities (a pure accumulation)."""
-    act = (c.valid.unsqueeze(1) & c.point_mask).to(torch.float32)
+    act = (c.valid.unsqueeze(1) & c.point_mask).to(c.impulse.dtype)
     imp = c.impulse * act
     imp_sum = imp[:, 0] + imp[:, 1] + imp[:, 2] + imp[:, 3]
     dv1 = c.dir1 * c.im1 * imp_sum.unsqueeze(1)
@@ -236,7 +237,7 @@ def solve_color(c: CoulombConstraints, sb: SolverBodies, color_id, *,
     then each point's coupled tangent pair, its limit the friction times
     that point's normal impulse of this pass."""
     mask = c.valid & (c.color == color_id)
-    fmask = mask.to(torch.float32)
+    fmask = mask.to(c.impulse.dtype)
 
     vw = torch.cat([sb.v_lin, sb.v_ang], dim=1)
     V1, V2 = gather_cols(vw, c.b1), gather_cols(vw, c.b2)
@@ -250,14 +251,14 @@ def solve_color(c: CoulombConstraints, sb: SolverBodies, color_id, *,
 
     imp_rows = [c.impulse[:, kk] for kk in range(4)]
     for kk in range(4):
-        pm = (mask & c.point_mask[:, kk]).to(torch.float32)
+        pm = (mask & c.point_mask[:, kk]).to(c.impulse.dtype)
         imp_rows[kk], v1, w1, v2, w2 = _normal_row(c, kk, pm, imp_rows[kk], v1, w1, v2, w2,
                                                    rhs, cfm)
 
     tans = (c.tangent1, cross_cl(c.dir1, c.tangent1))
     tan_rows = []
     for kk in range(4):
-        pm = (mask & c.point_mask[:, kk]).to(torch.float32)
+        pm = (mask & c.point_mask[:, kk]).to(c.impulse.dtype)
         limit = c.limit * imp_rows[kk]
         ttd1, ttd2 = c.tan_torque_dir1[:, kk], c.tan_torque_dir2[:, kk]
         d0 = (dot_cl(tans[0], v1) + dot_cl(ttd1[:, 0], w1)

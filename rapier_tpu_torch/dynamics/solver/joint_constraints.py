@@ -224,12 +224,12 @@ def build_rows(joints, sb, color, dt, inv_dt, n_bodies: int, slots: tuple) -> Jo
 
     # Angular error q_err = q1^-1 q2, shortest-path sign corrected.
     q_err = quat.mul(quat.conj(f1_rot), f2_rot)
-    sgn = torch.where(torch.sum(f1_rot * f2_rot, dim=-1, keepdim=True) >= 0, 1.0, -1.0)
+    sgn = torch.where(torch.sum(f1_rot * f2_rot, dim=-1, keepdim=True) >= 0, 1.0, -1.0).to(q_err.dtype)
     q_err = q_err * sgn
     v_err, w_err = q_err[..., :3], q_err[..., 3]
     # Row i of the angular basis: R1 (0.5 (w e_i - e_i x v)), the jacobian of
     # imag(q_err) w.r.t. (w2 - w1).
-    eye = torch.eye(3, device=v_err.device).expand(ax.shape)
+    eye = torch.eye(3, dtype=v_err.dtype, device=v_err.device).expand(ax.shape)
     cols = 0.5 * (w_err[..., None, None] * eye
                   - quat.cross(eye, v_err.unsqueeze(-2).expand_as(ax)))
     angax = torch.einsum("...ab,...ib->...ia", basis, cols)
@@ -301,15 +301,15 @@ def build_rows(joints, sb, color, dt, inv_dt, n_bodies: int, slots: tuple) -> Jo
     s_max = torch.sin(lmax[..., 3:] * 0.5)
     rb = (torch.clamp(v_err - s_max, min=0.0) - torch.clamp(s_min - v_err, min=0.0)) * erp3
     groups.append((zv3, angax, angax, z3, rb, cfm3.expand_as(z3), z3,
-                   torch.where(v_err <= s_min, -_BIG, 0.0),
-                   torch.where(s_max <= v_err, _BIG, 0.0)))
+                   torch.where(v_err <= s_min, -_BIG, 0.0).to(rb.dtype),
+                   torch.where(s_max <= v_err, _BIG, 0.0).to(rb.dtype)))
 
     # Slots 16-18: linear limits.
     rb = (torch.clamp(proj - lmax[..., :3], min=0.0)
           - torch.clamp(lmin[..., :3] - proj, min=0.0)) * erp3
     groups.append((ax, cm1, cm2, z3, rb, cfm3.expand_as(z3), z3,
-                   torch.where(proj <= lmin[..., :3], -_BIG, 0.0),
-                   torch.where(lmax[..., :3] <= proj, _BIG, 0.0)))
+                   torch.where(proj <= lmin[..., :3], -_BIG, 0.0).to(rb.dtype),
+                   torch.where(lmax[..., :3] <= proj, _BIG, 0.0).to(rb.dtype)))
 
     # Slot 19: coupled linear limit.
     lj, aj1, aj2, dist, lmax_c = lin_coupled
@@ -331,8 +331,8 @@ def build_rows(joints, sb, color, dt, inv_dt, n_bodies: int, slots: tuple) -> Jo
     cr = quat.cross(axis1, axis2)
     s = torch.linalg.norm(cr, dim=-1)
     angle = torch.atan2(s, torch.clamp(_dot(axis1, axis2), -1.0, 1.0))
-    ex = torch.tensor([1.0, 0.0, 0.0], device=axis1.device).expand_as(axis1)
-    ey = torch.tensor([0.0, 1.0, 0.0], device=axis1.device).expand_as(axis1)
+    ex = torch.tensor([1.0, 0.0, 0.0], dtype=axis1.dtype, device=axis1.device).expand_as(axis1)
+    ey = torch.tensor([0.0, 1.0, 0.0], dtype=axis1.dtype, device=axis1.device).expand_as(axis1)
     fx, fy = quat.cross(axis1, ex), quat.cross(axis1, ey)
     fb = torch.where((torch.sum(fx * fx, dim=-1) > 1e-8).unsqueeze(-1), fx, fy)
     aj = torch.where(
@@ -345,7 +345,7 @@ def build_rows(joints, sb, color, dt, inv_dt, n_bodies: int, slots: tuple) -> Jo
     rb = (torch.clamp(angle - lmax_c, min=0.0) - torch.clamp(lmin_c - angle, min=0.0)) * erp_j
     groups.append(tuple(map(_one, (
         torch.zeros_like(aj), aj, aj, zero, rb, cfm_j, zero,
-        torch.where(angle <= lmin_c, -_BIG, 0.0), torch.where(lmax_c <= angle, _BIG, 0.0)))))
+        torch.where(angle <= lmin_c, -_BIG, 0.0).to(rb.dtype), torch.where(lmax_c <= angle, _BIG, 0.0).to(rb.dtype)))))
 
     # Stack the slots; set_row's masking: an inactive row is zero, and
     # non-finite payloads are cleaned.

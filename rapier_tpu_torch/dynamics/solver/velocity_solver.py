@@ -99,7 +99,7 @@ def _is_kinematic(bodies):
 
 def _cl(x, pad_row):
     """``[B, N, d]`` + pad row -> component-leading ``[B, d, N+1]``."""
-    pad = pad_row.to(x.device).expand(x.shape[0], 1, x.shape[-1])
+    pad = pad_row.to(x).expand(x.shape[0], 1, x.shape[-1])
     return torch.cat([x, pad], dim=1).transpose(1, 2).contiguous()
 
 
@@ -115,7 +115,7 @@ def make_solver_bodies(bodies, active, params: SimParams) -> SolverBodies:
     moving = (active & ((bodies.body_type == BodyType.DYNAMIC)
                         | _is_kinematic(bodies))).unsqueeze(-1)
     zero3 = torch.zeros((1, 3))
-    ii_ext = torch.cat([ii, torch.zeros((bsz, 1, 3, 3), device=ii.device)], dim=1)
+    ii_ext = torch.cat([ii, ii.new_zeros((bsz, 1, 3, 3))], dim=1)
     return SolverBodies(
         v_lin=_cl(torch.where(moving, bodies.linvel, 0.0), zero3),
         v_ang=_cl(torch.where(moving, angvel, 0.0), zero3),
@@ -131,9 +131,8 @@ def velocity_increments(bodies, sb: SolverBodies, active, params, dt_sub):
     forces, velocity_solver.rs:115-122) as ``[B, 3, N+1]`` tables."""
     dyn = (active & (bodies.body_type == BodyType.DYNAMIC)).unsqueeze(-1)
     im = sb.im[..., :-1].transpose(1, 2)                       # [B, N, 3]
-    unlocked = (im > 0).to(torch.float32)
-    gravity = torch.as_tensor(np.asarray(params.gravity, np.float32),
-                              device=im.device)
+    unlocked = (im > 0).to(im.dtype)
+    gravity = torch.as_tensor(np.asarray(params.gravity), dtype=im.dtype, device=im.device)
     grav = gravity * bodies.gravity_scale.unsqueeze(-1) * unlocked
     dv = (grav + bodies.force * im) * dt_sub
     iiv = sb.ii[..., :-1]                                      # [B, 3, 3, N]
@@ -150,12 +149,12 @@ def velocity_increments(bodies, sb: SolverBodies, active, params, dt_sub):
 
 def substep_inputs(bodies, sb, active, params: SimParams):
     """The substep rates, soft-constraint coefficients, per-substep
-    velocity increments and the mover mask ``[B, N+1]``.  Rates are f32
-    values carried as Python floats."""
-    f32 = np.float32
+    velocity increments and the mover mask ``[B, N+1]``.  Rates are values
+    of the params' own dtype (`SimParams.real`) carried as Python floats."""
+    t = params.real
     n_sub = int(params.num_solver_iterations)
-    dt_sub = f32(f32(params.dt) / f32(n_sub))
-    inv_dt_sub = f32(0.0) if dt_sub == 0 else f32(f32(1.0) / dt_sub)
+    dt_sub = t(params.dt / t(n_sub))
+    inv_dt_sub = t(0.0) if dt_sub == 0 else t(t(1.0) / dt_sub)
     nf, dr = params.contact_natural_frequency, params.contact_damping_ratio
     dv_inc, dw_inc = velocity_increments(bodies, sb, active, params, float(dt_sub))
     move = active & ((bodies.body_type == BodyType.DYNAMIC) | _is_kinematic(bodies))

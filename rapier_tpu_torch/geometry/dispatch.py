@@ -196,11 +196,11 @@ def _convex_lanes(run, pA, rA, tA, prmA, pB, rB, tB, prmB, hull_vertices=None, t
     all).  Returns a lane-last Manifold with the reference's defaults on the
     other lanes (normal +Y, dist 1e10, fid -1, invalid)."""
     b, p = run.shape
-    dev = run.device
-    normal = torch.zeros((b, 3, p), device=dev)
+    dev, ft = run.device, pA.dtype
+    normal = torch.zeros((b, 3, p), dtype=ft, device=dev)
     normal[:, 1] = 1.0
-    point = torch.zeros((b, 4, 3, p), device=dev)
-    dist = torch.full((b, 4, p), 1e10, device=dev)
+    point = torch.zeros((b, 4, 3, p), dtype=ft, device=dev)
+    dist = torch.full((b, 4, p), 1e10, dtype=ft, device=dev)
     fid = torch.full((b, 4, p), -1, dtype=torch.int32, device=dev)
     valid = torch.zeros((b, 4, p), dtype=torch.bool, device=dev)
     bi, li = torch.nonzero(run, as_tuple=True)
@@ -245,7 +245,7 @@ def _run_bucketed(kern, mask, cap, args):
     tgt = torch.where(bvalid, src, p)
 
     def put(x, default):
-        full = default.expand(x.shape[:-1] + (p + 1,)).clone()
+        full = default.to(x.dtype).expand(x.shape[:-1] + (p + 1,)).clone()
         idx = tgt.view((b,) + (1,) * (x.dim() - 2) + (cap,)).expand(x.shape)
         return full.scatter(-1, idx, x)[..., :p]
 
@@ -353,11 +353,11 @@ def compute_manifolds(bodies, colliders, c1, c2, pair_valid, prediction,
     hull_vertices = (hulls.vertices if hulls is not None and has(ShapeType.CONVEX)
                      else None)
 
-    dev = c1.device
-    normal = torch.zeros((b, 3, p), device=dev)
+    dev, ft = c1.device, pA.dtype
+    normal = torch.zeros((b, 3, p), dtype=ft, device=dev)
     normal[:, 1] = 1.0
-    point = torch.zeros((b, 4, 3, p), device=dev)
-    dist = torch.full((b, 4, p), 1e10, device=dev)
+    point = torch.zeros((b, 4, 3, p), dtype=ft, device=dev)
+    dist = torch.full((b, 4, p), 1e10, dtype=ft, device=dev)
     fid = torch.full((b, 4, p), -1, dtype=torch.int32, device=dev)
     pvalid = torch.zeros((b, 4, p), dtype=torch.bool, device=dev)
     matched = torch.zeros((b, p), dtype=torch.bool, device=dev)
@@ -575,12 +575,12 @@ def compute_mesh_manifolds(bodies, colliders, meshes, c1, c2, pair_valid, predic
     stA = _rows(colliders.shape_type, lane_cA)
     prmA = lanes(colliders.shape_params, lane_cA)
 
-    dev = c1.device
+    dev, ft = c1.device, pA.dtype
     n_l = pm * k
-    normal = torch.zeros((bsz, 3, n_l), device=dev)
+    normal = torch.zeros((bsz, 3, n_l), dtype=ft, device=dev)
     normal[:, 1] = 1.0
-    point = torch.zeros((bsz, 4, 3, n_l), device=dev)
-    dist = torch.full((bsz, 4, n_l), 1e10, device=dev)
+    point = torch.zeros((bsz, 4, 3, n_l), dtype=ft, device=dev)
+    dist = torch.full((bsz, 4, n_l), 1e10, dtype=ft, device=dev)
     fid = torch.full((bsz, 4, n_l), -1, dtype=torch.int32, device=dev)
     pvalid = torch.zeros((bsz, 4, n_l), dtype=torch.bool, device=dev)
     # Each kernel over every lane, the lane's shape type selecting (the

@@ -350,3 +350,13 @@ def cuboid_cuboid_cl(pA, rA, prmA, pB, rB, prmB) -> Manifold:
         ue, torch.where(first, fid_edge.unsqueeze(-2), -1), fid_face).to(torch.int32)
     valid = torch.where(ue, first.expand_as(keep_face), keep_face)
     return Manifold(normal=normal, point=pts, dist=dst, fid=fids, valid=valid)
+
+
+def cuboid_cuboid(pA, rA, prmA, pB, rB, prmB) -> Manifold:
+    """One cuboid pair (the reference's `cuboid_cuboid`): pA/pB ``[3]``,
+    rA/rB ``[4]``, prmA/prmB ``[12]``, through `cuboid_cuboid_cl` on one
+    lane.  Returns the reference's single-pair layout: normal ``[3]``, point
+    ``[4, 3]``, dist, fid and valid ``[4]``."""
+    m = cuboid_cuboid_cl(*(torch.as_tensor(x).unsqueeze(-1) for x in (pA, rA, prmA,
+                                                                    pB, rB, prmB)))
+    return Manifold(*(x[..., 0] for x in m))

@@ -18,7 +18,6 @@ its border (ROADMAP R15).
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from rapier_tpu_torch.geometry.narrowphase import (
@@ -37,10 +36,10 @@ from rapier_tpu_torch.types import ShapeType
 
 MESH_TYPES = (ShapeType.TRIMESH, ShapeType.HEIGHTFIELD)
 # The ternary search's first probes, which the reference computes from
-# Python floats: 1/3 and 2/3 rounded once to float32 (the later probes are
-# float32 arithmetic).
-_THIRD = float(np.float32(1.0 / 3.0))
-_TWO_THIRDS = float(np.float32(2.0 / 3.0))
+# The first probes, 1/3 and 2/3, rounded once to the lanes' dtype (the
+# later probes are the lanes' arithmetic).
+_THIRD = 1.0 / 3.0
+_TWO_THIRDS = 2.0 / 3.0
 
 
 def is_mesh_type(t):

@@ -38,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from rapier_tpu_torch.geometry import gjk as _gjk
@@ -197,10 +198,18 @@ def _by_scenes(fn, per_scene: int, bsz: int, *args):
     return type(first)(*joined) if hasattr(first, "_fields") else tuple(joined)
 
 
-def _scene_rows(x, bsz: int, q: int, width: int, device):
-    """A query input as ``[B, Q, width]`` float32 (from ``[width]``,
-    ``[B, width]`` or ``[B, Q, width]``)."""
-    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+def _as_real(x, like):
+    """A float query input at the dtype and device of `like` (the state's
+    positions)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=like.dtype, device=like.device)
+    return torch.as_tensor(np.asarray(x, np.float64), dtype=like.dtype, device=like.device)
+
+
+def _scene_rows(x, bsz: int, q: int, width: int, like):
+    """A query input as ``[B, Q, width]`` at the state's dtype (from
+    ``[width]``, ``[B, width]`` or ``[B, Q, width]``)."""
+    x = _as_real(x, like)
     if x.dim() == 1:
         x = x.expand(bsz, q, width)
     elif x.dim() == 2:
@@ -208,9 +217,10 @@ def _scene_rows(x, bsz: int, q: int, width: int, device):
     return x.expand(bsz, q, width)
 
 
-def _per_query(x, bsz: int, q: int, device):
-    """A scalar or ``[B]`` or ``[B, Q]`` value as ``[B, Q]`` float32."""
-    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+def _per_query(x, bsz: int, q: int, like):
+    """A scalar or ``[B]`` or ``[B, Q]`` value as ``[B, Q]`` at the state's
+    dtype."""
+    x = _as_real(x, like)
     if x.dim() == 1:
         x = x.unsqueeze(1)
     return x.expand(bsz, q)
@@ -409,7 +419,7 @@ def _ray_convex(o, d, hv, max_toi=_INF, iters: int = 16):
     ConvexPolyhedron; the hull table holds vertices only)."""
     dlen = torch.clamp(_norm(d), min=1e-12)
     du = d / _col(dlen)
-    m = torch.tensor(max_toi, dtype=torch.float32, device=o.device) * dlen
+    m = torch.tensor(max_toi, dtype=o.dtype, device=o.device) * dlen
 
     def dist_at(t):
         p = o + du * _col(t)
@@ -581,10 +591,10 @@ def _ray_args(bodies, colliders, origin, direction, max_toi, exclude_collider,
               exclude_body):
     dev = bodies.pos.device
     bsz = bodies.pos.shape[0]
-    origin = torch.as_tensor(origin, dtype=torch.float32, device=dev)
+    origin = _as_real(origin, bodies.pos)
     r = origin.shape[1]
-    return (bsz, r, _scene_rows(origin, bsz, r, 3, dev),
-            _scene_rows(direction, bsz, r, 3, dev), _per_query(max_toi, bsz, r, dev),
+    return (bsz, r, _scene_rows(origin, bsz, r, 3, bodies.pos),
+            _scene_rows(direction, bsz, r, 3, bodies.pos), _per_query(max_toi, bsz, r, bodies.pos),
             _per_scene(exclude_collider, bsz, dev), _per_scene(exclude_body, bsz, dev))
 
 
@@ -749,7 +759,7 @@ def _project_lanes(bodies, colliders, meshes, hulls, point, solid, ok):
         d_out = _norm(p - q)
         face_d = h - torch.abs(p)
         oh3 = torch.nn.functional.one_hot(torch.argmin(face_d, dim=-1), 3).to(p.dtype)
-        sgn3 = torch.where(torch.sum(oh3 * p, dim=-1) >= 0, 1.0, -1.0)
+        sgn3 = torch.where(torch.sum(oh3 * p, dim=-1) >= 0, 1.0, -1.0).to(p.dtype)
         surf_in = p * (1.0 - oh3) + oh3 * _col(sgn3) * h
         inside_c = d_out < 1e-12
         return (torch.where(_col(inside_c), surf_in, q),
@@ -823,9 +833,9 @@ def _project_lanes(bodies, colliders, meshes, hulls, point, solid, ok):
 def _point_args(bodies, point, exclude_collider, exclude_body):
     dev = bodies.pos.device
     bsz = bodies.pos.shape[0]
-    point = torch.as_tensor(point, dtype=torch.float32, device=dev)
+    point = _as_real(point, bodies.pos)
     n_p = point.shape[1]
-    return (bsz, n_p, _scene_rows(point, bsz, n_p, 3, dev),
+    return (bsz, n_p, _scene_rows(point, bsz, n_p, 3, bodies.pos),
             _per_scene(exclude_collider, bsz, dev), _per_scene(exclude_body, bsz, dev))
 
 
@@ -1055,7 +1065,7 @@ def _gap_now(dist_at, m, iters: int):
     """The gap at t = 0 as `_coarse_bisect`'s result: toi 0 where the shape
     overlaps (gap <= 0), else INF."""
     d, n = dist_at(torch.zeros_like(m).unsqueeze(0), None)
-    return torch.where(d[0] <= 0.0, 0.0, _INF), -n[0]
+    return torch.where(d[0] <= 0.0, 0.0, _INF).to(d.dtype), -n[0]
 
 
 def _cast(bodies, colliders, meshes, hulls, st: int, prm, pose_at, sweep_bounds, max_toi,
@@ -1075,8 +1085,8 @@ def _cast(bodies, colliders, meshes, hulls, st: int, prm, pose_at, sweep_bounds,
     reach = (torch.all(mins.unsqueeze(1) <= (hi + slack).unsqueeze(2), dim=-1)
              & torch.all(maxs.unsqueeze(1) >= (lo - slack).unsqueeze(2), dim=-1))
     lanes = reach & ok.unsqueeze(1)                           # [B, Q, C]
-    toi = torch.full((bsz, n_q, n_c), _INF, dtype=torch.float32, device=lo.device)
-    nrm = torch.zeros((bsz, n_q, n_c, 3), dtype=torch.float32, device=lo.device)
+    toi = torch.full((bsz, n_q, n_c), _INF, dtype=lo.dtype, device=lo.device)
+    nrm = torch.zeros((bsz, n_q, n_c, 3), dtype=lo.dtype, device=lo.device)
     tB_all = colliders.shape_type.unsqueeze(1).expand(bsz, n_q, n_c)
     types = _present(colliders) | {int(st)}
     cats = (
@@ -1151,13 +1161,12 @@ def _closest_cast(toi, nrm, max_toi) -> ShapeCastHit:
 def _shape_args(bodies, shape_params, pos, rot, shape_hull):
     dev = bodies.pos.device
     bsz = bodies.pos.shape[0]
-    pos = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+    pos = _as_real(pos, bodies.pos)
     n_q = pos.shape[1]
-    prm = _scene_rows(shape_params, bsz, n_q, 12, dev)
-    hull = None if shape_hull is None else torch.as_tensor(shape_hull, dtype=torch.float32,
-                                                            device=dev)
-    return (bsz, n_q, prm, _scene_rows(pos, bsz, n_q, 3, dev),
-            _scene_rows(rot, bsz, n_q, 4, dev), hull)
+    prm = _scene_rows(shape_params, bsz, n_q, 12, bodies.pos)
+    hull = None if shape_hull is None else _as_real(shape_hull, bodies.pos)
+    return (bsz, n_q, prm, _scene_rows(pos, bsz, n_q, 3, bodies.pos),
+            _scene_rows(rot, bsz, n_q, 4, bodies.pos), hull)
 
 
 def cast_shape(bodies, colliders, shape_type, shape_params, pos, rot, direction, max_toi,
@@ -1171,8 +1180,8 @@ def cast_shape(bodies, colliders, shape_type, shape_params, pos, rot, direction,
     distance for halfspaces, the least triangle-SAT gap for meshes."""
     bsz, n_q, prm, pos, rot, hull = _shape_args(bodies, shape_params, pos, rot, shape_hull)
     dev = pos.device
-    direction = _scene_rows(direction, bsz, n_q, 3, dev)
-    max_toi = _per_query(max_toi, bsz, n_q, dev)
+    direction = _scene_rows(direction, bsz, n_q, 3, bodies.pos)
+    max_toi = _per_query(max_toi, bsz, n_q, bodies.pos)
     ex_c, ex_b = _per_scene(exclude_collider, bsz, dev), _per_scene(exclude_body, bsz, dev)
     c = colliders.shape_type.shape[1]
 
@@ -1201,9 +1210,9 @@ def cast_shape_nonlinear(bodies, colliders, shape_type, shape_params, pos, rot, 
     linvel t, rot(t) = exp(angvel t) rot, with cast_shape's search."""
     bsz, n_q, prm, pos, rot, hull = _shape_args(bodies, shape_params, pos, rot, shape_hull)
     dev = pos.device
-    linvel = _scene_rows(linvel, bsz, n_q, 3, dev)
-    angvel = _scene_rows(angvel, bsz, n_q, 3, dev)
-    max_toi = _per_query(max_toi, bsz, n_q, dev)
+    linvel = _scene_rows(linvel, bsz, n_q, 3, bodies.pos)
+    angvel = _scene_rows(angvel, bsz, n_q, 3, bodies.pos)
+    max_toi = _per_query(max_toi, bsz, n_q, bodies.pos)
     ex_c, ex_b = _per_scene(exclude_collider, bsz, dev), _per_scene(exclude_body, bsz, dev)
     c = colliders.shape_type.shape[1]
 
@@ -1240,7 +1249,7 @@ def intersect_shape(bodies, colliders, shape_type, shape_params, pos, rot, flags
 
     def run(bodies, colliders, meshes, hulls, prm, pos, rot, ex_c, ex_b):
         ok = _filter_mask(colliders, bodies.body_type, flags, ex_c, ex_b, groups)
-        zero = torch.zeros(pos.shape[:2], dtype=torch.float32, device=pos.device)
+        zero = torch.zeros(pos.shape[:2], dtype=pos.dtype, device=pos.device)
 
         def pose_at(t, b, q):
             return pos[b, q], rot[b, q]

@@ -11,8 +11,8 @@ from __future__ import annotations
 import torch
 
 
-def identity(shape=(), device="cpu") -> torch.Tensor:
-    q = torch.zeros(tuple(shape) + (4,), device=device)
+def identity(shape=(), device="cpu", dtype=torch.float32) -> torch.Tensor:
+    q = torch.zeros(tuple(shape) + (4,), dtype=dtype, device=device)
     q[..., 3] = 1.0
     return q
 

@@ -12,7 +12,6 @@ filter applies, and only to `touching` (the reference's :82-87).
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from rapier_tpu_torch.geometry import broadphase, shapes
@@ -32,7 +31,6 @@ from rapier_tpu_torch.types import (
     SimParams,
 )
 
-_f32 = np.float32
 
 
 def collide(state: SceneState, params: SimParams, hooks=None):
@@ -43,8 +41,8 @@ def collide(state: SceneState, params: SimParams, hooks=None):
     w_pos, w_rot = collider_world_poses(bodies, colliders)
     mins, maxs = shapes.compute_aabbs(colliders.shape_type, colliders.shape_params, w_pos, w_rot)
     margin = (colliders.contact_skin
-              + float(_f32(0.5) * params.prediction_distance())
-              + float(_f32(0.01) * _f32(params.length_unit))).unsqueeze(-1)
+              + float(params.real(0.5) * params.prediction_distance())
+              + float(params.real(0.01) * params.real(params.length_unit))).unsqueeze(-1)
     mins, maxs = mins - margin, maxs + margin
 
     mesh_lanes = (params.max_mesh_pairs * params.tris_per_pair
@@ -84,7 +82,7 @@ def collide(state: SceneState, params: SimParams, hooks=None):
         num_points=torch.sum(man.point_active.int(), dim=1, dtype=torch.int32),
         active=man.valid, touching=man.touching,
         # No solve ran: the matched warmstart caches carry through.
-        warmstart_impulse=ws_n * man.point_active.float(),
+        warmstart_impulse=ws_n * man.point_active.to(ws_n.dtype),
         warmstart_tangent_impulse=ws_t.reshape(prev_c.warmstart_tangent_impulse.shape),
         warmstart_twist_impulse=ws_tw,
         impulse=torch.zeros_like(man.dist),

@@ -28,8 +28,10 @@ the generic GJK/EPA fallback (`geometry/narrowphase_convex.py`), the
 halfspace kernels and the convex hulls (the `hulls` slot).  User hooks
 (`pipeline/hooks.py`) apply after the narrow phase and before the warmstart
 join, as the reference's do (:291-327); they do not change the solve path, so
-a hooked scene takes the kernel where the gate picks it.  Not ported: f64
-(NotImplementedError).
+a hooked scene takes the kernel where the gate picks it.  A float64 scene
+(`precision.set_precision("f64")`) runs every phase in float64 on the
+blocked or masked solve; it rounds through float32 where the reference does
+(ROADMAP R31).
 """
 
 from __future__ import annotations
@@ -37,7 +39,6 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from rapier_tpu_torch.dynamics import multibody as mbmod
@@ -79,7 +80,6 @@ from rapier_tpu_torch.utils.compaction import compact_indices, gather_lanes
 from rapier_tpu_torch.utils.counters import stage
 from rapier_tpu_torch.utils.routing import make_segment_plan, take_lanes
 
-_f32 = np.float32
 # Lane x body elements above which the reference routes by segment plans and
 # solves large scenes blocked (rapier_tpu/utils/routing.py:33).
 DENSE_ROUTE_ELEMS = 2**24
@@ -118,7 +118,11 @@ def _match_previous(prev: Contacts, man: ManifoldBatch):
     still touching).  The tangent warmstart is a manifold's pair ``[B, 2,
     P]`` (twist model), or under FrictionModel.COULOMB a pair per point
     ``[B, 4, 2, P]`` routed by the same feature match as the normal
-    impulses (:105-107, :171-176)."""
+    impulses (:105-107, :171-176).  The joined rows are float32 at either
+    precision, as the reference's stacked join is (:111-120): at f64 the
+    warmstart values round through float32 (ROADMAP R31), and the results
+    return at the cache's dtype."""
+    ft = prev.warmstart_impulse.dtype
     new_keys = torch.where(man.valid, man.pair_key, -1).contiguous()
     old_keys = torch.where(prev.pair_key >= 0, prev.pair_key, -2)
     bsz, pn, po = new_keys.shape[0], new_keys.shape[-1], old_keys.shape[-1]
@@ -173,7 +177,8 @@ def _match_previous(prev: Contacts, man: ManifoldBatch):
         ws_tan = J[:, 16:18] * matched.float().unsqueeze(1)
     ws_twist = torch.where(matched, J[:, 16 + nt], 0.0)
     prev_touching = matched & (J[:, 17 + nt] > 0)
-    return ws_normal, ws_tan, ws_twist, prev_impulse, prev_touching, matched, still
+    return (ws_normal.to(ft), ws_tan.to(ft), ws_twist.to(ft), prev_impulse.to(ft),
+            prev_touching, matched, still)
 
 
 def solve_path(state: SceneState, params: SimParams) -> str:
@@ -182,10 +187,9 @@ def solve_path(state: SceneState, params: SimParams) -> str:
     does not carry.  Returns "kernel" (the contact-sweep kernel, the
     reference's Pallas path), "blocked" (the blocked solve, above the dense
     routing limit) or "masked" (the masked color sweep, and every scene
-    with impulse joints or the Coulomb friction model)."""
-    if state.bodies.pos.dtype != torch.float32:
-        raise NotImplementedError(f"{state.bodies.pos.dtype} scenes are not ported "
-                                  "(the port is float32, like the reference's kernels)")
+    with impulse joints or the Coulomb friction model).  A float64 scene
+    never takes the kernel, whatever solver_backend says: the kernels are
+    float32, as the reference's Mosaic kernels are (:557)."""
     coulomb = params.friction_model == int(FrictionModel.COULOMB)
     if coulomb != (state.contacts.warmstart_tangent_impulse.dim() == 4):
         raise ValueError("the contact cache's tangent layout does not match the friction "
@@ -196,7 +200,8 @@ def solve_path(state: SceneState, params: SimParams) -> str:
     p_lanes = state.contacts.max_pairs
     # "auto" takes the kernel, as the reference does on its TPU; the kernel
     # has no 2x2 block solve.
-    if (params.solver_backend != "jax" and not params.block_solver_2x2
+    f64 = state.bodies.pos.dtype == torch.float64
+    if (params.solver_backend != "jax" and not params.block_solver_2x2 and not f64
             and vmem_feasible(p_lanes, n + 1)):
         return "kernel"
     return "blocked" if p_lanes * (n + 1) > DENSE_ROUTE_ELEMS else "masked"
@@ -219,7 +224,7 @@ def _unsolved(man, ws_n, ws_t, ws_tw):
     """The impulse block ``[B, 14, P]`` a lane keeps when no solve sees it:
     its matched warmstart values, zero accumulators (:646-663)."""
     return torch.cat([
-        ws_n * man.point_active.float(), torch.zeros_like(ws_n), ws_t,
+        ws_n * man.point_active.to(ws_n.dtype), torch.zeros_like(ws_n), ws_t,
         torch.zeros_like(ws_t), ws_tw.unsqueeze(1), torch.zeros_like(ws_tw).unsqueeze(1)],
         dim=1)
 
@@ -354,7 +359,7 @@ def _solve_blocked(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_
         b1s, b2s, rt(man.solver_pair, False), color_of_slot, rt(man.normal),
         rt(man.point), pact_b, rt(man.dist, 1e10), rt(man.friction),
         rt(man.restitution), sb, rt(prev_imp))
-    cons = cons._replace(impulse=rt(ws_n) * pact_b.float(), tan_impulse=rt(ws_t),
+    cons = cons._replace(impulse=rt(ws_n) * pact_b.to(ws_n.dtype), tan_impulse=rt(ws_t),
                          twist_impulse=rt(ws_tw))
     sb, cons = vs.solve_blocked(bodies, sb, cons, blocks, route, active, params)
 
@@ -381,11 +386,19 @@ def _solve_masked(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_n
     compact = not coulomb and 0 < cap < p_lanes
     fields = ("body1", "body2", "rel_dominance", "solver_pair", "normal", "point",
               "point_active", "dist", "friction", "restitution")
+    # Where the route matrix is small the reference compacts by a float32
+    # matmul (:811-832, :899-913): at f64 the routed floats, and the impulses
+    # routed back, round through float32 (ROADMAP R31; at f32 a no-op).
+    f32_route = compact and p_lanes * cap <= 1 << 20
+
+    def rounded(x):
+        return x.float().to(x.dtype) if f32_route and x.is_floating_point() else x
+
     if compact:
         src, kvalid, solver_overflow = compact_indices(man.solver_pair, cap)
 
         def take(x):
-            return gather_lanes(x, src, kvalid)
+            return rounded(gather_lanes(x, src, kvalid))
 
         man_s = man._replace(**{f: take(getattr(man, f)) for f in fields})
         man_s = man_s._replace(
@@ -405,12 +418,12 @@ def _solve_masked(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_n
     if coulomb:
         cc_mod = ccc
         cons = ccc.generate(man_s, sb, prev_imp_s, color, n)
-        pmask = cons.point_mask.float()
+        pmask = cons.point_mask.to(ws_n_s.dtype)
         cons = cons._replace(impulse=ws_n_s * pmask, tan_impulse=ws_t_s * pmask.unsqueeze(2))
     else:
         cc_mod = cc
         cons = cc.generate(man_s, sb, prev_imp_s, color, n)
-        cons = cons._replace(impulse=ws_n_s * cons.point_mask.float(), tan_impulse=ws_t_s,
+        cons = cons._replace(impulse=ws_n_s * cons.point_mask.to(ws_n_s.dtype), tan_impulse=ws_t_s,
                              twist_impulse=ws_tw_s)
     route = cc.RoutePlan(seg_pair=make_segment_plan(torch.cat([cons.b1, cons.b2], dim=-1),
                                                     n + 1))
@@ -418,7 +431,7 @@ def _solve_masked(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_n
                               cc_mod)
     imp = _impulse_block(cons)
     if compact:
-        imp = _scatter_back(imp, src, kvalid, _unsolved(man, ws_n, ws_t, ws_tw))
+        imp = _scatter_back(rounded(imp), src, kvalid, _unsolved(man, ws_n, ws_t, ws_tw))
     return sb, imp, solver_overflow, rows
 
 
@@ -468,8 +481,8 @@ def step(state: SceneState, params: SimParams, hooks=None):
         _, _, _, soft_pred, linvel_c = parent_body_cols(bodies, colliders.parent)
         soft_margin = torch.minimum(torch.linalg.norm(linvel_c, dim=-1) * dt, soft_pred)
         margin = (colliders.contact_skin
-                  + float(_f32(0.5) * params.prediction_distance())
-                  + float(_f32(0.01) * _f32(params.length_unit))
+                  + float(params.real(0.5) * params.prediction_distance())
+                  + float(params.real(0.01) * params.real(params.length_unit))
                   + soft_margin).unsqueeze(-1)
         mins = mins - margin
         maxs = maxs + margin
@@ -664,7 +677,8 @@ def step(state: SceneState, params: SimParams, hooks=None):
         if params.sleeping_enabled:
             lin_sq = torch.sum(bodies.linvel ** 2, dim=-1)
             ang_sq = torch.sum(bodies.angvel ** 2, dim=-1)
-            lin_th = float(_f32(params.sleep_linear_threshold) * _f32(params.length_unit))
+            t = params.real
+            lin_th = float(t(params.sleep_linear_threshold) * t(params.length_unit))
             sat = float(params.sleep_angular_threshold)
             quiet = (lin_sq < lin_th * lin_th) & (ang_sq < sat * sat)
             timer = torch.where(quiet, bodies.sleep_timer + dt, 0.0)
@@ -687,7 +701,7 @@ def step(state: SceneState, params: SimParams, hooks=None):
     tan_impulse = imp[:, 8:8 + nt].reshape(tan_shape)
     tan_impulse_acc = imp[:, 8 + nt:8 + 2 * nt].reshape(tan_shape)
     total_normal = impulse_acc + impulse
-    pmask = man.point_active.float()
+    pmask = man.point_active.to(impulse.dtype)
     contacts = Contacts(
         pair_key=torch.where(man.valid, man.pair_key, -1),
         body1=man.body1, body2=man.body2,

@@ -38,9 +38,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from rapier_tpu_torch import precision as _prec
 from rapier_tpu_torch.dynamics.multibody import Multibodies
-
-_f32 = np.float32
 
 
 class BodyType(enum.IntEnum):
@@ -282,7 +281,7 @@ class MeshData:
 
 
 def empty_meshes(v: int, t: int) -> MeshData:
-    return MeshData(vertices=np.zeros((v, 3), _f32), triangles=np.full((t, 3), -1, np.int32))
+    return MeshData(vertices=_f((v, 3)), triangles=_i((t, 3), -1))
 
 
 MAX_HULL_VERTS = 32  # vertex slots a hull (decimated when the scene is built)
@@ -300,7 +299,7 @@ class ConvexHulls:
 
 
 def empty_hulls(h: int) -> ConvexHulls:
-    return ConvexHulls(vertices=np.zeros((h, MAX_HULL_VERTS, 3), _f32))
+    return ConvexHulls(vertices=_f((h, MAX_HULL_VERTS, 3)))
 
 
 @dataclass
@@ -320,8 +319,10 @@ class SceneState:
     hulls: Any = None
 
 
-def _f(shape):
-    return np.zeros(shape, _f32)
+# The empty_* constructors read the precision axis when they run (numpy
+# leaves at `precision.NP_FLOAT`), as the reference's do.
+def _f(shape, fill=0.0):
+    return np.full(shape, fill, _prec.NP_FLOAT)
 
 
 def _i(shape, fill=0):
@@ -333,7 +334,7 @@ def _b(shape, fill=False):
 
 
 def _quat_id(n: int):
-    q = np.zeros((n, 4), _f32)
+    q = _f((n, 4))
     q[:, 3] = 1.0
     return q
 
@@ -346,7 +347,7 @@ def empty_bodies(n: int) -> Bodies:
         local_com=_f((n, 3)), inv_mass=_f((n,)),
         inv_principal_inertia=_f((n, 3)), principal_frame=quat_id,
         body_type=_i((n,), int(BodyType.FIXED)), enabled=_b((n,)),
-        locked_axes=_i((n,)), gravity_scale=np.ones((n,), _f32),
+        locked_axes=_i((n,)), gravity_scale=_f((n,), 1.0),
         linear_damping=_f((n,)), angular_damping=_f((n,)),
         dominance=_i((n,)), gyro_enabled=_b((n,)), mb_link=_b((n,)),
         can_sleep=_b((n,), True), sleeping=_b((n,)), sleep_timer=_f((n,)),
@@ -361,13 +362,13 @@ def empty_colliders(c: int) -> Colliders:
     return Colliders(
         parent=_i((c,), -1), local_pos=_f((c, 3)), local_rot=quat_id,
         shape_type=_i((c,), int(ShapeType.BALL)), shape_params=_f((c, 12)),
-        friction=np.full((c,), 0.5, _f32), restitution=_f((c,)),
+        friction=_f((c,), 0.5), restitution=_f((c,)),
         friction_combine=_i((c,)), restitution_combine=_i((c,)),
         collision_groups=np.full((c,), 0xFFFF_FFFF, np.uint32),
         solver_groups=np.full((c,), 0xFFFF_FFFF, np.uint32),
         sensor=_b((c,)), enabled=_b((c,)), contact_skin=_f((c,)),
         active_events=_i((c,)), active_hooks=_i((c,)),
-        contact_force_event_threshold=np.full((c,), np.inf, _f32),
+        contact_force_event_threshold=_f((c,), np.inf),
         user_data=_i((c,)),
         active_collision_types=np.full(
             (c,), ACTIVE_COLLISION_TYPES_DEFAULT, np.int32),
@@ -401,38 +402,62 @@ def empty_joints(j: int) -> Joints:
         local_pos2=_f((j, 3)), local_rot2=quat_id,
         locked_axes=_i((j,)), limit_axes=_i((j,)), motor_axes=_i((j,)),
         coupled_axes=_i((j,)),
-        limit_min=np.full((j, 6), -np.inf, _f32),
-        limit_max=np.full((j, 6), np.inf, _f32),
+        limit_min=_f((j, 6), -np.inf),
+        limit_max=_f((j, 6), np.inf),
         motor_target_pos=_f((j, 6)), motor_target_vel=_f((j, 6)),
         motor_stiffness=_f((j, 6)), motor_damping=_f((j, 6)),
-        motor_max_force=np.full((j, 6), 3.4e38, _f32),
+        motor_max_force=_f((j, 6), 3.4e38),
         motor_model=_i((j, 6)),
-        softness_frequency=np.full((j,), 1.0e6, _f32),
-        softness_damping=np.ones((j,), _f32),
+        softness_frequency=_f((j,), 1.0e6),
+        softness_damping=_f((j,), 1.0),
         contacts_enabled=_b((j,), True), enabled=_b((j,)),
         impulses=_f((j, MAX_JOINT_ROWS)),
     )
 
 
+def empty_scene(n_bodies: int, n_colliders: int, max_pairs: int) -> SceneState:
+    """One scene's empty state, numpy leaves (reference types.py:637)."""
+    return SceneState(
+        bodies=empty_bodies(n_bodies),
+        colliders=empty_colliders(n_colliders),
+        contacts=empty_contacts(max_pairs),
+    )
+
+
+def _real(default):
+    """A float field of SimParams: a numpy scalar at `precision.NP_FLOAT`,
+    read when the params are made (the reference's default_factory)."""
+    return field(default_factory=lambda: _prec.NP_FLOAT(default))
+
+
+_REAL_FIELDS = (
+    "dt", "gravity", "length_unit", "contact_natural_frequency", "contact_damping_ratio",
+    "warmstart_coefficient", "normalized_allowed_linear_error",
+    "normalized_max_corrective_velocity", "normalized_prediction_distance",
+    "sleep_linear_threshold", "sleep_angular_threshold", "time_until_sleep")
+
+
 @dataclass(frozen=True)
 class SimParams:
     """Runtime parameters (rapier_tpu.types.SimParams).  Float fields are
-    numpy float32 scalars so derived coefficients round like the
-    reference's f32 arithmetic; int fields shape the step's loops."""
+    numpy scalars (gravity a numpy array) so derived coefficients round
+    like the reference's arithmetic: a value given as a numpy float keeps
+    its dtype, any other is taken at `precision.NP_FLOAT` when the params
+    are made.  Int fields shape the step's loops."""
 
-    dt: Any = _f32(1.0 / 60.0)
+    dt: Any = _real(1.0 / 60.0)
     gravity: Any = field(
-        default_factory=lambda: np.array([0.0, -9.81, 0.0], _f32))
-    length_unit: Any = _f32(1.0)
-    contact_natural_frequency: Any = _f32(30.0)
-    contact_damping_ratio: Any = _f32(5.0)
-    warmstart_coefficient: Any = _f32(1.0)
-    normalized_allowed_linear_error: Any = _f32(0.001)
-    normalized_max_corrective_velocity: Any = _f32(10.0)
-    normalized_prediction_distance: Any = _f32(0.002)
-    sleep_linear_threshold: Any = _f32(0.4)
-    sleep_angular_threshold: Any = _f32(0.5)
-    time_until_sleep: Any = _f32(2.0)
+        default_factory=lambda: np.array([0.0, -9.81, 0.0], _prec.NP_FLOAT))
+    length_unit: Any = _real(1.0)
+    contact_natural_frequency: Any = _real(30.0)
+    contact_damping_ratio: Any = _real(5.0)
+    warmstart_coefficient: Any = _real(1.0)
+    normalized_allowed_linear_error: Any = _real(0.001)
+    normalized_max_corrective_velocity: Any = _real(10.0)
+    normalized_prediction_distance: Any = _real(0.002)
+    sleep_linear_threshold: Any = _real(0.4)
+    sleep_angular_threshold: Any = _real(0.5)
+    time_until_sleep: Any = _real(2.0)
     num_solver_iterations: int = 4
     num_internal_pgs_iterations: int = 1
     num_internal_stabilization_iterations: int = 1
@@ -459,46 +484,62 @@ class SimParams:
     block_solver_2x2: bool = False
     solver_backend: str = "auto"
 
+    def __post_init__(self):
+        for name in _REAL_FIELDS:
+            v = getattr(self, name)
+            if not (isinstance(v, (np.ndarray, np.generic))
+                    and np.issubdtype(v.dtype, np.floating)):
+                v = np.asarray(v, _prec.NP_FLOAT)
+            object.__setattr__(self, name, v[()] if v.ndim == 0 else v)
+
     def replace(self, **kw) -> "SimParams":
         return dataclasses.replace(self, **kw)
 
+    @property
+    def real(self):
+        """The numpy scalar type of the params' own arithmetic (dt's)."""
+        return self.dt.dtype.type
+
     def inv_dt(self):
-        return _f32(0.0) if self.dt == 0.0 else _f32(_f32(1.0) / _f32(self.dt))
+        t = self.real
+        return t(0.0) if self.dt == 0.0 else t(t(1.0) / self.dt)
 
     def allowed_linear_error(self):
-        return _f32(_f32(self.normalized_allowed_linear_error)
-                    * _f32(self.length_unit))
+        t = self.real
+        return t(t(self.normalized_allowed_linear_error) * t(self.length_unit))
 
     def max_corrective_velocity(self):
-        return _f32(_f32(self.normalized_max_corrective_velocity)
-                    * _f32(self.length_unit))
+        t = self.real
+        return t(t(self.normalized_max_corrective_velocity) * t(self.length_unit))
 
     def prediction_distance(self):
-        return _f32(_f32(self.normalized_prediction_distance)
-                    * _f32(self.length_unit))
+        t = self.real
+        return t(t(self.normalized_prediction_distance) * t(self.length_unit))
 
 
 def spring_erp_inv_dt(natural_frequency, damping_ratio, dt):
-    """erp/dt for a soft constraint, in f32 (reference types.py): of numpy
-    scalars (the contact coefficients), or of tensors (per-joint softness)."""
+    """erp/dt for a soft constraint (reference types.py): of numpy scalars
+    (the contact coefficients, in dt's dtype), or of tensors (per-joint
+    softness)."""
     if isinstance(natural_frequency, torch.Tensor):
         ang_freq = natural_frequency * (2.0 * math.pi)
         return ang_freq / (dt * ang_freq + 2.0 * damping_ratio)
-    ang_freq = _f32(natural_frequency) * _f32(2.0 * math.pi)
-    return _f32(ang_freq / _f32(_f32(dt) * ang_freq
-                                + _f32(2.0) * _f32(damping_ratio)))
+    t = np.asarray(dt).dtype.type
+    ang_freq = t(natural_frequency) * t(2.0 * math.pi)
+    return t(ang_freq / t(t(dt) * ang_freq + t(2.0) * t(damping_ratio)))
 
 
 def spring_cfm_factor(natural_frequency, damping_ratio, dt):
-    """cfm_factor = 1/(1+cfm_coeff), in f32 (reference types.py)."""
-    erp = _f32(_f32(dt) * spring_erp_inv_dt(natural_frequency, damping_ratio, dt))
+    """cfm_factor = 1/(1+cfm_coeff), of numpy scalars in dt's dtype
+    (reference types.py)."""
+    t = np.asarray(dt).dtype.type
+    erp = t(t(dt) * spring_erp_inv_dt(natural_frequency, damping_ratio, dt))
     if erp == 0.0:
-        return _f32(1.0)
-    inv_erp_m1 = _f32(_f32(1.0) / erp - _f32(1.0))
-    dr = _f32(damping_ratio)
-    cfm_coeff = _f32(inv_erp_m1 * inv_erp_m1 / (
-        (_f32(1.0) + inv_erp_m1) * _f32(4.0) * dr * dr))
-    return _f32(_f32(1.0) / (_f32(1.0) + cfm_coeff))
+        return t(1.0)
+    inv_erp_m1 = t(t(1.0) / erp - t(1.0))
+    dr = t(damping_ratio)
+    cfm_coeff = t(inv_erp_m1 * inv_erp_m1 / ((t(1.0) + inv_erp_m1) * t(4.0) * dr * dr))
+    return t(t(1.0) / (t(1.0) + cfm_coeff))
 
 
 # ---------------------------------------------------------------------------
@@ -546,9 +587,8 @@ def from_numpy(tree, device="cpu"):
             if not hasattr(tree, f.name):   # joint_slots: the port's own
                 continue
             v = getattr(tree, f.name)
-            if isinstance(f.default, (np.floating, float)) or f.name == "gravity":
-                v = np.asarray(v, _f32)
-                v = _f32(v) if v.ndim == 0 else v
+            if f.name in _REAL_FIELDS and not isinstance(v, float):
+                v = np.asarray(v)   # a numpy float keeps its dtype (__post_init__)
             kw[f.name] = v
         return SimParams(**kw)
     return tree_map(lambda x: _leaf_to_tensor(x, device), tree)

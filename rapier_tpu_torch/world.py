@@ -25,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from rapier_tpu_torch import precision as _prec
 from rapier_tpu_torch.dynamics.solver.joint_constraints import used_slots
 from rapier_tpu_torch.geometry import mass_properties as mp
 from rapier_tpu_torch.types import (
@@ -663,6 +664,14 @@ def SpringJointBuilder(rest_length, stiffness, damping):
     return GenericJointBuilder.spring(rest_length, stiffness, damping)
 
 
+def _at_precision(a):
+    """A float table the reference fills in float32 (the multibody table,
+    the mesh and hull vertices), stored at `precision.NP_FLOAT`: at f64 its
+    values stay float32-rounded, as the reference's are (ROADMAP R31)."""
+    a = np.asarray(a)
+    return a.astype(_prec.NP_FLOAT) if np.issubdtype(a.dtype, np.floating) else a
+
+
 def _round_up(x: int, m: int) -> int:
     return max(((x + m - 1) // m) * m, m)
 
@@ -1023,7 +1032,7 @@ class PhysicsWorld:
         vpad[: len(all_v)] = all_v
         tpad = np.full((t_cap, 3), -1, np.int32)
         tpad[: len(all_t)] = all_t
-        return MeshData(vertices=vpad, triangles=tpad), ranges
+        return MeshData(vertices=_at_precision(vpad), triangles=tpad), ranges
 
     def _build_hulls(self):
         """The convex hulls' shared table ``[H, MAX_HULL_VERTS, 3]`` (None
@@ -1038,7 +1047,7 @@ class PhysicsWorld:
             slots.append(padded)
         if not slots:
             return None, info
-        return ConvexHulls(vertices=np.stack(slots).astype(np.float32)), info
+        return ConvexHulls(vertices=_at_precision(np.stack(slots).astype(np.float32))), info
 
     def _build_joints(self, bodies) -> Joints:
         """The impulse-joint table, J rounded up to 8, with the local anchors
@@ -1146,7 +1155,7 @@ class PhysicsWorld:
             if bodies["body_type"][order[0]] == int(BodyType.DYNAMIC):
                 bodies["body_type"][order[0]] = int(BodyType.KINEMATIC_POSITION_BASED)
         self._mb_trees = trees
-        return Multibodies(**arr)
+        return Multibodies(**{k: _at_precision(v) for k, v in arr.items()})
 
     # ------------------------------------------------------------------
     # Runtime mutation (the reference's Arena insert and remove with
@@ -1530,7 +1539,8 @@ class PhysicsWorld:
         """linvel += impulse * inv_mass (float32, as the reference)."""
         i = _hidx(h)
         b = self.state.bodies
-        dv = torch.as_tensor(np.asarray(impulse, np.float32), device=b.inv_mass.device) \
+        dv = torch.as_tensor(np.asarray(impulse, np.float32), dtype=b.inv_mass.dtype,
+                             device=b.inv_mass.device) \
             * b.inv_mass[0, i]
         self.set_linvel(i, (b.linvel[0, i] + dv).cpu().numpy(), wake_up)
 
@@ -1556,8 +1566,10 @@ class PhysicsWorld:
     # scene, returning what the reference's single-scene calls return.
     # ------------------------------------------------------------------
     def _vec(self, x, width: int = 3):
+        """A query input, rounded through float32 as the reference's are
+        (ROADMAP R31), at the state's dtype."""
         return torch.as_tensor(np.asarray(x, np.float32).reshape(1, 1, width),
-                               device=self.device)
+                               dtype=self.state.bodies.pos.dtype, device=self.device)
 
     @staticmethod
     def _one(result):

@@ -783,3 +783,120 @@ def lazy_witnesses(ref, args, base, rows, nudge_args=(0,)):
             for w_leaf, o_leaf in zip(jax.tree.leaves(wits[j]), jax.tree.leaves(out)):
                 w_leaf[idx[i]] = o_leaf[m]
     return wits
+
+
+# ---------------------------------------------------------------------------
+# The reference at f64.  `rapier_tpu.precision.set_precision("f64")` turns
+# on jax_enable_x64 for the whole process, and xdist runs other test files
+# in the same worker, so the reference runs at f64 in a subprocess.
+# ---------------------------------------------------------------------------
+
+F64_FIELDS = ("bodies.pos", "bodies.rot", "bodies.linvel", "bodies.angvel",
+              "contacts.pair_key", "contacts.touching", "contacts.impulse",
+              "contacts.tangent_impulse", "contacts.warmstart_impulse",
+              "contacts.warmstart_tangent_impulse", "contacts.warmstart_twist_impulse")
+
+_F64_SCRIPT = r'''
+import os, pickle, sys
+os.environ["JAX_PLATFORMS"] = "cpu"
+import jax
+jax.config.update("jax_platforms", "cpu")
+from rapier_tpu.precision import set_precision
+set_precision("f64")
+import dataclasses
+import numpy as np
+import jax.numpy as jnp
+import rapier_tpu.pipeline.physics_pipeline as jpp
+import test_torch_common as tp
+
+job = pickle.load(open(sys.argv[1], "rb"))
+out = {}
+if job.get("build"):
+    scope = {}
+    exec(job["build"], scope)
+    built = scope["world"].build()
+    out["built"] = {f"{part}.{f.name}": np.asarray(getattr(getattr(built, part), f.name))
+                    for part in ("bodies", "colliders", "contacts")
+                    for f in dataclasses.fields(getattr(built, part))}
+    out["built_params"] = {f.name: np.asarray(getattr(scope["world"].params, f.name))
+                           for f in dataclasses.fields(scope["world"].params)
+                           if np.asarray(getattr(scope["world"].params, f.name)).dtype.kind == "f"}
+if job.get("state") is not None:
+    start = tp.to_reference(job["state"])
+    jparams = tp.reference_params(job["params"])
+    step = jax.jit(jax.vmap(jpp.step, in_axes=(0, None)))
+    starts = {"reference": start}
+    if job.get("witness"):
+        s, b, a = job["witness"]
+        w = jax.tree.map(np.array, start)
+        for name in ("pos", "next_pos"):
+            arr = getattr(w.bodies, name)
+            arr[s, b, a] = np.nextafter(arr[s, b, a], np.inf)
+        starts["witness"] = w
+    for key, st in starts.items():
+        js, traj = jax.tree.map(jnp.asarray, st), []
+        for _ in range(job["steps"]):
+            js, _ = step(js, jparams)
+            rec = {f: np.asarray(getattr(getattr(js, f.split(".")[0]), f.split(".")[1]))
+                   for f in job["fields"]}
+            traj.append(rec)
+        out[key] = traj
+pickle.dump(out, open(sys.argv[2], "wb"))
+'''
+
+
+def reference_f64(tmp_path, *, state=None, params=None, steps=0, witness=None,
+                  build=None, fields=F64_FIELDS, timeout=900):
+    """Run the reference at f64 in a subprocess.  `state` (a port batch with
+    numpy or tensor leaves) and `params` (the port's SimParams) are stepped
+    `steps` times by `jax.jit(jax.vmap(step))`, and, with `witness = (scene,
+    body, axis)`, a second time from the same state with that coordinate of
+    pos and next_pos 1 ulp higher.  `build` is source that defines a
+    reference `world`, built there.  Returns a dict: "reference" and
+    "witness" (per step, `fields` as numpy arrays), "built" (the built
+    state's leaves by "part.field") and "built_params" (its float fields)."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+
+    from rapier_tpu_torch.types import to_numpy
+
+    job = dict(state=None if state is None else to_numpy(state), params=params,
+               steps=steps, witness=witness, build=build, fields=fields)
+    inp, outp = tmp_path / "f64_job.pkl", tmp_path / "f64_out.pkl"
+    script = tmp_path / "f64_reference.py"
+    script.write_text(_F64_SCRIPT)
+    with open(inp, "wb") as f:
+        pickle.dump(job, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([os.path.dirname(here), here,
+                                         env.get("PYTHONPATH", "")])
+    proc = subprocess.run([sys.executable, str(script), str(inp), str(outp)],
+                          capture_output=True, text=True, timeout=timeout, env=env,
+                          cwd=os.path.dirname(here))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    with open(outp, "rb") as f:
+        return pickle.load(f)
+
+
+def port_f64_rollout(state, params, steps, fields=F64_FIELDS):
+    """The port's steps from `state` (tensors), recorded as
+    `reference_f64` records them, and the last state."""
+    from rapier_tpu_torch.pipeline.physics_pipeline import step
+
+    traj = []
+    for _ in range(steps):
+        state, _ = step(state, params)
+        traj.append({f: getattr(getattr(state, f.split(".")[0]), f.split(".")[1])
+                     .detach().cpu().numpy() for f in fields})
+    return traj, state
+
+
+def trajectory_gap(a, b, fields):
+    """The largest absolute difference of each field over every step."""
+    return {f: max(float(np.max(np.abs(np.asarray(x[f], np.float64)
+                                       - np.asarray(y[f], np.float64)), initial=0.0))
+                   for x, y in zip(a, b))
+            for f in fields}

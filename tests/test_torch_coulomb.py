@@ -88,8 +88,10 @@ def _run_both(dtype):
             rc0 = rc0._replace(cfm_factor=jnp.asarray(1.0, dtype))
             oh1, oh2 = jcc.pair_onehots(rc0, N + 1)
             rupd = jccc.update(rc0, rsb, oh1, oh2, **RATES)
-            # The reference keeps the factor as a float32 scalar.
-            rupd = rupd._replace(cfm_factor=jnp.asarray(RATES["cfm_factor"], dtype))
+            # The reference stores the factor rounded to float32
+            # (contact_constraints_coulomb.py:231), at either precision.
+            rupd = rupd._replace(
+                cfm_factor=jnp.asarray(np.float32(RATES["cfm_factor"]), dtype))
             rws = jccc.warmstart(rupd, rsb, oh1, oh2)
             out = {"generate": rgen, "update": rupd, "warmstart": rws}
             rc, rs = rupd, rws

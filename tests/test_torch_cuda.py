@@ -482,3 +482,76 @@ def test_cast_ray_on_the_card(device):
     assert float((gpu.toi.cpu() - cpu.toi)[h].abs().max()) <= scale
     assert float((gpu.point.cpu() - cpu.point)[h].abs().max()) <= scale
     assert float((gpu.normal.cpu() - cpu.normal)[h].abs().max()) <= 10 * scale
+
+
+def _f64_bench(device):
+    """2 scenes of the bench scene at 2 layers of 3 x 3 built at f64 (the
+    precision axis restored after), scene 1's bodies moved apart."""
+    from rapier_tpu_torch import precision
+    from rapier_tpu_torch.scenes import mixed_primitives_world, replicate_scene
+    from rapier_tpu_torch.types import from_numpy
+
+    precision.set_precision("f64")
+    try:
+        w = mixed_primitives_world(2, 3, max_pairs=512, device=device)
+        w.params = w.params.replace(max_solver_pairs=256)
+        state = replicate_scene(from_numpy(w.build(), device), 2)
+    finally:
+        precision.set_precision("f32")
+    noise = torch.from_numpy(np.random.default_rng(3).normal(0, 0.03, (18, 3)))
+    state.bodies.pos[1, 1:19] += noise.to(device)
+    state.bodies.next_pos[1, 1:19] += noise.to(device)
+    return state, w.params
+
+
+def test_f64_step_on_the_card(device):
+    """An f64 batch on the card takes the masked sweep (no contact-kernel
+    launch) and stays float64; 45 steps, then 10 more agree with the CPU
+    within 1e-9 in position and 1e-8 in velocity."""
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.pipeline import physics_pipeline as pp
+    from rapier_tpu_torch.types import tree_map
+
+    state, params = _f64_bench(device)
+    assert pp.solve_path(state, params) == "masked"
+    cs.KERNEL.launches = cs.KERNEL.launches_folded = 0
+    for _ in range(45):
+        state, _ = pp.step(state, params)
+    cpu = tree_map(lambda x: x.cpu(), state)
+    for _ in range(10):
+        state, _ = pp.step(state, params)
+        cpu, _ = pp.step(cpu, params)
+    assert cs.KERNEL.launches == 0 and cs.KERNEL.launches_folded == 0
+    assert state.bodies.pos.dtype == torch.float64
+    assert int(cpu.contacts.touching.sum()) > 0
+    assert float((state.bodies.pos.cpu() - cpu.bodies.pos).abs().max()) <= 1e-9
+    assert float((state.bodies.linvel.cpu() - cpu.bodies.linvel).abs().max()) <= 1e-8
+
+
+def test_sharded_step_on_card_zero(device):
+    """2 gloo ranks sharing card 0, each stepping its block of 16 bench
+    scenes (2 layers of 3 x 3) on the contact kernel: the state gathered on
+    rank 0 is bitwise equal to the unsharded step's, with one kernel launch
+    a step on each rank."""
+    from rapier_tpu_torch.dynamics.solver.contact_sweep import KERNEL
+    from rapier_tpu_torch.parallel import sharding as sh
+    from rapier_tpu_torch.pipeline import physics_pipeline as pp
+    from rapier_tpu_torch.scenes import mixed_primitives_world, replicate_scene
+    from rapier_tpu_torch.types import from_numpy, to_numpy
+
+    KERNEL.build()
+    w = mixed_primitives_world(2, 3, max_pairs=512, device=device)
+    w.params = w.params.replace(max_solver_pairs=256)
+    batch = replicate_scene(w.build(), 16)
+    noise = np.random.default_rng(4).normal(0, 0.03, (16, 18, 3)).astype(np.float32)
+    batch.bodies.pos[:, 1:19] += noise
+    batch.bodies.next_pos[:, 1:19] += noise
+    steps = 50
+    stats, _ = sh.sharded_rollout(batch, w.params, steps, ["cuda:0", "cuda:0"])
+    state = from_numpy(batch, device)
+    assert pp.solve_path(state, w.params) == "kernel"
+    for _ in range(steps):
+        state, _ = pp.step(state, w.params)
+    assert stats[0]["digest"] == sh.state_digest(state)
+    assert [s["launches"] + s["launches_folded"] for s in stats] == [steps, steps]
+    assert int(to_numpy(state).contacts.touching.sum()) > 0

@@ -8,8 +8,8 @@ a batch of one scene).  Tests marked slow are so because the reference marks
 the whole file slow (tests/conftest.py `_SLOW_MODULES`); the unmarked ones
 run in tier-1 (none).
 
-test_far_pyramid_stands_at_f64 is not here: the port has no f64 axis yet
-(ROADMAP queue 1 item 4); it comes with that item.
+test_far_pyramid_stands_at_f64 is held on the port in
+tests/test_torch_precision_scenes.py, beside the other f64 scenarios.
 """
 
 import numpy as np

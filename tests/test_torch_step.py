@@ -171,12 +171,19 @@ def test_step_refuses_what_is_not_ported(change, what):
 
 
 def test_step_refuses_f64():
+    """A float64 batch never takes the kernel route, even under
+    solver_backend="pallas" (the reference's gate, physics_pipeline.py:557):
+    it steps on the masked sweep and stays float64."""
+    from rapier_tpu_torch.pipeline.physics_pipeline import solve_path
     from rapier_tpu_torch.types import tree_map
 
     state = tree_map(lambda x: x.double() if x.is_floating_point() else x,
                      from_numpy(tp.settled_batch()))
-    with pytest.raises(NotImplementedError, match="float64"):
-        port_step(state, tp.port_params())
+    params = tp.port_params()
+    assert params.solver_backend == "pallas"
+    assert solve_path(state, params) == "masked"
+    s, _ = port_step(state, params)
+    assert s.bodies.pos.dtype == torch.float64 and bool(torch.isfinite(s.bodies.pos).all())
 
 
 def test_parity_shape_takes_the_kernel_path():
