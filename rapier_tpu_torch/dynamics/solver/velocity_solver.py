@@ -31,6 +31,7 @@ from rapier_tpu_torch.types import (
     spring_cfm_factor,
     spring_erp_inv_dt,
 )
+from rapier_tpu_torch.utils import counters
 from rapier_tpu_torch.utils.counters import stage
 
 
@@ -233,8 +234,16 @@ def solve(bodies, sb: SolverBodies, constraints, num_colors, active,
     for FrictionModel.COULOMB); the 2x2 block solve applies to the twist
     model only (:199-211).  Every scene sweeps the batch's largest color
     count; colors past a scene's own are empty and change nothing.  Returns
-    (sb, constraints, the last substep's joint rows or None)."""
+    (sb, constraints, the last substep's joint rows or None).
+    Under `counters.recording()` it counts the pass lanes: `masked_useful`
+    the valid lanes (each has one color, so a sweep solves each once),
+    `masked_attempted` every lane of every pass, each over every sweep."""
     ncol = int(torch.max(num_colors)) if num_colors.numel() else 0
+    if counters.is_recording():
+        sweeps = int(params.num_solver_iterations) * (
+            params.num_internal_pgs_iterations + params.num_internal_stabilization_iterations)
+        counters.count("masked_useful", constraints.valid.sum() * sweeps)
+        counters.count("masked_attempted", constraints.valid.numel() * ncol * sweeps)
     block = {"block_2x2": True} if params.block_solver_2x2 and cc_mod is cc else {}
 
     def sweep(cons, s, use_bias):

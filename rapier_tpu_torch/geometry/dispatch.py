@@ -36,7 +36,7 @@ from rapier_tpu_torch.geometry.narrowphase_boxbox import cuboid_cuboid_cl
 from rapier_tpu_torch.math import quat
 from rapier_tpu_torch.types import BodyType, CoefficientCombineRule, ShapeType
 from rapier_tpu_torch.utils.compaction import compact_indices
-from rapier_tpu_torch.utils.counters import stage
+from rapier_tpu_torch.utils.counters import span, stage
 
 
 class ManifoldBatch(NamedTuple):
@@ -294,95 +294,98 @@ def compute_manifolds(bodies, colliders, c1, c2, pair_valid, prediction,
             return False
         return ta != tb or counts[ta] >= 2
 
-    b, p = c1.shape
-    n_coll = colliders.parent.shape[-1]
-    w_pos, w_rot = collider_world_poses(bodies, colliders)
-    s1 = c1.clamp(min=0).long()
-    s2 = c2.clamp(min=0).long()
+    with span("gather"):
+        b, p = c1.shape
+        n_coll = colliders.parent.shape[-1]
+        w_pos, w_rot = collider_world_poses(bodies, colliders)
+        s1 = c1.clamp(min=0).long()
+        s2 = c2.clamp(min=0).long()
 
-    parent = colliders.parent
-    bt_c, mb_link_c, dom_raw, soft_c, linvel_c = parent_body_cols(bodies, parent)
-    sdyn_c = (bt_c == BodyType.DYNAMIC) | mb_link_c
-    dom_c = torch.where(sdyn_c, dom_raw, 127)
-    sg = colliders.solver_groups
-    if dt is None:
-        soft_v, soft_flag_c = torch.zeros_like(linvel_c), torch.zeros_like(soft_c)
-    else:
-        soft_v, soft_flag_c = _soft_ccd_cols(soft_c, linvel_c, dt)
+        parent = colliders.parent
+        bt_c, mb_link_c, dom_raw, soft_c, linvel_c = parent_body_cols(bodies, parent)
+        sdyn_c = (bt_c == BodyType.DYNAMIC) | mb_link_c
+        dom_c = torch.where(sdyn_c, dom_raw, 127)
+        sg = colliders.solver_groups
+        if dt is None:
+            soft_v, soft_flag_c = torch.zeros_like(linvel_c), torch.zeros_like(soft_c)
+        else:
+            soft_v, soft_flag_c = _soft_ccd_cols(soft_c, linvel_c, dt)
 
-    def lanes(x, s):
-        """Per-collider ``[B, C]`` / ``[B, C, d]`` -> lane-last ``[B, P]`` /
-        ``[B, d, P]``."""
-        r = _rows(x, s)
-        return r if r.dim() == 2 else r.transpose(1, 2)
+        def lanes(x, s):
+            """Per-collider ``[B, C]`` / ``[B, C, d]`` -> lane-last ``[B, P]`` /
+            ``[B, d, P]``."""
+            r = _rows(x, s)
+            return r if r.dim() == 2 else r.transpose(1, 2)
 
-    def side(s):
-        return dict(
-            pos=lanes(w_pos, s), rot=lanes(w_rot, s),
-            prm=lanes(colliders.shape_params, s),
-            type=lanes(colliders.shape_type, s),
-            friction=lanes(colliders.friction, s),
-            restitution=lanes(colliders.restitution, s),
-            fcomb=lanes(colliders.friction_combine, s),
-            rcomb=lanes(colliders.restitution_combine, s),
-            skin=lanes(colliders.contact_skin, s),
-            sensor=lanes(colliders.sensor, s),
-            sg_m=lanes(sg >> 16, s), sg_f=lanes(sg & 0xFFFF, s),
-            parent=lanes(parent, s), dom=lanes(dom_c, s),
-            events=lanes(colliders.active_events, s),
-            hooks=lanes(colliders.active_hooks, s),
-            thr=lanes(torch.clamp(colliders.contact_force_event_threshold,
-                                  max=3.0e38), s),
-            sdyn=lanes(sdyn_c, s),
-            soft_v=lanes(soft_v, s), soft=lanes(soft_flag_c, s),
-        )
+        def side(s):
+            return dict(
+                pos=lanes(w_pos, s), rot=lanes(w_rot, s),
+                prm=lanes(colliders.shape_params, s),
+                type=lanes(colliders.shape_type, s),
+                friction=lanes(colliders.friction, s),
+                restitution=lanes(colliders.restitution, s),
+                fcomb=lanes(colliders.friction_combine, s),
+                rcomb=lanes(colliders.restitution_combine, s),
+                skin=lanes(colliders.contact_skin, s),
+                sensor=lanes(colliders.sensor, s),
+                sg_m=lanes(sg >> 16, s), sg_f=lanes(sg & 0xFFFF, s),
+                parent=lanes(parent, s), dom=lanes(dom_c, s),
+                events=lanes(colliders.active_events, s),
+                hooks=lanes(colliders.active_hooks, s),
+                thr=lanes(torch.clamp(colliders.contact_force_event_threshold,
+                                      max=3.0e38), s),
+                sdyn=lanes(sdyn_c, s),
+                soft_v=lanes(soft_v, s), soft=lanes(soft_flag_c, s),
+            )
 
-    T1, T2 = side(s1), side(s2)
-    flip = _order_rank(T1["type"]) > _order_rank(T2["type"])
-    f3 = flip.unsqueeze(1)
-    pA = torch.where(f3, T2["pos"], T1["pos"])
-    rA = torch.where(f3, T2["rot"], T1["rot"])
-    prmA = torch.where(f3, T2["prm"], T1["prm"])
-    pB = torch.where(f3, T1["pos"], T2["pos"])
-    rB = torch.where(f3, T1["rot"], T2["rot"])
-    prmB = torch.where(f3, T1["prm"], T2["prm"])
-    tA = torch.where(flip, T2["type"], T1["type"])
-    tB = torch.where(flip, T1["type"], T2["type"])
-    args = (pA, rA, prmA, pB, rB, prmB)
+        T1, T2 = side(s1), side(s2)
+        flip = _order_rank(T1["type"]) > _order_rank(T2["type"])
+        f3 = flip.unsqueeze(1)
+        pA = torch.where(f3, T2["pos"], T1["pos"])
+        rA = torch.where(f3, T2["rot"], T1["rot"])
+        prmA = torch.where(f3, T2["prm"], T1["prm"])
+        pB = torch.where(f3, T1["pos"], T2["pos"])
+        rB = torch.where(f3, T1["rot"], T2["rot"])
+        prmB = torch.where(f3, T1["prm"], T2["prm"])
+        tA = torch.where(flip, T2["type"], T1["type"])
+        tB = torch.where(flip, T1["type"], T2["type"])
+        args = (pA, rA, prmA, pB, rB, prmB)
 
-    hull_vertices = (hulls.vertices if hulls is not None and has(ShapeType.CONVEX)
-                     else None)
+        hull_vertices = (hulls.vertices if hulls is not None and has(ShapeType.CONVEX)
+                         else None)
 
-    dev, ft = c1.device, pA.dtype
-    normal = torch.zeros((b, 3, p), dtype=ft, device=dev)
-    normal[:, 1] = 1.0
-    point = torch.zeros((b, 4, 3, p), dtype=ft, device=dev)
-    dist = torch.full((b, 4, p), 1e10, dtype=ft, device=dev)
-    fid = torch.full((b, 4, p), -1, dtype=torch.int32, device=dev)
-    pvalid = torch.zeros((b, 4, p), dtype=torch.bool, device=dev)
-    matched = torch.zeros((b, p), dtype=torch.bool, device=dev)
-    bucket_dropped = torch.zeros((b,), dtype=torch.int32, device=dev)
+        dev, ft = c1.device, pA.dtype
+        normal = torch.zeros((b, 3, p), dtype=ft, device=dev)
+        normal[:, 1] = 1.0
+        point = torch.zeros((b, 4, 3, p), dtype=ft, device=dev)
+        dist = torch.full((b, 4, p), 1e10, dtype=ft, device=dev)
+        fid = torch.full((b, 4, p), -1, dtype=torch.int32, device=dev)
+        pvalid = torch.zeros((b, 4, p), dtype=torch.bool, device=dev)
+        matched = torch.zeros((b, p), dtype=torch.bool, device=dev)
+        bucket_dropped = torch.zeros((b,), dtype=torch.int32, device=dev)
 
     def merge(mask, man):
         nonlocal normal, point, dist, fid, pvalid, matched
-        m2 = mask.unsqueeze(1)
-        normal = torch.where(m2, man.normal, normal)
-        point = torch.where(m2.unsqueeze(1), man.point, point)
-        dist = torch.where(m2, man.dist, dist)
-        fid = torch.where(m2, man.fid, fid)
-        pvalid = torch.where(m2, man.valid, pvalid)
-        matched = matched | mask
+        with span("merge"):
+            m2 = mask.unsqueeze(1)
+            normal = torch.where(m2, man.normal, normal)
+            point = torch.where(m2.unsqueeze(1), man.point, point)
+            dist = torch.where(m2, man.dist, dist)
+            fid = torch.where(m2, man.fid, fid)
+            pvalid = torch.where(m2, man.valid, pvalid)
+            matched = matched | mask
 
     for (ta, tb), kern in _PAIR_KERNELS.items():
         if not pair_possible(ta, tb):
             continue
-        mask = pair_valid & (tA == ta) & (tB == tb)
-        cap = bucket_cap(ta, tb, counts, p) if kern is _BUCKETED else p
-        if cap < p:
-            man, dropped = _run_bucketed(kern, mask, cap, args)
-            bucket_dropped = bucket_dropped + dropped
-        else:
-            man = kern(*args)
+        with span(f"{ta.name.lower()}_{tb.name.lower()}"):
+            mask = pair_valid & (tA == ta) & (tB == tb)
+            cap = bucket_cap(ta, tb, counts, p) if kern is _BUCKETED else p
+            if cap < p:
+                man, dropped = _run_bucketed(kern, mask, cap, args)
+                bucket_dropped = bucket_dropped + dropped
+            else:
+                man = kern(*args)
         merge(mask, man)
 
     # The generic convex-convex fallback (reference dispatch.py:422-481):
@@ -408,21 +411,22 @@ def compute_manifolds(bodies, colliders, c1, c2, pair_valid, prediction,
     # capsule kernels, the support-sampling kernel for the other convex
     # types.
     if has(ShapeType.HALFSPACE):
-        hs_mask = pair_valid & (tB == ShapeType.HALFSPACE)
-        if has(ShapeType.BALL):
-            merge(hs_mask & (tA == ShapeType.BALL), nph.ball_halfspace(*args))
-        if has(ShapeType.CAPSULE):
-            merge(hs_mask & (tA == ShapeType.CAPSULE), nph.capsule_halfspace(*args))
-        hs_generic = [t for t in _HALFSPACE_GENERIC if has(t)]
-        if hs_generic:
-            conv_ok = torch.zeros_like(hs_mask)
-            for t in hs_generic:
-                conv_ok = conv_ok | (tA == t)
-            hull_rows = (None if hull_vertices is None
-                         else _rows(hull_vertices, _hull_index(tA, prmA)))   # [B, P, V, 3]
-            merge(hs_mask & conv_ok,
-                  nph.convex_halfspace(pA, rA, tA, prmA, pB, rB, prmB, hull_rows,
-                                       None if counts is None else set(counts)))
+        with span("halfspace"):
+            hs_mask = pair_valid & (tB == ShapeType.HALFSPACE)
+            if has(ShapeType.BALL):
+                merge(hs_mask & (tA == ShapeType.BALL), nph.ball_halfspace(*args))
+            if has(ShapeType.CAPSULE):
+                merge(hs_mask & (tA == ShapeType.CAPSULE), nph.capsule_halfspace(*args))
+            hs_generic = [t for t in _HALFSPACE_GENERIC if has(t)]
+            if hs_generic:
+                conv_ok = torch.zeros_like(hs_mask)
+                for t in hs_generic:
+                    conv_ok = conv_ok | (tA == t)
+                hull_rows = (None if hull_vertices is None
+                             else _rows(hull_vertices, _hull_index(tA, prmA)))   # [B, P, V, 3]
+                merge(hs_mask & conv_ok,
+                      nph.convex_halfspace(pA, rA, tA, prmA, pB, rB, prmB, hull_rows,
+                                           None if counts is None else set(counts)))
 
     # Restore the pair orientation: normal points collider1 -> collider2.
     normal = torch.where(f3, -normal, normal)

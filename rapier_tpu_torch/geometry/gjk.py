@@ -33,6 +33,10 @@ The semantics are the reference's, lane by lane:
 and the 1e-4-inflated retry only on the lanes whose exact pass finds no EPA
 seed: a lane's result does not depend on the other lanes, so this is the
 reference's result on every lane.
+
+Under `counters.recording()` GJK and EPA each count their lane-iterations:
+`gjk_useful` / `epa_useful` the lanes still active at each iteration,
+`gjk_attempted` / `epa_attempted` every lane at every iteration.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import torch
 from rapier_tpu_torch.geometry.shapes import support_point
 from rapier_tpu_torch.math import quat
 from rapier_tpu_torch.types import ShapeType
+from rapier_tpu_torch.utils import counters
 
 GJK_ITERS = 16
 EPA_ITERS = 10
@@ -200,6 +205,7 @@ def gjk(supp, d0):
     intersect [L], and the terminal simplex (W, SA, SB [L, 4, 3], nvalid
     [L], win [L]) that seeds EPA."""
     L, dt, dev = d0.shape[0], d0.dtype, d0.device
+    useful = torch.zeros((L,), dtype=torch.int32, device=dev) if counters.is_recording() else None
     order_tab, size_tab = _tables(dev)[:2]
     w0, sa0, sb0 = supp(d0)
     W = torch.zeros((L, 4, 3), dtype=dt, device=dev)
@@ -210,6 +216,8 @@ def gjk(supp, d0):
     inter = torch.zeros((L,), dtype=torch.bool, device=dev)
     slot = torch.arange(4, device=dev)
     for _ in range(GJK_ITERS):
+        if useful is not None:
+            useful += active
         d2, x, _lam, win = _closest_on_simplex(W, nv)
         inter_now = d2 < 1e-12
         w, sa, sb = supp(torch.where(_col(inter_now), d0, -x))
@@ -227,6 +235,9 @@ def gjk(supp, d0):
         active = upd
         inter = inter | inter_now
 
+    if useful is not None:
+        counters.count("gjk_useful", useful.sum())
+        counters.count("gjk_attempted", L * GJK_ITERS)
     d2, x, lam, win = _closest_on_simplex(W, nv)
     inter = inter | (d2 < 1e-12)
     dist = torch.sqrt(torch.clamp(d2, min=0.0))
@@ -310,7 +321,10 @@ def epa(supp, g):
     bn = torch.zeros((L, 3), dtype=dt, device=dev)
     bn[:, 1] = 1.0
     bdep = torch.zeros((L,), dtype=dt, device=dev)
+    useful = torch.zeros((L,), dtype=torch.int32, device=dev) if counters.is_recording() else None
     for _ in range(EPA_ITERS):
+        if useful is not None:
+            useful += active
         score = torch.where(fvalid, fd, 1e30)
         bf = torch.argmin(score, dim=1)
         n = _take1(fn, bf)
@@ -376,6 +390,9 @@ def epa(supp, g):
         fd = torch.where(u1, fd_n, fd)
         fvalid = torch.where(u1, fvalid_n, fvalid)
         active = upd
+    if useful is not None:
+        counters.count("epa_useful", useful.sum())
+        counters.count("epa_attempted", L * EPA_ITERS)
 
     # Witness points: the origin projected onto the best face's triangle.
     score = torch.where(fvalid, fd, 1e30)
@@ -496,7 +513,8 @@ def contact_support_maps(pA, rA, stA, prmA, pB, rB, stB, prmB, hullA=None, hullB
     unit_y[:, 1] = 1.0
     d0 = pB - pA
     d0 = torch.where(_col(_norm(d0) < _EPS), unit_y, d0)
-    g = gjk(supp_of(), d0)
+    with counters.span("gjk"):
+        g = gjk(supp_of(), d0)
 
     def empty():
         return (torch.zeros((L,), dtype=dt, device=dev), unit_y.clone(),
@@ -504,7 +522,8 @@ def contact_support_maps(pA, rA, stA, prmA, pB, rB, stB, prmB, hullA=None, hullB
                 torch.zeros((L,), dtype=torch.bool, device=dev))
 
     inter = g["intersect"]
-    depth, n_pen, cpA_p, cpB_p, epa_ok = _epa_on(inter, supp_of, g, empty())
+    with counters.span("epa"):
+        depth, n_pen, cpA_p, cpB_p, epa_ok = _epa_on(inter, supp_of, g, empty())
     ok_pen = inter & epa_ok
     dist = torch.where(ok_pen, -depth, g["dist"]) - bA - bB
 
@@ -516,8 +535,10 @@ def contact_support_maps(pA, rA, stA, prmA, pB, rB, stB, prmB, hullA=None, hullB
     idx = torch.nonzero(retry).flatten()
     if idx.numel():
         supp_inf = supp_of(idx, inflate=True)
-        g2 = gjk(supp_inf, d0[idx])
-        _, n2, _, _, ok2 = epa(supp_inf, g2)
+        with counters.span("gjk"):
+            g2 = gjk(supp_inf, d0[idx])
+        with counters.span("epa"):
+            _, n2, _, _, ok2 = epa(supp_inf, g2)
         n_inf[idx] = n2
         inf_ok[idx] = ok2 & g2["intersect"]
     # Last resort: the centre line.

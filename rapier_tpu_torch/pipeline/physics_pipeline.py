@@ -77,7 +77,7 @@ from rapier_tpu_torch.types import (
     SimParams,
 )
 from rapier_tpu_torch.utils.compaction import compact_indices, gather_lanes
-from rapier_tpu_torch.utils.counters import stage
+from rapier_tpu_torch.utils.counters import span, stage
 from rapier_tpu_torch.utils.routing import make_segment_plan, take_lanes
 
 # Lane x body elements above which the reference routes by segment plans and
@@ -271,30 +271,34 @@ def _solve_kernel(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_n
         ws_t=ws_t, ws_tw=ws_tw)
     cap = params.max_solver_pairs
     compact = 0 < cap < p_lanes
-    if compact:
-        # Stream-compact the touching lanes: the solve then works K = cap
-        # lanes.  Overflowing lanes are dropped for this step and counted.
-        src, kvalid, solver_overflow = compact_indices(man.solver_pair, cap)
-        lanes = {k: gather_lanes(v, src, kvalid) for k, v in lanes.items()}
-        lanes["valid"] = kvalid
-        b1s = gather_lanes(b1s, src, kvalid, fill=sent)
-        b2s = gather_lanes(b2s, src, kvalid, fill=sent)
-    else:
-        solver_overflow = torch.zeros_like(man.unsupported)
+    with span("compaction"):
+        if compact:
+            # Stream-compact the touching lanes: the solve then works K =
+            # cap lanes.  Overflowing lanes are dropped for this step and
+            # counted.
+            src, kvalid, solver_overflow = compact_indices(man.solver_pair, cap)
+            lanes = {k: gather_lanes(v, src, kvalid) for k, v in lanes.items()}
+            lanes["valid"] = kvalid
+            b1s = gather_lanes(b1s, src, kvalid, fill=sent)
+            b2s = gather_lanes(b2s, src, kvalid, fill=sent)
+        else:
+            solver_overflow = torch.zeros_like(man.unsupported)
 
-    color, num_colors = color_constraints(
-        b1s, b2s, lanes["dyn1"], lanes["dyn2"], lanes["valid"], n, params.max_colors)
-    sb, imp = solve_from_manifolds(
-        sb, b1=b1s, b2=b2s, color=color, num_colors=num_colors,
-        dv_inc=si["dv_inc"], dw_inc=si["dw_inc"], move_mask=si["move_mask"],
-        dt_sub=si["dt_sub"], inv_dt_sub=si["inv_dt_sub"],
-        erp_inv_dt=si["erp_inv_dt"], cfm_factor=si["cfm_factor"],
-        allowed_lin_err=float(params.allowed_linear_error()),
-        max_corrective_velocity=float(params.max_corrective_velocity()),
-        warmstart_coeff=float(params.warmstart_coefficient),
-        n_sub=si["n_sub"], pgs_iters=params.num_internal_pgs_iterations,
-        stab_iters=params.num_internal_stabilization_iterations,
-        max_colors=params.max_colors, **lanes)
+    with span("coloring"):
+        color, num_colors = color_constraints(
+            b1s, b2s, lanes["dyn1"], lanes["dyn2"], lanes["valid"], n, params.max_colors)
+    with span("sweep"):
+        sb, imp = solve_from_manifolds(
+            sb, b1=b1s, b2=b2s, color=color, num_colors=num_colors,
+            dv_inc=si["dv_inc"], dw_inc=si["dw_inc"], move_mask=si["move_mask"],
+            dt_sub=si["dt_sub"], inv_dt_sub=si["inv_dt_sub"],
+            erp_inv_dt=si["erp_inv_dt"], cfm_factor=si["cfm_factor"],
+            allowed_lin_err=float(params.allowed_linear_error()),
+            max_corrective_velocity=float(params.max_corrective_velocity()),
+            warmstart_coeff=float(params.warmstart_coefficient),
+            n_sub=si["n_sub"], pgs_iters=params.num_internal_pgs_iterations,
+            stab_iters=params.num_internal_stabilization_iterations,
+            max_colors=params.max_colors, **lanes)
     if compact:
         imp = _scatter_back(imp, src, kvalid, _unsolved(man, ws_n, ws_t, ws_tw))
     return sb, imp, solver_overflow, None
@@ -316,8 +320,9 @@ def _solve_blocked(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_
     caps = solve_caps(cap if 0 < cap < p_lanes else p_lanes, p_lanes, params.max_colors)
     starts = [sum(caps[:i]) for i in range(len(caps))]
     w_total = sum(caps)
-    _, slot, solver_overflow = color_constraints_blocked(
-        man.body1, man.body2, dyn1, dyn2, man.solver_pair, n, caps)
+    with span("coloring"):
+        _, slot, solver_overflow = color_constraints_blocked(
+            man.body1, man.body2, dyn1, dyn2, man.solver_pair, n, caps)
 
     # Slot -> pair lane: slots are unique; unslotted lanes all write the
     # cut-off column w_total.
@@ -361,7 +366,8 @@ def _solve_blocked(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_
         rt(man.restitution), sb, rt(prev_imp))
     cons = cons._replace(impulse=rt(ws_n) * pact_b.to(ws_n.dtype), tan_impulse=rt(ws_t),
                          twist_impulse=rt(ws_tw))
-    sb, cons = vs.solve_blocked(bodies, sb, cons, blocks, route, active, params)
+    with span("color_passes"):
+        sb, cons = vs.solve_blocked(bodies, sb, cons, blocks, route, active, params)
 
     # Back to the pair lanes; lanes without a slot keep their warmstart.
     has_slot = (slot < w_total).unsqueeze(1)
@@ -394,41 +400,47 @@ def _solve_masked(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_n
     def rounded(x):
         return x.float().to(x.dtype) if f32_route and x.is_floating_point() else x
 
-    if compact:
-        src, kvalid, solver_overflow = compact_indices(man.solver_pair, cap)
+    with span("compaction"):
+        if compact:
+            src, kvalid, solver_overflow = compact_indices(man.solver_pair, cap)
 
-        def take(x):
-            return rounded(gather_lanes(x, src, kvalid))
+            def take(x):
+                return rounded(gather_lanes(x, src, kvalid))
 
-        man_s = man._replace(**{f: take(getattr(man, f)) for f in fields})
-        man_s = man_s._replace(
-            body1=torch.where(kvalid, man_s.body1, -1),
-            body2=torch.where(kvalid, man_s.body2, -1),
-            solver_pair=kvalid,
-            point_active=man_s.point_active & kvalid.unsqueeze(1))
-        dyn1_s, dyn2_s = take(dyn1) & kvalid, take(dyn2) & kvalid
-        prev_imp_s, ws_n_s, ws_t_s, ws_tw_s = (take(x) for x in (prev_imp, ws_n, ws_t, ws_tw))
-    else:
-        solver_overflow = torch.zeros_like(man.unsupported)
-        man_s, dyn1_s, dyn2_s = man, dyn1, dyn2
-        prev_imp_s, ws_n_s, ws_t_s, ws_tw_s = prev_imp, ws_n, ws_t, ws_tw
+            man_s = man._replace(**{f: take(getattr(man, f)) for f in fields})
+            man_s = man_s._replace(
+                body1=torch.where(kvalid, man_s.body1, -1),
+                body2=torch.where(kvalid, man_s.body2, -1),
+                solver_pair=kvalid,
+                point_active=man_s.point_active & kvalid.unsqueeze(1))
+            dyn1_s, dyn2_s = take(dyn1) & kvalid, take(dyn2) & kvalid
+            prev_imp_s, ws_n_s, ws_t_s, ws_tw_s = (take(x)
+                                                   for x in (prev_imp, ws_n, ws_t, ws_tw))
+        else:
+            solver_overflow = torch.zeros_like(man.unsupported)
+            man_s, dyn1_s, dyn2_s = man, dyn1, dyn2
+            prev_imp_s, ws_n_s, ws_t_s, ws_tw_s = prev_imp, ws_n, ws_t, ws_tw
 
-    color, num_colors = color_constraints(
-        man_s.body1, man_s.body2, dyn1_s, dyn2_s, man_s.solver_pair, n, params.max_colors)
-    if coulomb:
-        cc_mod = ccc
-        cons = ccc.generate(man_s, sb, prev_imp_s, color, n)
-        pmask = cons.point_mask.to(ws_n_s.dtype)
-        cons = cons._replace(impulse=ws_n_s * pmask, tan_impulse=ws_t_s * pmask.unsqueeze(2))
-    else:
-        cc_mod = cc
-        cons = cc.generate(man_s, sb, prev_imp_s, color, n)
-        cons = cons._replace(impulse=ws_n_s * cons.point_mask.to(ws_n_s.dtype), tan_impulse=ws_t_s,
-                             twist_impulse=ws_tw_s)
-    route = cc.RoutePlan(seg_pair=make_segment_plan(torch.cat([cons.b1, cons.b2], dim=-1),
-                                                    n + 1))
-    sb, cons, rows = vs.solve(bodies, sb, cons, num_colors, active, params, route, joints,
-                              cc_mod)
+    with span("coloring"):
+        color, num_colors = color_constraints(
+            man_s.body1, man_s.body2, dyn1_s, dyn2_s, man_s.solver_pair, n, params.max_colors)
+    with span("constraints"):
+        if coulomb:
+            cc_mod = ccc
+            cons = ccc.generate(man_s, sb, prev_imp_s, color, n)
+            pmask = cons.point_mask.to(ws_n_s.dtype)
+            cons = cons._replace(impulse=ws_n_s * pmask,
+                                 tan_impulse=ws_t_s * pmask.unsqueeze(2))
+        else:
+            cc_mod = cc
+            cons = cc.generate(man_s, sb, prev_imp_s, color, n)
+            cons = cons._replace(impulse=ws_n_s * cons.point_mask.to(ws_n_s.dtype),
+                                 tan_impulse=ws_t_s, twist_impulse=ws_tw_s)
+        route = cc.RoutePlan(seg_pair=make_segment_plan(torch.cat([cons.b1, cons.b2], dim=-1),
+                                                        n + 1))
+    with span("color_passes"):
+        sb, cons, rows = vs.solve(bodies, sb, cons, num_colors, active, params, route,
+                                  joints, cc_mod)
     imp = _impulse_block(cons)
     if compact:
         imp = _scatter_back(rounded(imp), src, kvalid, _unsolved(man, ws_n, ws_t, ws_tw))
@@ -438,7 +450,13 @@ def _solve_masked(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_n
 def step(state: SceneState, params: SimParams, hooks=None):
     """Advance every scene of the batch by params.dt.  Returns
     (new_state, StepEvents).  `hooks`: an optional
-    `pipeline.hooks.PhysicsHooks`."""
+    `pipeline.hooks.PhysicsHooks`.  Under `counters.recording()` the step
+    is one span, its stages the spans under it."""
+    with span("step", new_step=True):
+        return _step(state, params, hooks)
+
+
+def _step(state: SceneState, params: SimParams, hooks):
     path = solve_path(state, params)
     bodies = state.bodies
     colliders = state.colliders
@@ -447,31 +465,33 @@ def step(state: SceneState, params: SimParams, hooks=None):
     dt = float(params.dt)
     inv_dt = float(params.inv_dt())
 
-    # 0. Multibody phase A (physics_pipeline.py:206-213): forward dynamics
-    #    -> tentative qd; the tentative link velocities J qd land in the
-    #    bodies.  Joint integration and FK follow the contact solve (phase C).
-    multibodies = state.multibodies
-    mb_aux = None
-    if multibodies is not None:
-        multibodies, bodies, mb_aux = mbmod.predict_velocities(
-            multibodies, bodies, params.gravity, dt)
+    with span("prologue"):
+        # 0. Multibody phase A (physics_pipeline.py:206-213): forward
+        #    dynamics -> tentative qd; the tentative link velocities J qd land
+        #    in the bodies.  Joint integration and FK follow the contact solve
+        #    (phase C).
+        multibodies = state.multibodies
+        mb_aux = None
+        if multibodies is not None:
+            multibodies, bodies, mb_aux = mbmod.predict_velocities(
+                multibodies, bodies, params.gravity, dt)
 
-    # 1. Kinematic velocity interpolation (physics_pipeline.rs:412-438);
-    #    multibody links take their velocities from phase A.
-    kin_pos = ((bodies.body_type == BodyType.KINEMATIC_POSITION_BASED)
-               & ~bodies.mb_link).unsqueeze(-1)
-    com_now = bodies.pos + quat.rotate(bodies.rot, bodies.local_com)
-    com_next = bodies.next_pos + quat.rotate(bodies.next_rot, bodies.local_com)
-    kin_linvel = (com_next - com_now) * inv_dt
-    dq = quat.mul(bodies.next_rot, quat.conj(bodies.rot))
-    dq = torch.where(dq[..., 3:4] < 0, -dq, dq)
-    vnorm = torch.linalg.norm(dq[..., :3], dim=-1, keepdim=True)
-    angle = 2.0 * torch.atan2(vnorm, dq[..., 3:4])
-    kin_angvel = dq[..., :3] / torch.clamp(vnorm, min=1e-12) * (angle * inv_dt)
-    bodies = dataclasses.replace(
-        bodies,
-        linvel=torch.where(kin_pos, kin_linvel, bodies.linvel),
-        angvel=torch.where(kin_pos, kin_angvel, bodies.angvel))
+        # 1. Kinematic velocity interpolation (physics_pipeline.rs:412-438);
+        #    multibody links take their velocities from phase A.
+        kin_pos = ((bodies.body_type == BodyType.KINEMATIC_POSITION_BASED)
+                   & ~bodies.mb_link).unsqueeze(-1)
+        com_now = bodies.pos + quat.rotate(bodies.rot, bodies.local_com)
+        com_next = bodies.next_pos + quat.rotate(bodies.next_rot, bodies.local_com)
+        kin_linvel = (com_next - com_now) * inv_dt
+        dq = quat.mul(bodies.next_rot, quat.conj(bodies.rot))
+        dq = torch.where(dq[..., 3:4] < 0, -dq, dq)
+        vnorm = torch.linalg.norm(dq[..., :3], dim=-1, keepdim=True)
+        angle = 2.0 * torch.atan2(vnorm, dq[..., 3:4])
+        kin_angvel = dq[..., :3] / torch.clamp(vnorm, min=1e-12) * (angle * inv_dt)
+        bodies = dataclasses.replace(
+            bodies,
+            linvel=torch.where(kin_pos, kin_linvel, bodies.linvel),
+            angvel=torch.where(kin_pos, kin_angvel, bodies.angvel))
 
     # 2. Broad phase, AABBs with margins (physics_pipeline.py:244-260).
     with stage("broad_phase"):
@@ -517,8 +537,9 @@ def step(state: SceneState, params: SimParams, hooks=None):
     # the filter drops pairs from the solve, the modifier rewrites their
     # solver payload (physics_pipeline.py:291-327).
     if hooks is not None:
-        man = apply_contact_filter(hooks, bodies, colliders, man)
-        man = apply_contact_modifier(hooks, bodies, colliders, man)
+        with span("hooks"):
+            man = apply_contact_filter(hooks, bodies, colliders, man)
+            man = apply_contact_modifier(hooks, bodies, colliders, man)
 
     # 4. Warmstart matching + events bookkeeping.
     with stage("contact_match"):
@@ -622,22 +643,23 @@ def step(state: SceneState, params: SimParams, hooks=None):
         bodies = dataclasses.replace(bodies, sleeping=sleeping)
 
     # 6. Solve.
-    active = bodies.enabled & ~sleeping
-    sb = vs.make_solver_bodies(bodies, active, params)
-    if multibodies is not None:
-        # Phase B (physics_pipeline.py:506-511): link columns take their
-        # articulated mobility.
-        sb = mbmod.install_link_mobility(sb, multibodies, mb_aux, bodies)
-    slp_ext = torch.cat([sleeping, torch.zeros_like(sleeping[:, :1])], dim=1)
+    with span("solver_bodies"):
+        active = bodies.enabled & ~sleeping
+        sb = vs.make_solver_bodies(bodies, active, params)
+        if multibodies is not None:
+            # Phase B (physics_pipeline.py:506-511): link columns take their
+            # articulated mobility.
+            sb = mbmod.install_link_mobility(sb, multibodies, mb_aux, bodies)
+        slp_ext = torch.cat([sleeping, torch.zeros_like(sleeping[:, :1])], dim=1)
 
-    def asleep(b):
-        return (b >= 0) & torch.gather(slp_ext, 1, torch.where(b >= 0, b, sent).long())
+        def asleep(b):
+            return (b >= 0) & torch.gather(slp_ext, 1, torch.where(b >= 0, b, sent).long())
 
-    asleep1, asleep2 = asleep(man.body1), asleep(man.body2)
-    solver_pair = man.solver_pair & ~asleep1 & ~asleep2
-    man = man._replace(solver_pair=solver_pair)
-    dyn1 = man.dyn1 & ~asleep1
-    dyn2 = man.dyn2 & ~asleep2
+        asleep1, asleep2 = asleep(man.body1), asleep(man.body2)
+        solver_pair = man.solver_pair & ~asleep1 & ~asleep2
+        man = man._replace(solver_pair=solver_pair)
+        dyn1 = man.dyn1 & ~asleep1
+        dyn2 = man.dyn2 & ~asleep2
 
     lanes = dict(man=man, dyn1=dyn1, dyn2=dyn2, prev_imp=prev_imp, ws_n=ws_n, ws_t=ws_t,
                  ws_tw=ws_tw)
@@ -647,30 +669,35 @@ def step(state: SceneState, params: SimParams, hooks=None):
         if joints is not None:
             # Joint colors over the dynamic bodies (:881-890); the scene's
             # sleeping bodies do not change them.
-            jcolor, n_jcolors = color_constraints(
-                joints.body1, joints.body2, is_dyn(joints.body1), is_dyn(joints.body2),
-                joints.enabled & (joints.body1 >= 0), n, params.max_colors)
-            lanes["joints"] = vs.JointSolve(joints, jcolor, int(n_jcolors.max()))
+            with span("joint_coloring"):
+                jcolor, n_jcolors = color_constraints(
+                    joints.body1, joints.body2, is_dyn(joints.body1), is_dyn(joints.body2),
+                    joints.enabled & (joints.body1 >= 0), n, params.max_colors)
+                lanes["joints"] = vs.JointSolve(joints, jcolor, int(n_jcolors.max()))
         sb, imp, solver_overflow, joint_rows = solve(bodies, sb, active, params, **lanes)
-    if joint_rows is not None:
-        # The last substep's impulses (:897-898).
-        joints = dataclasses.replace(
-            joints, impulses=jc.full_slots(joint_rows.impulse, joint_rows.slots))
-    bodies = vs.writeback(bodies, sb, active, params)
-    if multibodies is not None:
-        # Phase C (physics_pipeline.py:939-946): link velocity deltas into
-        # generalized space, joint integration, FK, the links' next poses.
-        multibodies, bodies = mbmod.absorb_contact_impulses(
-            multibodies, bodies, sb, mb_aux, dt)
+    # The writeback, phase C, CCD and the pose advance: one span, CCD's
+    # stage under it.
+    with span("writeback"):
+        if joint_rows is not None:
+            # The last substep's impulses (:897-898).
+            joints = dataclasses.replace(
+                joints, impulses=jc.full_slots(joint_rows.impulse, joint_rows.slots))
+        bodies = vs.writeback(bodies, sb, active, params)
+        if multibodies is not None:
+            # Phase C (physics_pipeline.py:939-946): link velocity deltas
+            # into generalized space, joint integration, FK, the links' next
+            # poses.
+            multibodies, bodies = mbmod.absorb_contact_impulses(
+                multibodies, bodies, sb, mb_aux, dt)
 
-    # 7. CCD motion clamping (physics_pipeline.py:949-958), then advance to
-    #    the final positions.
-    ccd_overflow = torch.zeros((bsz,), dtype=torch.int32, device=dev)
-    if params.enable_ccd:
-        with stage("ccd"):
-            bodies, ccd_overflow = clamp_motions(bodies, colliders, params, state.meshes)
-    bodies = dataclasses.replace(bodies, pos=bodies.next_pos,
-                                 rot=quat.normalize(bodies.next_rot))
+        # 7. CCD motion clamping (physics_pipeline.py:949-958), then advance
+        #    to the final positions.
+        ccd_overflow = torch.zeros((bsz,), dtype=torch.int32, device=dev)
+        if params.enable_ccd:
+            with stage("ccd"):
+                bodies, ccd_overflow = clamp_motions(bodies, colliders, params, state.meshes)
+        bodies = dataclasses.replace(bodies, pos=bodies.next_pos,
+                                     rot=quat.normalize(bodies.next_rot))
 
     # 8. Sleeping (post-solve velocities, island-free propagation).
     with stage("sleep"):
@@ -693,51 +720,52 @@ def step(state: SceneState, params: SimParams, hooks=None):
                 linvel=torch.where(ns, 0.0, bodies.linvel),
                 angvel=torch.where(ns, 0.0, bodies.angvel))
 
-    # 9. Persist the contact cache; events.  The tangent rows keep the
-    #    cache's layout: a pair a manifold, or (Coulomb) a pair a point.
-    tan_shape = state.contacts.warmstart_tangent_impulse.shape
-    nt = (imp.shape[1] - 10) // 2
-    impulse, impulse_acc = imp[:, 0:4], imp[:, 4:8]
-    tan_impulse = imp[:, 8:8 + nt].reshape(tan_shape)
-    tan_impulse_acc = imp[:, 8 + nt:8 + 2 * nt].reshape(tan_shape)
-    total_normal = impulse_acc + impulse
-    pmask = man.point_active.to(impulse.dtype)
-    contacts = Contacts(
-        pair_key=torch.where(man.valid, man.pair_key, -1),
-        body1=man.body1, body2=man.body2,
-        collider1=man.collider1, collider2=man.collider2,
-        normal=man.normal, point=man.point, dist=man.dist,
-        feature_id=man.fid, point_active=man.point_active,
-        num_points=torch.sum(man.point_active.int(), dim=1, dtype=torch.int32),
-        active=man.valid, touching=man.touching,
-        warmstart_impulse=impulse,
-        warmstart_tangent_impulse=tan_impulse,
-        warmstart_twist_impulse=imp[:, 8 + 2 * nt],
-        impulse=total_normal * pmask,
-        tangent_impulse=tan_impulse_acc + tan_impulse,
-        friction=man.friction, restitution=man.restitution,
-        events_or=man.active_events_or,
-    )
-    force_mag = torch.sum(total_normal * pmask, dim=1) * inv_dt
-    collision_gate = (man.active_events_or & ACTIVE_EVENTS_COLLISION) != 0
-    force_gate = (man.active_events_or & ACTIVE_EVENTS_CONTACT_FORCE) != 0
-    new_state = SceneState(bodies=bodies, colliders=colliders, contacts=contacts,
-                           step_count=state.step_count + 1, multibodies=multibodies,
-                           joints=joints, meshes=state.meshes, hulls=state.hulls)
-    events = StepEvents(
-        started_pairs=started & collision_gate,
-        stopped_keys=prev_c.pair_key,
-        stopped=stopped & ((prev_c.events_or & ACTIVE_EVENTS_COLLISION) != 0),
-        force_events=man.touching & (force_mag > man.force_threshold) & force_gate,
-        force_magnitude=force_mag,
-        total_force=man.normal * force_mag.unsqueeze(1),
-        max_force_direction=man.normal,
-        max_force_magnitude=force_mag,
-        sensor_pairs=man.sensor,
-        intersecting=man.sensor & man.touching,
-        broadphase_overflow=bp_overflow,
-        unsupported_pairs=man.unsupported,
-        ccd_overflow=ccd_overflow,
-        solver_overflow=solver_overflow,
-    )
+    with span("contact_cache"):
+        # 9. Persist the contact cache; events.  The tangent rows keep the
+        #    cache's layout: a pair a manifold, or (Coulomb) a pair a point.
+        tan_shape = state.contacts.warmstart_tangent_impulse.shape
+        nt = (imp.shape[1] - 10) // 2
+        impulse, impulse_acc = imp[:, 0:4], imp[:, 4:8]
+        tan_impulse = imp[:, 8:8 + nt].reshape(tan_shape)
+        tan_impulse_acc = imp[:, 8 + nt:8 + 2 * nt].reshape(tan_shape)
+        total_normal = impulse_acc + impulse
+        pmask = man.point_active.to(impulse.dtype)
+        contacts = Contacts(
+            pair_key=torch.where(man.valid, man.pair_key, -1),
+            body1=man.body1, body2=man.body2,
+            collider1=man.collider1, collider2=man.collider2,
+            normal=man.normal, point=man.point, dist=man.dist,
+            feature_id=man.fid, point_active=man.point_active,
+            num_points=torch.sum(man.point_active.int(), dim=1, dtype=torch.int32),
+            active=man.valid, touching=man.touching,
+            warmstart_impulse=impulse,
+            warmstart_tangent_impulse=tan_impulse,
+            warmstart_twist_impulse=imp[:, 8 + 2 * nt],
+            impulse=total_normal * pmask,
+            tangent_impulse=tan_impulse_acc + tan_impulse,
+            friction=man.friction, restitution=man.restitution,
+            events_or=man.active_events_or,
+        )
+        force_mag = torch.sum(total_normal * pmask, dim=1) * inv_dt
+        collision_gate = (man.active_events_or & ACTIVE_EVENTS_COLLISION) != 0
+        force_gate = (man.active_events_or & ACTIVE_EVENTS_CONTACT_FORCE) != 0
+        new_state = SceneState(bodies=bodies, colliders=colliders, contacts=contacts,
+                               step_count=state.step_count + 1, multibodies=multibodies,
+                               joints=joints, meshes=state.meshes, hulls=state.hulls)
+        events = StepEvents(
+            started_pairs=started & collision_gate,
+            stopped_keys=prev_c.pair_key,
+            stopped=stopped & ((prev_c.events_or & ACTIVE_EVENTS_COLLISION) != 0),
+            force_events=man.touching & (force_mag > man.force_threshold) & force_gate,
+            force_magnitude=force_mag,
+            total_force=man.normal * force_mag.unsqueeze(1),
+            max_force_direction=man.normal,
+            max_force_magnitude=force_mag,
+            sensor_pairs=man.sensor,
+            intersecting=man.sensor & man.touching,
+            broadphase_overflow=bp_overflow,
+            unsupported_pairs=man.unsupported,
+            ccd_overflow=ccd_overflow,
+            solver_overflow=solver_overflow,
+        )
     return new_state, events

@@ -2,8 +2,9 @@
 rapier_tpu.utils.counters, the reference's Counters taxonomy,
 src/counters/mod.rs:20-35).
 
-`step` marks its stages with `stage(name)`.  Outside a measurement that is
-one Python call and nothing else.  Two measurement paths turn it on:
+`step` marks its stages with `stage(name)` and, below and between them,
+spans with `span(name)`.  Outside a measurement either is one Python call
+and nothing else.  Three measurement paths turn them on:
 
 1. `profile_step(state, params)` runs whole steps with a
    `torch.cuda.synchronize()` before and after every stage and returns the
@@ -14,15 +15,25 @@ one Python call and nothing else.  Two measurement paths turn it on:
    profiler tens of seconds a step on the launch-bound paths), and returns
    the step's wall time, its kernel count, the time the card was busy and
    the kernels of most device time.
+3. `recording()` records every `stage` and `span` as it opens and closes,
+   on the host's clock and with no synchronisation, with the counters that
+   `count` adds and the host-device synchronisations inside each span
+   (`Recording`).  Put beside `torch.profiler`, it says which stage
+   launched each device operation and where the host kept the card
+   waiting.  It works on any device.
 
-Both time the card only: a state on another device raises, so no number
-from the CPU is ever reported as the card's.
+`profile_step` and `trace_step` time the card only: a state on another
+device raises, so no number from the CPU is ever reported as the card's.
+The `stage` markers' names are what `profile_step` and the benchmark's
+`*_ms` metrics read, so a stage keeps its extent; the spans record under
+`recording()` only and are transparent to `profile_step`.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
+import warnings
 from dataclasses import dataclass, field
 
 import torch
@@ -30,14 +41,124 @@ import torch
 PROFILE_ITERS = 3   # steps `profile_step` averages over
 TOP_KERNELS = 8     # kernel names `trace_step` ranks by device time
 
-_timings: dict | None = None   # stage -> summed ms, while profile_step runs
+_timings: dict | None = None      # stage -> summed ms, while profile_step runs
+_record: Recording | None = None  # the open `recording()`
+# The text of the warning torch.cuda's sync debug mode gives at each
+# synchronising operation.
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+class Recording:
+    """What `recording()` yields.
+
+    spans: (name, parent index or -1, step index, start ns, end ns) of each
+      span in the order they opened, on `time.perf_counter_ns()`'s clock; a
+      span opened with `new_step` (the pipeline's `step`) begins a step
+      index, and the spans under it share it.
+    counts: (span index, name, value) of each `count`, the values read as
+      Python ints once the recording has closed.
+    syncs: {span index: host-device synchronisations the host made while
+      that span was the innermost open one}; -1 for none open (on the card
+      only: the CPU has nothing to wait for)."""
+
+    def __init__(self):
+        self.spans, self.counts, self.syncs = [], [], {}
+        self.step = -1
+        self._open = []
+
+    def innermost(self) -> int:
+        return self._open[-1] if self._open else -1
+
+    @contextlib.contextmanager
+    def span(self, name: str, new_step: bool = False):
+        if new_step:
+            self.step += 1
+        i = len(self.spans)
+        self.spans.append((name, self.innermost(), self.step, time.perf_counter_ns(), None))
+        self._open.append(i)
+        try:
+            yield
+        finally:
+            end = time.perf_counter_ns()
+            self._open.pop()
+            self.spans[i] = self.spans[i][:4] + (end,)
+
+    def _shower(self, show):
+        """A `warnings.showwarning` that counts the sync debug mode's
+        warnings against the innermost open span and hands every other
+        warning to `show`, once a place."""
+        seen = set()
+
+        def shower(message, category, filename, lineno, file=None, line=None):
+            if SYNC_WARNING in str(message):
+                i = self.innermost()
+                self.syncs[i] = self.syncs.get(i, 0) + 1
+            elif (str(message), category, filename, lineno) not in seen:
+                seen.add((str(message), category, filename, lineno))
+                show(message, category, filename, lineno, file, line)
+
+        return shower
+
+
+@contextlib.contextmanager
+def recording():
+    """Record every stage and span of the steps run inside, unsynchronised;
+    yields the `Recording`.  On the card the sync debug mode is set to
+    "warn" inside, and every warning is let through (the default filter
+    would show a place once) so that each synchronisation is counted; the
+    mode, the filters and `warnings.showwarning` are restored on exit.
+    Tensor counters are read when the recording closes: synchronise the
+    device before leaving the block, and nothing is left to wait for."""
+    global _record
+    if _record is not None or _timings is not None:
+        raise RuntimeError("recording() runs alone: no other measurement may be open")
+    rec = Recording()
+    mode = torch.cuda.get_sync_debug_mode() if torch.cuda.is_available() else None
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = rec._shower(warnings.showwarning)
+        if mode is not None:
+            torch.cuda.set_sync_debug_mode("warn")
+        _record = rec
+        try:
+            yield rec
+        finally:
+            _record = None
+            if mode is not None:
+                torch.cuda.set_sync_debug_mode(mode)
+    rec.counts = [(i, name, int(v)) for i, name, v in rec.counts]
+
+
+def is_recording() -> bool:
+    return _record is not None
+
+
+def count(name: str, value):
+    """Add `value` (a device scalar or a host int) to counter `name` under
+    the innermost open span; nothing outside `recording()`."""
+    if _record is not None:
+        _record.counts.append((_record.innermost(), name, value))
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str, new_step: bool = False):
+    """Mark a span that `recording()` alone records (a no-op otherwise,
+    `profile_step` included).  `new_step`: the span is a whole step."""
+    return _NO_SPAN if _record is None else _record.span(name, new_step)
 
 
 @contextlib.contextmanager
 def stage(name: str):
-    """Mark one stage of the step (a no-op outside `profile_step`)."""
-    if _timings is None:
+    """Mark one stage of the step: under `profile_step` its host ms between
+    synchronisations, under `recording()` a span; a no-op otherwise."""
+    if _timings is None and _record is None:
         yield
+        return
+    if _record is not None:
+        with _record.span(name):
+            yield
         return
     torch.cuda.synchronize()
     t0 = time.perf_counter()
