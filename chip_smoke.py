@@ -6,7 +6,7 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; each prints its wall time), run in the
-order 1-6, 10, 11, 12, 9, 13, 14, 15, 16, 7, 8:
+order 1, 2, 3, 2(b), 3(b), 4-6, 10, 11, 12, 9, 13, 14, 15, 16, 7, 8:
 
 1. Build the contact-sweep kernels from ``rapier_tpu_torch/csrc`` (one nvcc
    call, sm_90a) and print the compiler's register / shared-memory report.
@@ -27,6 +27,15 @@ order 1-6, 10, 11, 12, 9, 13, 14, 15, 16, 7, 8:
    for the folded wrapper, the folded launch alone, `contact_sweep_kernel` on
    the same packed inputs and the plain version; the same resource and
    storage lines.
+2(b), 3(b). The kernels' float64 builds: phase 2 on the solve inputs of
+   one f64 step of phase 2's settled bench batch (every float leaf cast to
+   float64) and phase 3 on phase 3's quadruped capture cast to float64.  Each is held on 64 scenes
+   to the plain version at f64 on the CPU by the f64 parity rule (within
+   F64_WITNESS_FACTOR times the gap of a plain run whose velocities start 1
+   ulp higher, or F64_ULPS float64 ulps of each part's largest value; every
+   part's gap and witness gap printed in ulps), the other build bit for bit
+   on the same packed inputs, and timed at 4096 scenes against its bound at
+   the FP64 rate, with the same resource and storage lines.
 4. The bench path: the bench scene (4 layers of 5x5 balls, cuboids and
    capsules on a ground cuboid, max_pairs 512, max_solver_pairs 256)
    replicated to 4096 scenes, settled for 150 steps, then 50 timed steps.
@@ -246,13 +255,14 @@ order 1-6, 10, 11, 12, 9, 13, 14, 15, 16, 7, 8:
    pyramid (`scenes.s2d_far_pyramid_world`, 55 boxes at (1e5, -8e4)) built
    at f64, one scene, FAR_STEPS steps (the reference test's 300, cut to
    60 for the time limit): the route
-   printed (the masked sweep: an f64 scene never takes the kernel), zero
-   contact-sweep launches, the largest rest-height error below FAR_TOL
+   printed (the masked sweep: the 2x2 block solve never takes the kernel),
+   zero contact-sweep launches, the largest rest-height error below FAR_TOL
    (tests/test_2d_core.py's check), steps/s.  4096 bench scenes built at f64
-   and the same scenes at float32 with solver_backend="jax" (the same masked
-   route, which separates the dtype's cost from the route's), 10 + 10 steps
-   each: zero overflow and zero launches, every scene bitwise equal to scene
-   0, env-steps/s, peak device memory and one traced step.  (b) 4096 bench
+   and the same scenes at float32, both on the kernel route (its float64
+   and float32 builds, which separates the dtype's cost from the route's),
+   10 + 10 steps each: zero overflow and one `contact_sweep_kernel` launch a
+   step, every scene bitwise equal to scene 0, env-steps/s, peak device
+   memory and one traced step.  (b) 4096 bench
    scenes (`parallel/sharding.py`) for 30 steps, the last 10 timed: a mesh
    of the one card in this process (one NCCL rank a card on a machine with
    several), then 2 gloo ranks sharing card 0, spawned; the state gathered
@@ -269,10 +279,13 @@ order 1-6, 10, 11, 12, 9, 13, 14, 15, 16, 7, 8:
    64 f64 bench scenes for 5 steps bitwise.
 
 The line before the last is the kernels' JSON record (with `bound_share`,
-bound over time, and each kernel's resources); the last line is
+bound over time, and each kernel's resources; `contact_sweep_kernel_f64`
+and `contact_sweep_folded_kernel_f64` are the float64 builds, whose main
+path is phase 16's f64 bench); the last line is
 ``{"ok": true, "device": {...}}``.
 
-With ``--s2d-only`` the script builds the kernels and runs phase 10 alone,
+With ``--kernels-only`` the script builds the kernels and runs phases 2,
+3, 2(b) and 3(b) alone, with ``--s2d-only`` phase 10,
 with ``--meshes-only`` phase 11 (and (d) under ``--heightfield-full``),
 with ``--convex-only`` phase 12 (and (d) under ``--primitives-full``),
 with ``--ccd-only`` phase 13, with ``--world-only`` phase 14, with
@@ -378,9 +391,10 @@ TRACE_STEPS_BENCH = 1           # 3 until phase 16 joined the script
 PYRAMID_TOP_TOL = 0.1
 PYRAMID_REST_VY = 0.1           # m/s
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
-# float32 FLOP/s outside the tensor cores.
+# float32 and float64 FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+FP64_FLOPS = 34e12
 # Float operations per valid solver lane, counted from csrc/contact_sweep.cu:
 # generation once, then per substep the soft-rhs update and warmstart and per
 # sweep one solve_lane (normal rows, the coupled tangent solve, twist).
@@ -565,8 +579,8 @@ RERUN_SCENES_15 = 64
 # steps/s, launch-bound; the pile has landed by ~60 steps, and on the CPU its
 # largest error is 0.0244 at 60 and 0.0171 at 300,
 # tests/test_torch_precision_scenes.py);
-# 4096 bench scenes at f64 and at float32 on the same masked route
-# (solver_backend="jax"), F64_SETTLE + F64_TIMED steps each.
+# 4096 bench scenes at f64 and at float32 on the same kernel route,
+# F64_SETTLE + F64_TIMED steps each.
 FAR_STEPS = 60
 FAR_TOL = 0.15
 F64_SETTLE = 10
@@ -584,6 +598,9 @@ F64_CPU_SETTLE = 45
 F64_CPU_STEPS = 5
 F64_WITNESS_FACTOR = 16.0
 F64_ULPS = 64
+# Phases 2(b) and 3(b): scenes of the capture held to the plain version at
+# f64 on the CPU.
+F64_CHECK_SCENES = 64
 F64_RERUN_SCENES = 64           # phase 8's bitwise rerun
 
 
@@ -750,13 +767,17 @@ def _packed(sb, inp):
 def _bound(packed, out, inp):
     """The least time the card could take for one call: bytes (each input
     read once, each output written once) at the HBM rate, or the float
-    operations this call's valid lanes need at the fp32 rate, whichever is
-    larger.  Returns (ms, "bytes" or "operations")."""
+    operations this call's valid lanes need at the fp32 (float64 inputs:
+    fp64) rate, whichever is larger.  Returns (ms, "bytes" or
+    "operations")."""
+    import torch
+
     n_bytes = sum(t.numel() * t.element_size() for t in list(packed) + list(out))
     sweeps = inp["pgs_iters"] + inp["stab_iters"]
     per_lane = FLOPS_GENERATE + inp["n_sub"] * (FLOPS_UPDATE_WARMSTART + sweeps * FLOPS_SOLVE)
     flops = int(inp["valid"].sum()) * per_lane
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    rate = FP64_FLOPS if packed[0].dtype == torch.float64 else FP32_FLOPS
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -765,8 +786,10 @@ def _resources(name, folded, inp, sb, card):
     and on-chip lane capacity at this input's shape, from the CUDA runtime."""
     from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
 
+    import torch
+
     res = cs.KERNEL.info(folded, inp["b1"].shape[-1], sb.v_lin.shape[-1],
-                         inp["max_colors"])
+                         inp["max_colors"], sb.v_lin.dtype == torch.float64)
     print(f"{name} at K={inp['b1'].shape[-1]}, N+1={sb.v_lin.shape[-1]}: "
           f"{res['registers']} registers, {res['spill_bytes']} bytes of spills a thread, "
           f"{res['smem_bytes']} bytes of shared memory a block, {res['blocks_per_sm']} "
@@ -780,10 +803,11 @@ def _storage(what, folded: bool, packed, kw, must_fit: bool):
     takes in the folded (or the block) kernel (`packed`, `kw` as `_packed`
     gives them); fails when `must_fit` and a scene keeps its lanes in the
     global scratch."""
+    import torch
     from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
 
     lanes, fits = cs.KERNEL.storage(folded, packed[1], packed[2].shape[-1],
-                                    kw["max_colors"])
+                                    kw["max_colors"], packed[0].dtype == torch.float64)
     lanes, on_chip = lanes.cpu().float(), int(fits.sum())
     out = dict(scenes_on_chip=on_chip, scenes_in_global_scratch=lanes.shape[0] - on_chip,
                valid_lanes_mean=float(lanes.mean()), valid_lanes_max=int(lanes.max()))
@@ -835,10 +859,13 @@ def _bitwise(what, a, b):
 
 
 def _summary(name, ms, bound, res, card):
-    """Print the kernel's time beside its recorded earlier time, its bound and
-    its occupancy; return the kernels line's keys beyond the contract's."""
-    print(f"{name} at {N_SCENES} scenes: {ms:.3f} ms (recorded before the redesign: "
-          f"{RECORDED_EARLIER_MS[name]} ms), bound {bound[0]:.3g} ms ({bound[1]}), "
+    """Print the kernel's time beside its recorded earlier time (where there
+    is one), its bound and its occupancy; return the kernels line's keys
+    beyond the contract's."""
+    earlier = (f" (recorded before the redesign: {RECORDED_EARLIER_MS[name]} ms)"
+               if name in RECORDED_EARLIER_MS else "")
+    print(f"{name} at {N_SCENES} scenes: {ms:.3f} ms{earlier}, bound {bound[0]:.3g} ms "
+          f"({bound[1]}), "
           f"{bound[0] / ms:.1%} of the bound; {res['blocks_per_sm']} blocks an SM of "
           f"{res['registers']} registers a thread and {res['smem_bytes']} bytes of "
           f"shared memory ({card})")
@@ -846,7 +873,9 @@ def _summary(name, ms, bound, res, card):
 
 
 def phase_kernel(device, card):
-    """Phase 2: contact_sweep_kernel against the plain version (bench)."""
+    """Phase 2: contact_sweep_kernel against the plain version (bench).
+    Returns the kernel's record and the settled N_CHECK-scene bench batch
+    (with its params), which phase 2(b) reuses."""
     from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
     from rapier_tpu_torch.dynamics.solver.contact_constraints import SolverBodies
 
@@ -897,7 +926,7 @@ def phase_kernel(device, card):
     ms, plain_ms, bound, storage = times[N_SCENES // N_CHECK]
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
                 bound_by=bound[1], **_summary("contact_sweep_kernel", ms, bound, res, card),
-                one_scene_ms=times[0][0], **storage)
+                one_scene_ms=times[0][0], **storage), (state, params)
 
 
 def phase_folded_kernel(device, card):
@@ -945,6 +974,150 @@ def phase_folded_kernel(device, card):
     return dict(max_abs_err=err, ms=launch_ms, plain_ms=plain_ms, bound_ms=bound[0],
                 bound_by=bound[1], **_summary("contact_sweep_folded_kernel", launch_ms,
                                               bound, res, card), **storage), (state, params)
+
+
+def _compare_f64(name, sb, inp, sb_k, imp_k):
+    """Hold a float64 kernel's output on the first F64_CHECK_SCENES scenes to
+    the plain version at float64 on the CPU (whose scatter-adds keep lane
+    order) by the f64 parity rule: each body row and the impulse block
+    within F64_WITNESS_FACTOR times the gap of a plain run whose nonzero
+    velocities start 1 ulp higher, or F64_ULPS float64 ulps of the plain
+    value's largest magnitude (of 1 for a part that is all zeros), the
+    larger.  Returns each part's gap and witness gap in those ulps."""
+    import torch
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+
+    n = F64_CHECK_SCENES
+    cut = {k: ((v[:n] if v.dim() else v).cpu() if torch.is_tensor(v) else v)
+           for k, v in inp.items()}
+    sb = type(sb)(*(x[:n].cpu() for x in sb))
+    up = torch.tensor(float("inf"), dtype=torch.float64)
+    nudged = sb._replace(**{f: torch.where(getattr(sb, f) != 0,
+                                           torch.nextafter(getattr(sb, f), up), getattr(sb, f))
+                            for f in ("v_lin", "v_ang")})
+    sb_p, imp_p = cs.solve_plain(sb, **cut)
+    sb_w, imp_w = cs.solve_plain(nudged, **cut)
+    parts = [(f, getattr(sb_k, f)[:n].cpu(), getattr(sb_p, f), getattr(sb_w, f))
+             for f in ("v_lin", "v_ang", "com", "rot")]
+    parts.append(("impulses", imp_k[:n].cpu(), imp_p, imp_w))
+    out, bad = {}, []
+    for part, got, want, wit in parts:
+        ulp = torch.finfo(torch.float64).eps * (float(want.abs().max()) or 1.0)
+        gap, wgap = float((got - want).abs().max()), float((wit - want).abs().max())
+        tol = max(F64_WITNESS_FACTOR * wgap, F64_ULPS * ulp)
+        out[part] = dict(ulps=gap / ulp, witness_ulps=wgap / ulp, tol_ulps=tol / ulp)
+        if not gap <= tol:
+            bad.append(part)
+    print(f"{name} vs plain at f64 on {sb.v_lin.shape[0]} scenes (K={inp['b1'].shape[-1]}, "
+          f"{int(cut['valid'].sum())} solver lanes), in float64 ulps of each part's largest "
+          f"value (gap / 1-ulp witness's gap / tolerance): "
+          + ", ".join(f"{p} {v['ulps']:.1f} / {v['witness_ulps']:.1f} / {v['tol_ulps']:.1f}"
+                      for p, v in out.items()))
+    if bad:
+        _fail(f"{name} disagrees with the plain version at f64: {bad}")
+    return out
+
+
+def _as_f64(sb, inp):
+    """Solve inputs with every float tensor and body table at float64."""
+    import torch
+
+    return (type(sb)(*(x.double() for x in sb)),
+            {k: (v.double() if torch.is_tensor(v) and v.is_floating_point() else v)
+             for k, v in inp.items()})
+
+
+def _timed_f64(name, folded, sb, inp, card):
+    """The float64 build of the folded (or the block) kernel timed at
+    N_SCENES scenes (the capture tiled): the wrapper, the launch alone, the
+    other kernel's launch on the same packed inputs and the plain version;
+    its bound at the FP64 rate and the storage of every scene, all on
+    chip."""
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.dynamics.solver.contact_constraints import SolverBodies
+
+    reps = N_SCENES // sb.v_lin.shape[0]
+    sb_t = SolverBodies(*[_scenes(x, reps) for x in sb])
+    inp_t = {k: _scenes(v, reps) for k, v in inp.items()}
+    packed, kw = _packed(sb_t, inp_t)
+    mine, other = ((cs.KERNEL.launch_folded, cs.KERNEL.launch) if folded
+                   else (cs.KERNEL.launch, cs.KERNEL.launch_folded))
+    ms = _time_ms(lambda: cs.solve_from_manifolds(sb_t, **inp_t), 20)
+    launch_ms = _time_ms(lambda: mine(*packed, **kw), 20)
+    other_ms = _time_ms(lambda: other(*packed, **kw), 5)
+    plain_ms = _time_ms(lambda: cs.solve_plain(sb_t, **inp_t), 3)
+    bound = _bound(packed, mine(*packed, **kw), inp_t)
+    storage = _storage(f"{name} at {N_SCENES} scenes", folded, packed, kw, True)
+    print(f"contact solve at f64, {N_SCENES} scenes x K={inp['b1'].shape[-1]}: {name} wrapper "
+          f"{ms:.3f} ms, launch alone {launch_ms:.3f} ms, the other kernel {other_ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bound[0]:.3g} ms ({bound[1]}), "
+          f"{bound[0] / launch_ms:.1%} of the bound ({card})")
+    return dict(ms=launch_ms, wrapper_ms=ms, other_kernel_ms=other_ms, plain_ms=plain_ms,
+                bound_ms=bound[0], bound_by=bound[1], **storage), bound
+
+
+def phase_kernel_f64(device, card, bench):
+    """Phase 2(b): contact_sweep_kernel's float64 build on the bench at f64
+    (phase 2's settled batch with every float leaf cast to float64, K =
+    256): the solve inputs of one f64 step through the wrapper (one block
+    launch) against the plain version at f64 (`_compare_f64`), the folded
+    build on the same packed inputs bit for bit, its resources, and its time
+    at N_SCENES scenes against its bound at the FP64 rate (`_timed_f64`)."""
+    import torch
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.types import tree_map
+
+    state = tree_map(lambda x: x.double() if x.is_floating_point() else x, bench[0])
+    inp = capture_solve_inputs(state, bench[1])
+    sb = inp.pop("sb")
+    k_lanes = inp["b1"].shape[-1]
+    if k_lanes != 256 or sb.v_lin.dtype != torch.float64:
+        _fail(f"expected K = 256 float64 solver lanes, got {k_lanes} of {sb.v_lin.dtype}")
+
+    counts = cs.KERNEL.launches, cs.KERNEL.launches_folded
+    sb_k, imp_k = cs.solve_from_manifolds(sb, **inp)
+    if (cs.KERNEL.launches, cs.KERNEL.launches_folded) != (counts[0] + 1, counts[1]):
+        _fail("the f64 bench shape did not launch contact_sweep_kernel once")
+    if imp_k.dtype != torch.float64:
+        _fail(f"the f64 launch returned {imp_k.dtype}")
+    ulps = _compare_f64("contact_sweep_kernel (float64)", sb, inp, sb_k, imp_k)
+    res = _resources("contact_sweep_kernel (float64)", False, inp, sb, card)
+    packed, kw = _packed(sb, inp)
+    _bitwise("bench capture at f64 (K=256)", cs.KERNEL.launch(*packed, **kw),
+             cs.KERNEL.launch_folded(*packed, **kw))
+    rec, bound = _timed_f64("contact_sweep_kernel (float64)", False, sb, inp, card)
+    cs.KERNEL.launches, cs.KERNEL.launches_folded = counts
+    return dict(ulps_vs_plain=ulps, **rec,
+                **_summary("contact_sweep_kernel_f64", rec["ms"], bound, res, card))
+
+
+def phase_folded_kernel_f64(device, card, quadrupeds):
+    """Phase 3(b): contact_sweep_folded_kernel's float64 build on phase 3's
+    quadruped batch (K = 128): one step's solve inputs, cast to float64,
+    through the wrapper (one folded launch) against the plain version at
+    f64, the block build bit for bit, its resources and its time at
+    N_SCENES scenes against its bound at the FP64 rate."""
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+
+    inp = capture_solve_inputs(*quadrupeds)
+    sb, inp = _as_f64(inp.pop("sb"), inp)
+    k_lanes = inp["b1"].shape[-1]
+    if k_lanes > cs.FOLD_MAX_LANES:
+        _fail(f"expected at most {cs.FOLD_MAX_LANES} solver lanes, got {k_lanes}")
+
+    counts = cs.KERNEL.launches, cs.KERNEL.launches_folded
+    sb_k, imp_k = cs.solve_from_manifolds(sb, **inp)
+    if (cs.KERNEL.launches, cs.KERNEL.launches_folded) != (counts[0], counts[1] + 1):
+        _fail("the f64 quadruped shape did not launch contact_sweep_folded_kernel once")
+    ulps = _compare_f64("contact_sweep_folded_kernel (float64)", sb, inp, sb_k, imp_k)
+    res = _resources("contact_sweep_folded_kernel (float64)", True, inp, sb, card)
+    packed, kw = _packed(sb, inp)
+    _bitwise(f"quadruped capture at f64 (K={k_lanes})", cs.KERNEL.launch(*packed, **kw),
+             cs.KERNEL.launch_folded(*packed, **kw))
+    rec, bound = _timed_f64("contact_sweep_folded_kernel (float64)", True, sb, inp, card)
+    cs.KERNEL.launches, cs.KERNEL.launches_folded = counts
+    return dict(ulps_vs_plain=ulps, **rec,
+                **_summary("contact_sweep_folded_kernel_f64", rec["ms"], bound, res, card))
 
 
 def phase_main_path(device, card):
@@ -3337,15 +3510,15 @@ def _far_pyramid_f64(device, card):
           f"largest rest-height error {err:.6f} (tol {FAR_TOL}); contact-sweep launches "
           f"{launches}; overflow {worst}")
     if route == "kernel" or launches:
-        _fail("an f64 scene reached the contact-sweep kernel")
+        _fail("the far pyramid's 2x2 block solve reached the contact-sweep kernel")
     if not err < FAR_TOL or any(worst.values()):
         _fail(f"the far pyramid does not stand at f64 (error {err}, overflow {worst})")
     return dict(steps_per_s=FAR_STEPS / took, rest_error=err, route=route, launches=launches)
 
 
 def _bench_dtypes(device, card):
-    """Phase 16(a), part 2: 4096 bench scenes at f64 (its masked route) and
-    at float32 with solver_backend="jax" (the same route)."""
+    """Phase 16(a), part 2: 4096 bench scenes at f64 and at float32, both
+    on the kernel route."""
     import torch
     from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
     from rapier_tpu_torch.pipeline.physics_pipeline import solve_path
@@ -3354,8 +3527,6 @@ def _bench_dtypes(device, card):
     for kind in ("f64", "f32"):
         state, params = (_f64(bench_world, device, N_SCENES) if kind == "f64"
                          else bench_world(device, N_SCENES))
-        if kind == "f32":
-            params = params.replace(solver_backend="jax")
         route = solve_path(state, params)
         cs.KERNEL.launches = cs.KERNEL.launches_folded = 0
         state, worst = run(state, params, F64_SETTLE)
@@ -3363,28 +3534,30 @@ def _bench_dtypes(device, card):
         t0 = time.perf_counter()
         (state, worst_t), peak = _peak_gib(lambda: run(state, params, F64_TIMED))
         took = time.perf_counter() - t0
-        launches = cs.KERNEL.launches + cs.KERNEL.launches_folded
+        launches, folded = cs.KERNEL.launches, cs.KERNEL.launches_folded
         rate = N_SCENES * F64_TIMED / took
         worst = {k: max(worst[k], worst_t[k]) for k in worst}
         print(f"bench at {kind}, {N_SCENES} scenes, route {route}: {rate:.1f} env-steps/s "
               f"({F64_TIMED} steps in {took:.3f} s after {F64_SETTLE}; {card}); peak device "
-              f"memory in the timed steps {peak:.3f} GiB; contact-sweep launches {launches}; "
-              f"overflow {worst}; dtype {state.bodies.pos.dtype}")
-        if route != "masked" or launches or any(worst.values()):
-            _fail(f"bench at {kind}: route {route}, launches {launches}, overflow {worst}")
+              f"memory in the timed steps {peak:.3f} GiB; contact-sweep launches {launches} + "
+              f"folded {folded}; overflow {worst}; dtype {state.bodies.pos.dtype}")
+        if (route != "kernel" or launches != F64_SETTLE + F64_TIMED or folded
+                or any(worst.values())):
+            _fail(f"bench at {kind}: route {route}, launches {launches} + folded {folded}, "
+                  f"overflow {worst}")
         _replicas_equal(f"bench at {kind}", state, ("bodies", "contacts"))
         print(f"bench at {kind}: all {N_SCENES} scenes bitwise equal to scene 0 after "
               f"{F64_SETTLE + F64_TIMED} steps")
-        stages = _stages(f"bench step at {kind}, {N_SCENES} scenes, masked", state, params,
+        stages = _stages(f"bench step at {kind}, {N_SCENES} scenes, kernel", state, params,
                          card, trace_steps=1)
         rows[kind] = dict(env_steps_per_s=rate, peak_gib=peak, route=route,
-                          launches=launches, kernels=stages["kernels"],
+                          launches=launches, launches_folded=folded, kernels=stages["kernels"],
                           device_share=stages["device_share"])
         if kind == "f64":
             capture = (state, params)
         del state
     rows["f64_over_f32"] = rows["f64"]["env_steps_per_s"] / rows["f32"]["env_steps_per_s"]
-    print(f"bench masked route: f64 / f32 env-steps/s = {rows['f64_over_f32']:.3f}")
+    print(f"bench kernel route: f64 / f32 env-steps/s = {rows['f64_over_f32']:.3f}")
     return rows, capture
 
 
@@ -3522,9 +3695,14 @@ def phase_remainder(device, card, captures):
         "trimesh_hull": _render_pair("the trimesh and hull scene", _hull_mesh_world(device)),
     }
     shard = rows["sharding"]
-    launches = {"far_pyramid_f64": 0, "bench_f64": 0, "bench_f32_jax": 0,
-                "sharded_bench_one_card": shard["one_card"]["launches"],
-                "sharded_bench_2_ranks": sum(shard["2 gloo ranks on card 0"]["launches"])}
+    dtypes = rows["bench_dtypes"]
+    # Each path's (block, folded) launches, both counted (the sharded runs
+    # fail on any folded launch).
+    launches = {"far_pyramid_f64": (0, 0),
+                **{f"bench_{kind}": (dtypes[kind]["launches"], dtypes[kind]["launches_folded"])
+                   for kind in ("f64", "f32")},
+                "sharded_bench_one_card": (shard["one_card"]["launches"], 0),
+                "sharded_bench_2_ranks": (sum(shard["2 gloo ranks on card 0"]["launches"]), 0)}
     took = time.time() - t_phase
     rows["phase_s"] = took
     print(f"[phase 16: {took:.1f} s]")
@@ -3774,6 +3952,9 @@ def main():
                          "--primitives-full) only")
     ap.add_argument("--ccd-only", action="store_true",
                     help="run the build and phase 13 (CCD and the multibody remainder) only")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="run the build and phases 2 and 3 at float32 and float64 (the "
+                         "contact-sweep kernels against the plain version, timed) only")
     ap.add_argument("--remainder-only", action="store_true",
                     help="run the build and phase 16 (the f64 axis, scene sharding and debug "
                          "render; on batches settled for it) and its phase 7 and 8 parts only")
@@ -3850,6 +4031,15 @@ def main():
         print(json.dumps({"queries": rows, "launches": launches, "card": card}))
         return
 
+    if args.kernels_only:
+        (block, bench), (folded, quadrupeds) = (phase(phase_kernel, device, card),
+                                                phase(phase_folded_kernel, device, card))
+        print(json.dumps({"kernels_only": {
+            "contact_sweep_kernel": block, "contact_sweep_folded_kernel": folded,
+            "contact_sweep_kernel_f64": phase(phase_kernel_f64, device, card, bench),
+            "contact_sweep_folded_kernel_f64": phase(phase_folded_kernel_f64, device, card,
+                                                     quadrupeds)}, "card": card}))
+        return
     if args.remainder_only:
         launches, rows, bench64 = phase(phase_remainder, device, card,
                                         _remainder_captures(device))
@@ -3857,8 +4047,10 @@ def main():
         print(json.dumps({"remainder": rows, "launches": launches, "card": card}))
         return
 
-    block = phase(phase_kernel, device, card)
+    block, settled = phase(phase_kernel, device, card)
     folded, quadrupeds = phase(phase_folded_kernel, device, card)
+    block64 = phase(phase_kernel_f64, device, card, settled)
+    folded64 = phase(phase_folded_kernel_f64, device, card, quadrupeds)
     block["launches"], _, bench_stages, bench = phase(phase_main_path, device, card)
     folded["launches"], _ = phase(phase_robots, device, card)
     stacks = tuple(sorted(set(PYRAMID_STACKS) | set(args.pyramid)))
@@ -3900,12 +4092,13 @@ def main():
                                   "multibody_arm": by_path["multibody_arm"]}
     for path, (k, n) in q_launches.items():
         (folded if k <= 128 else block)["launches_by_path"][path] = n
-    # Phase 16: the sharded bench (K = 256) on the block kernel; the f64
-    # paths, and the float32 bench on the masked route beside them, on neither.
-    for path, n in r_launches.items():
-        block["launches_by_path"][path] = n
-        if path.startswith(("far_pyramid", "bench_f")):
-            folded["launches_by_path"][path] = n
+    # Phase 16: each path's block and folded launches, the f64 paths' to the
+    # float64 builds, whose main path is the f64 bench.
+    block64["launches"], folded64["launches"] = r_launches["bench_f64"]
+    for path, (n_block, n_folded) in r_launches.items():
+        f64 = path.endswith("_f64")
+        (block64 if f64 else block).setdefault("launches_by_path", {})[path] = n_block
+        (folded64 if f64 else folded).setdefault("launches_by_path", {})[path] = n_folded
     source = "rapier_tpu_torch/csrc/contact_sweep.cu"
     print(json.dumps({"kernels": [
         {"name": "contact_sweep_kernel", "route": "cuda", "source": source,
@@ -3914,6 +4107,12 @@ def main():
         {"name": "contact_sweep_folded_kernel", "route": "cuda", "source": source,
          "replaces": "rapier_tpu/dynamics/solver/pallas_sweep.py:339",
          "library_ms": None, **folded},
+        {"name": "contact_sweep_kernel_f64", "route": "cuda", "source": source,
+         "replaces": "rapier_tpu/dynamics/solver/pallas_sweep.py:517",
+         "library_ms": None, **block64},
+        {"name": "contact_sweep_folded_kernel_f64", "route": "cuda", "source": source,
+         "replaces": "rapier_tpu/dynamics/solver/pallas_sweep.py:339",
+         "library_ms": None, **folded64},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

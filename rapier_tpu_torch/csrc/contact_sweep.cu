@@ -70,6 +70,25 @@
 // compile to no or few spills (`__launch_bounds__` with two blocks an SM).
 // Compiled with -fmad=false so the arithmetic rounds like the plain version.
 //
+// Float64.  Everything above is templated on the real type R and built for
+// float and double; a float64 scene (rapier3d-f64) computes and stores every
+// number in double, with the plain version's double constants and sqrt /
+// fmax / fmin / fabs.  Shared memory follows the same capacity rule on
+// 8-byte values: a lane takes 258 words of fields (the ints stay 4 bytes),
+// the bench's body table 6.5 KB.  The block kernel runs one block an SM at
+// double, holding 192 lanes of a bench scene on chip (232 KB), not two
+// blocks with 82: at 4096 bench piles of 0-149 valid lanes the one block
+// took 2.59 ms with every scene on chip, the two 2.99 ms with half of them
+// in the global scratch (PERF.md, NVIDIA H100 80GB HBM3 at 700 W; the
+// float build took 1.39 ms on the same inputs rounded to float).  Both use
+// all 255 registers a thread allows.  The folded kernel keeps a warp a scene and holds 4 scenes a
+// block at double (their slices of the float block's shared memory), so a
+// quadruped scene keeps 22 lanes on chip (21 at float).  The bound at double
+// is the bytes: the packed inputs and outputs, ~0.56 GB at the bench shape,
+// take 0.17 ms at 3.35 TB/s, where the valid lanes' ~6,000 operations each
+// take 0.05 ms at the FP64 vector rate of 34 TFLOP/s; the kernel, like the
+// float one, is paced by its scenes' chains of barrier-separated passes.
+//
 // The scene-folded kernel packs kFoldScenes = 8 scenes into a block, one
 // warp per scene: each warp owns an aligned shared-memory slice and
 // separates passes with __syncwarp(), so the scenes of a block never wait on
@@ -118,31 +137,71 @@ enum InfoRow { I_B1 = 0, I_B2 = 1, I_COLOR = 2, I_FLAGS = 3, I_LANE = 4, IF = 7 
 // Words a lane occupies: fields, info rows and its two endpoint-list entries.
 constexpr int kLaneWords = LF + IF + 2;
 
-struct V3 { float x, y, z; };
+// The arithmetic, templated on its real type R: float, or double for a
+// float64 scene.  Constants are R's own (a double 1e-12 is not the double
+// of the float 1e-12f), and the math functions R's: sqrt/fmax/fmin/fabs at
+// double, their f-suffixed forms at float.
+template <class R> struct Eps;
+template <> struct Eps<float> {
+  __device__ static float tiny() { return 1e-12f; }
+  __device__ static float axis() { return 1e-6f; }
+  __device__ static float slip() { return 1e-4f; }
+  __device__ static float norm2() { return 1e-24f; }
+};
+template <> struct Eps<double> {
+  __device__ static double tiny() { return 1e-12; }
+  __device__ static double axis() { return 1e-6; }
+  __device__ static double slip() { return 1e-4; }
+  __device__ static double norm2() { return 1e-24; }
+};
+__device__ __forceinline__ float msqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double msqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float mmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double mmax(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float mmin(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double mmin(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ float mabs(float x) { return fabsf(x); }
+__device__ __forceinline__ double mabs(double x) { return fabs(x); }
 
-__device__ __forceinline__ V3 mk(float x, float y, float z) { return {x, y, z}; }
-__device__ __forceinline__ V3 operator+(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
-__device__ __forceinline__ V3 operator-(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
-__device__ __forceinline__ V3 operator-(V3 a) { return {-a.x, -a.y, -a.z}; }
-__device__ __forceinline__ V3 operator*(V3 a, V3 b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
-__device__ __forceinline__ V3 operator*(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
-__device__ __forceinline__ V3 operator/(V3 a, float s) { return {a.x / s, a.y / s, a.z / s}; }
-__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+template <class R>
+struct V3 { R x, y, z; };
+
+template <class R>
+__device__ __forceinline__ V3<R> mk(R x, R y, R z) { return {x, y, z}; }
+template <class R>
+__device__ __forceinline__ V3<R> operator+(V3<R> a, V3<R> b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+template <class R>
+__device__ __forceinline__ V3<R> operator-(V3<R> a, V3<R> b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+template <class R>
+__device__ __forceinline__ V3<R> operator-(V3<R> a) { return {-a.x, -a.y, -a.z}; }
+template <class R>
+__device__ __forceinline__ V3<R> operator*(V3<R> a, V3<R> b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
+template <class R>
+__device__ __forceinline__ V3<R> operator*(V3<R> a, R s) { return {a.x * s, a.y * s, a.z * s}; }
+template <class R>
+__device__ __forceinline__ V3<R> operator/(V3<R> a, R s) { return {a.x / s, a.y / s, a.z / s}; }
+template <class R>
+__device__ __forceinline__ R dot(V3<R> a, V3<R> b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+template <class R>
+__device__ __forceinline__ V3<R> cross(V3<R> a, V3<R> b) {
   return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
 }
 
-struct Q { float x, y, z, w; };
+template <class R>
+struct Q { R x, y, z, w; };
 
-__device__ __forceinline__ V3 rotate(Q q, V3 v) {
-  V3 u = mk(q.x, q.y, q.z);
-  V3 t = cross(u, v) * 2.0f;
+template <class R>
+__device__ __forceinline__ V3<R> rotate(Q<R> q, V3<R> v) {
+  V3<R> u = mk(q.x, q.y, q.z);
+  V3<R> t = cross(u, v) * R(2);
   return v + t * q.w + cross(u, t);
 }
-__device__ __forceinline__ V3 inv_rotate(Q q, V3 v) {
-  return rotate({-q.x, -q.y, -q.z, q.w}, v);
+template <class R>
+__device__ __forceinline__ V3<R> inv_rotate(Q<R> q, V3<R> v) {
+  return rotate(Q<R>{-q.x, -q.y, -q.z, q.w}, v);
 }
-__device__ __forceinline__ V3 ii_mul(const float* ii, V3 v) {
+template <class R>
+__device__ __forceinline__ V3<R> ii_mul(const R* ii, V3<R> v) {
   return {ii[0] * v.x + ii[1] * v.y + ii[2] * v.z,
           ii[3] * v.x + ii[4] * v.y + ii[5] * v.z,
           ii[6] * v.x + ii[7] * v.y + ii[8] * v.z};
@@ -154,115 +213,118 @@ __device__ __forceinline__ V3 ii_mul(const float* ii, V3 v) {
 // immediate offset from the lane's base.  In the global scratch the fields
 // lie field-major (stride: the scene's lane count), so the same read is one
 // coalesced load.
-template <bool kOnChip>
+template <class R, bool kOnChip>
 struct Lane {
-  float* base;
+  R* base;
   int stride;
-  __device__ float& operator[](int f) const { return kOnChip ? base[f] : base[f * stride]; }
-  __device__ V3 v(int f) const { return mk((*this)[f], (*this)[f + 1], (*this)[f + 2]); }
-  __device__ void set(int f, V3 a) const {
+  __device__ R& operator[](int f) const { return kOnChip ? base[f] : base[f * stride]; }
+  __device__ V3<R> v(int f) const { return mk((*this)[f], (*this)[f + 1], (*this)[f + 2]); }
+  __device__ void set(int f, V3<R> a) const {
     (*this)[f] = a.x; (*this)[f + 1] = a.y; (*this)[f + 2] = a.z;
   }
 };
 
 // Shared body table, a body's BR_ROWS (odd) words together: row r of body j
 // at s[j * BR_ROWS + r].
+template <class R>
 struct Table {
-  float* s;
-  __device__ float& at(int r, int j) const { return s[j * BR_ROWS + r]; }
-  __device__ V3 v(int r, int j) const { return mk(at(r, j), at(r + 1, j), at(r + 2, j)); }
-  __device__ Q q(int r, int j) const { return {at(r, j), at(r + 1, j), at(r + 2, j), at(r + 3, j)}; }
-  __device__ void add(int r, int j, V3 d) const {
+  R* s;
+  __device__ R& at(int r, int j) const { return s[j * BR_ROWS + r]; }
+  __device__ V3<R> v(int r, int j) const { return mk(at(r, j), at(r + 1, j), at(r + 2, j)); }
+  __device__ Q<R> q(int r, int j) const { return {at(r, j), at(r + 1, j), at(r + 2, j), at(r + 3, j)}; }
+  __device__ void add(int r, int j, V3<R> d) const {
     at(r, j) = at(r, j) + d.x; at(r + 1, j) = at(r + 1, j) + d.y; at(r + 2, j) = at(r + 2, j) + d.z;
   }
   // Body j's inverse inertia (constant over the solve).
-  __device__ void ii(int j, float* out) const {
+  __device__ void ii(int j, R* out) const {
     for (int e = 0; e < 9; ++e) out[e] = at(BR_II + e, j);
   }
 };
 
+template <class R>
 struct Params {
-  float dt_sub, inv_dt_sub, erp_inv_dt, cfm_factor, allowed_lin_err,
+  R dt_sub, inv_dt_sub, erp_inv_dt, cfm_factor, allowed_lin_err,
       max_corrective_velocity, warmstart_coeff;
   int n_sub, pgs_iters, stab_iters, max_colors;
 };
 
-__device__ V3 tangent_direction(V3 dir1, V3 lv1, V3 lv2) {
-  V3 rel = lv1 - lv2;
-  V3 tan = rel - dir1 * dot(dir1, rel);
-  float norm = sqrtf(dot(tan, tan));
-  V3 tan_n = tan / fmaxf(norm, 1e-12f);
-  V3 a = mk(0.0f, dir1.z, -dir1.y);
-  V3 b = mk(-dir1.z, 0.0f, dir1.x);
-  V3 fb = sqrtf(dot(a, a)) > 1e-6f ? a : b;
-  fb = fb / fmaxf(sqrtf(dot(fb, fb)), 1e-12f);
-  return norm < 1e-4f ? fb : tan_n;
+template <class R>
+__device__ V3<R> tangent_direction(V3<R> dir1, V3<R> lv1, V3<R> lv2) {
+  V3<R> rel = lv1 - lv2;
+  V3<R> tan = rel - dir1 * dot(dir1, rel);
+  R norm = msqrt(dot(tan, tan));
+  V3<R> tan_n = tan / mmax(norm, Eps<R>::tiny());
+  V3<R> a = mk(R(0), dir1.z, -dir1.y);
+  V3<R> b = mk(-dir1.z, R(0), dir1.x);
+  V3<R> fb = msqrt(dot(a, a)) > Eps<R>::axis() ? a : b;
+  fb = fb / mmax(msqrt(dot(fb, fb)), Eps<R>::tiny());
+  return norm < Eps<R>::slip() ? fb : tan_n;
 }
 
 // contact_constraints.generate_from + warmstart injection, one lane; `mf`
 // points at the lane's column of the packed float rows.
-template <class LaneT>
-__device__ void generate_lane(const LaneT& L, const float* mf, int K, int i1, int i2,
-                              int flags, const Table& T) {
-  V3 v1l = T.v(BR_VLIN, i1), w1 = T.v(BR_VANG, i1), com1 = T.v(BR_COM, i1);
-  V3 v2l = T.v(BR_VLIN, i2), w2 = T.v(BR_VANG, i2), com2 = T.v(BR_COM, i2);
-  Q rot1 = T.q(BR_ROT, i1), rot2 = T.q(BR_ROT, i2);
-  V3 im1 = T.v(BR_IM, i1), im2 = T.v(BR_IM, i2);
-  float ii1[9], ii2[9];
+template <class R, class LaneT>
+__device__ void generate_lane(const LaneT& L, const R* mf, int K, int i1, int i2,
+                              int flags, const Table<R>& T) {
+  V3<R> v1l = T.v(BR_VLIN, i1), w1 = T.v(BR_VANG, i1), com1 = T.v(BR_COM, i1);
+  V3<R> v2l = T.v(BR_VLIN, i2), w2 = T.v(BR_VANG, i2), com2 = T.v(BR_COM, i2);
+  Q<R> rot1 = T.q(BR_ROT, i1), rot2 = T.q(BR_ROT, i2);
+  V3<R> im1 = T.v(BR_IM, i1), im2 = T.v(BR_IM, i2);
+  R ii1[9], ii2[9];
   T.ii(i1, ii1);
   T.ii(i2, ii2);
 
-  V3 dir1 = -mk(mf[(MR_NORMAL) * K], mf[(MR_NORMAL + 1) * K], mf[(MR_NORMAL + 2) * K]);
-  V3 tan1 = tangent_direction(dir1, v1l, v2l);
-  V3 tan2 = cross(dir1, tan1);
-  V3 pts[4];
-  float fm[4];
+  V3<R> dir1 = -mk(mf[(MR_NORMAL) * K], mf[(MR_NORMAL + 1) * K], mf[(MR_NORMAL + 2) * K]);
+  V3<R> tan1 = tangent_direction(dir1, v1l, v2l);
+  V3<R> tan2 = cross(dir1, tan1);
+  V3<R> pts[4];
+  R fm[4];
   for (int k = 0; k < 4; ++k) {
     pts[k] = mk(mf[(MR_POINT + 3 * k) * K], mf[(MR_POINT + 3 * k + 1) * K],
                 mf[(MR_POINT + 3 * k + 2) * K]);
-    fm[k] = (flags >> (3 + k)) & 1 ? 1.0f : 0.0f;
+    fm[k] = (flags >> (3 + k)) & 1 ? R(1) : R(0);
   }
-  float npts = fm[0] + fm[1] + fm[2] + fm[3];
-  float inv_np = 1.0f / fmaxf(npts, 1.0f);
-  V3 imsum = im1 + im2;
-  float dir_im = dot(dir1, imsum * dir1);
-  float rest = mf[MR_REST * K];
+  R npts = fm[0] + fm[1] + fm[2] + fm[3];
+  R inv_np = R(1) / mmax(npts, R(1));
+  V3<R> imsum = im1 + im2;
+  R dir_im = dot(dir1, imsum * dir1);
+  R rest = mf[MR_REST * K];
   for (int k = 0; k < 4; ++k) {
-    V3 dp1 = pts[k] - com1, dp2 = pts[k] - com2;
-    V3 vel1 = v1l + cross(w1, dp1), vel2 = v2l + cross(w2, dp2);
-    V3 td1 = cross(dp1, dir1), td2 = cross(dp2, -dir1);
-    V3 iitd1 = ii_mul(ii1, td1), iitd2 = ii_mul(ii2, td2);
-    float denom = dir_im + dot(iitd1, td1) + dot(iitd2, td2);
-    float proj = dot(vel1 - vel2, dir1);
+    V3<R> dp1 = pts[k] - com1, dp2 = pts[k] - com2;
+    V3<R> vel1 = v1l + cross(w1, dp1), vel2 = v2l + cross(w2, dp2);
+    V3<R> td1 = cross(dp1, dir1), td2 = cross(dp2, -dir1);
+    V3<R> iitd1 = ii_mul(ii1, td1), iitd2 = ii_mul(ii2, td2);
+    R denom = dir_im + dot(iitd1, td1) + dot(iitd2, td2);
+    R proj = dot(vel1 - vel2, dir1);
     L.set(F_TD1 + 3 * k, td1);
     L.set(F_TD2 + 3 * k, td2);
-    L[F_R + k] = 1.0f / fmaxf(denom, 1e-12f);
+    L[F_R + k] = R(1) / mmax(denom, Eps<R>::tiny());
     L.set(F_LP1 + 3 * k, inv_rotate(rot1, dp1));
     L.set(F_LP2 + 3 * k, inv_rotate(rot2, dp2));
     // `prev_impulse == 0` exactly: a new contact bounces whenever
     // restitution > 0, a persisting one only at restitution >= 1.
-    float bouncy = mf[(MR_PREV + k) * K] == 0.0f ? (rest > 0.0f ? 1.0f : 0.0f)
-                                                 : (rest >= 1.0f ? 1.0f : 0.0f);
+    R bouncy = mf[(MR_PREV + k) * K] == R(0) ? (rest > R(0) ? R(1) : R(0))
+                                             : (rest >= R(1) ? R(1) : R(0));
     L[F_NVRHS + k] = bouncy * rest * proj;
     L[F_DIST0 + k] = mf[(MR_DIST + k) * K];
-    L[F_RHS + k] = 0.0f;
-    L[F_RHSWO + k] = 0.0f;
+    L[F_RHS + k] = R(0);
+    L[F_RHSWO + k] = R(0);
     L[F_IMP + k] = mf[(MR_WSN + k) * K] * fm[k];
-    L[F_IMPACC + k] = 0.0f;
+    L[F_IMPACC + k] = R(0);
   }
-  V3 fc = mk(0.0f, 0.0f, 0.0f);
+  V3<R> fc = mk(R(0), R(0), R(0));
   for (int k = 0; k < 4; ++k) fc = fc + pts[k] * fm[k];
   fc = fc * inv_np;
   L.set(F_FC1, inv_rotate(rot1, fc - com1));
   L.set(F_FC2, inv_rotate(rot2, fc - com2));
   for (int k = 0; k < 4; ++k) {
-    V3 d = fc - pts[k];
-    L[F_TWD + k] = fm[k] > 0.0f ? sqrtf(fmaxf(dot(d, d), 0.0f)) : 0.0f;
+    V3<R> d = fc - pts[k];
+    L[F_TWD + k] = fm[k] > R(0) ? msqrt(mmax(dot(d, d), R(0))) : R(0);
   }
-  V3 dfp1 = fc - com1, dfp2 = fc - com2;
-  V3 tans[2] = {tan1, tan2};
-  V3 ttd1[2], ttd2[2], tiitd1[2], tiitd2[2];
-  float tr[2];
+  V3<R> dfp1 = fc - com1, dfp2 = fc - com2;
+  V3<R> tans[2] = {tan1, tan2};
+  V3<R> ttd1[2], ttd2[2], tiitd1[2], tiitd2[2];
+  R tr[2];
   for (int j = 0; j < 2; ++j) {
     ttd1[j] = cross(dfp1, tans[j]);
     ttd2[j] = cross(dfp2, -tans[j]);
@@ -274,87 +336,87 @@ __device__ void generate_lane(const LaneT& L, const float* mf, int K, int i1, in
   }
   L[F_TANR] = tr[0];
   L[F_TANR + 1] = tr[1];
-  L[F_TANR + 2] = 2.0f * (dot(tiitd1[0], ttd1[1]) + dot(tiitd2[0], ttd2[1]));
-  V3 twii1 = ii_mul(ii1, dir1), twii2 = ii_mul(ii2, -dir1);
-  L[F_TWR] = 1.0f / fmaxf(dot(twii1, dir1) + dot(twii2, -dir1), 1e-12f);
+  L[F_TANR + 2] = R(2) * (dot(tiitd1[0], ttd1[1]) + dot(tiitd2[0], ttd2[1]));
+  V3<R> twii1 = ii_mul(ii1, dir1), twii2 = ii_mul(ii2, -dir1);
+  L[F_TWR] = R(1) / mmax(dot(twii1, dir1) + dot(twii2, -dir1), Eps<R>::tiny());
   L.set(F_DIR1, dir1);
   L.set(F_TAN1, tan1);
   L[F_LIMIT] = mf[MR_FRIC * K];
   for (int j = 0; j < 2; ++j) {
-    L[F_TRHS + j] = 0.0f;
+    L[F_TRHS + j] = R(0);
     L[F_TIMP + j] = mf[(MR_WST + j) * K];
-    L[F_TIMPACC + j] = 0.0f;
+    L[F_TIMPACC + j] = R(0);
   }
   L[F_TWIMP] = mf[MR_WSTW * K];
-  L[F_TWIMPACC] = 0.0f;
+  L[F_TWIMPACC] = R(0);
 }
 
 // contact_constraints.update, one lane.
-template <class LaneT>
-__device__ void update_lane(const LaneT& L, int i1, int i2, const Table& T,
-                            const Params& p) {
-  V3 com1 = T.v(BR_COM, i1), com2 = T.v(BR_COM, i2);
-  Q rot1 = T.q(BR_ROT, i1), rot2 = T.q(BR_ROT, i2);
-  V3 dir1 = L.v(F_DIR1);
+template <class R, class LaneT>
+__device__ void update_lane(const LaneT& L, int i1, int i2, const Table<R>& T,
+                            const Params<R>& p) {
+  V3<R> com1 = T.v(BR_COM, i1), com2 = T.v(BR_COM, i2);
+  Q<R> rot1 = T.q(BR_ROT, i1), rot2 = T.q(BR_ROT, i2);
+  V3<R> dir1 = L.v(F_DIR1);
   for (int k = 0; k < 4; ++k) {
-    V3 a = com1 + rotate(rot1, L.v(F_LP1 + 3 * k));
-    V3 b = com2 + rotate(rot2, L.v(F_LP2 + 3 * k));
-    float dist = L[F_DIST0 + k] + dot(a - b, dir1);
-    float rhs_wo = L[F_NVRHS + k] + fmaxf(dist, 0.0f) * p.inv_dt_sub;
-    float bias = fminf(fmaxf((dist + p.allowed_lin_err) * p.erp_inv_dt,
-                             -p.max_corrective_velocity), 0.0f);
+    V3<R> a = com1 + rotate(rot1, L.v(F_LP1 + 3 * k));
+    V3<R> b = com2 + rotate(rot2, L.v(F_LP2 + 3 * k));
+    R dist = L[F_DIST0 + k] + dot(a - b, dir1);
+    R rhs_wo = L[F_NVRHS + k] + mmax(dist, R(0)) * p.inv_dt_sub;
+    R bias = mmin(mmax((dist + p.allowed_lin_err) * p.erp_inv_dt,
+                       -p.max_corrective_velocity), R(0));
     L[F_RHSWO + k] = rhs_wo;
     L[F_RHS + k] = rhs_wo + bias;
-    float imp = L[F_IMP + k];
+    R imp = L[F_IMP + k];
     L[F_IMPACC + k] = L[F_IMPACC + k] + imp;
     L[F_IMP + k] = imp * p.warmstart_coeff;
   }
-  V3 tan1 = L.v(F_TAN1);
-  V3 tan2 = cross(dir1, tan1);
-  V3 dfc = (com1 + rotate(rot1, L.v(F_FC1))) - (com2 + rotate(rot2, L.v(F_FC2)));
+  V3<R> tan1 = L.v(F_TAN1);
+  V3<R> tan2 = cross(dir1, tan1);
+  V3<R> dfc = (com1 + rotate(rot1, L.v(F_FC1))) - (com2 + rotate(rot2, L.v(F_FC2)));
   // The tangent rhs without bias is zero after generation.
-  L[F_TRHS] = 0.0f + dot(dfc, tan1) * p.inv_dt_sub;
-  L[F_TRHS + 1] = 0.0f + dot(dfc, tan2) * p.inv_dt_sub;
+  L[F_TRHS] = R(0) + dot(dfc, tan1) * p.inv_dt_sub;
+  L[F_TRHS + 1] = R(0) + dot(dfc, tan2) * p.inv_dt_sub;
   for (int j = 0; j < 2; ++j) {
-    float t = L[F_TIMP + j];
+    R t = L[F_TIMP + j];
     L[F_TIMPACC + j] = L[F_TIMPACC + j] + t;
     L[F_TIMP + j] = t * p.warmstart_coeff;
   }
-  float tw = L[F_TWIMP];
+  R tw = L[F_TWIMP];
   L[F_TWIMPACC] = L[F_TWIMPACC] + tw;
   L[F_TWIMP] = tw * p.warmstart_coeff;
 }
 
 // contact_constraints.warmstart: this (valid) lane's velocity deltas for
 // both endpoints, stored in the delta rows.
-template <class LaneT>
-__device__ void warmstart_lane(const LaneT& L, int i1, int i2, int flags, const Table& T) {
-  float imp[4];
-  float imp_sum = 0.0f;
+template <class R, class LaneT>
+__device__ void warmstart_lane(const LaneT& L, int i1, int i2, int flags, const Table<R>& T) {
+  R imp[4];
+  R imp_sum = R(0);
   for (int k = 0; k < 4; ++k) {
-    float act = ((flags >> (3 + k)) & 1) ? 1.0f : 0.0f;
+    R act = ((flags >> (3 + k)) & 1) ? R(1) : R(0);
     imp[k] = L[F_IMP + k] * act;
   }
   imp_sum = imp[0] + imp[1] + imp[2] + imp[3];
-  V3 dir1 = L.v(F_DIR1), tan1 = L.v(F_TAN1);
-  V3 im1 = T.v(BR_IM, i1), im2 = T.v(BR_IM, i2);
-  float ii1[9], ii2[9];
+  V3<R> dir1 = L.v(F_DIR1), tan1 = L.v(F_TAN1);
+  V3<R> im1 = T.v(BR_IM, i1), im2 = T.v(BR_IM, i2);
+  R ii1[9], ii2[9];
   T.ii(i1, ii1);
   T.ii(i2, ii2);
-  V3 dv1 = dir1 * im1 * imp_sum;
-  V3 dv2 = -dir1 * im2 * imp_sum;
-  V3 dw1 = mk(0.0f, 0.0f, 0.0f), dw2 = mk(0.0f, 0.0f, 0.0f);
+  V3<R> dv1 = dir1 * im1 * imp_sum;
+  V3<R> dv2 = -dir1 * im2 * imp_sum;
+  V3<R> dw1 = mk(R(0), R(0), R(0)), dw2 = mk(R(0), R(0), R(0));
   for (int k = 0; k < 4; ++k) {
     dw1 = dw1 + ii_mul(ii1, L.v(F_TD1 + 3 * k)) * imp[k];
     dw2 = dw2 + ii_mul(ii2, L.v(F_TD2 + 3 * k)) * imp[k];
   }
-  float ti0 = L[F_TIMP], ti1 = L[F_TIMP + 1];
-  V3 tan_lin = tan1 * ti0 + cross(dir1, tan1) * ti1;
+  R ti0 = L[F_TIMP], ti1 = L[F_TIMP + 1];
+  V3<R> tan_lin = tan1 * ti0 + cross(dir1, tan1) * ti1;
   dv1 = dv1 + tan_lin * im1;
   dv2 = dv2 - tan_lin * im2;
   dw1 = dw1 + ii_mul(ii1, L.v(F_TTD1)) * ti0 + ii_mul(ii1, L.v(F_TTD1 + 3)) * ti1;
   dw2 = dw2 + ii_mul(ii2, L.v(F_TTD2)) * ti0 + ii_mul(ii2, L.v(F_TTD2 + 3)) * ti1;
-  float wi = L[F_TWIMP];
+  R wi = L[F_TWIMP];
   dw1 = dw1 + ii_mul(ii1, dir1) * wi;
   dw2 = dw2 + ii_mul(ii2, -dir1) * wi;
   L.set(F_DELTA, dv1);
@@ -366,29 +428,29 @@ __device__ void warmstart_lane(const LaneT& L, int i1, int i2, int flags, const 
 // contact_constraints.solve_color for one lane of the color being swept.
 // Returns the velocity deltas of both endpoints through d[4] (dv1 dw1 dv2
 // dw2) and updates the lane's impulses.
-template <class LaneT>
+template <class R, class LaneT>
 __device__ void solve_lane(const LaneT& L, int i1, int i2, int flags,
-                           const Table& T, bool use_bias, float cfm_factor,
-                           V3* d) {
-  V3 v1 = T.v(BR_VLIN, i1), w1 = T.v(BR_VANG, i1);
-  V3 v2 = T.v(BR_VLIN, i2), w2 = T.v(BR_VANG, i2);
-  const V3 v1_0 = v1, w1_0 = w1, v2_0 = v2, w2_0 = w2;
-  const float cfm = use_bias ? cfm_factor : 1.0f;
+                           const Table<R>& T, bool use_bias, R cfm_factor,
+                           V3<R>* d) {
+  V3<R> v1 = T.v(BR_VLIN, i1), w1 = T.v(BR_VANG, i1);
+  V3<R> v2 = T.v(BR_VLIN, i2), w2 = T.v(BR_VANG, i2);
+  const V3<R> v1_0 = v1, w1_0 = w1, v2_0 = v2, w2_0 = w2;
+  const R cfm = use_bias ? cfm_factor : R(1);
   const int rhs_f = use_bias ? F_RHS : F_RHSWO;
-  V3 dir1 = L.v(F_DIR1);
-  V3 im1 = T.v(BR_IM, i1), im2 = T.v(BR_IM, i2);
-  float ii1[9], ii2[9];
+  V3<R> dir1 = L.v(F_DIR1);
+  V3<R> im1 = T.v(BR_IM, i1), im2 = T.v(BR_IM, i2);
+  R ii1[9], ii2[9];
   T.ii(i1, ii1);
   T.ii(i2, ii2);
 
-  float imp[4], act[4];
+  R imp[4], act[4];
   for (int k = 0; k < 4; ++k) {
-    act[k] = (flags >> (3 + k)) & 1 ? 1.0f : 0.0f;
+    act[k] = (flags >> (3 + k)) & 1 ? R(1) : R(0);
     imp[k] = L[F_IMP + k];
-    V3 td1 = L.v(F_TD1 + 3 * k), td2 = L.v(F_TD2 + 3 * k);
-    float dvel = dot(dir1, v1) + dot(td1, w1) - dot(dir1, v2) + dot(td2, w2) + L[rhs_f + k];
-    float new_imp = cfm * fmaxf(imp[k] - L[F_R + k] * dvel, 0.0f);
-    float dl = (new_imp - imp[k]) * act[k];
+    V3<R> td1 = L.v(F_TD1 + 3 * k), td2 = L.v(F_TD2 + 3 * k);
+    R dvel = dot(dir1, v1) + dot(td1, w1) - dot(dir1, v2) + dot(td2, w2) + L[rhs_f + k];
+    R new_imp = cfm * mmax(imp[k] - L[F_R + k] * dvel, R(0));
+    R dl = (new_imp - imp[k]) * act[k];
     imp[k] = imp[k] + dl;
     v1 = v1 + dir1 * im1 * dl;
     w1 = w1 + ii_mul(ii1, td1) * dl;
@@ -398,45 +460,45 @@ __device__ void solve_lane(const LaneT& L, int i1, int i2, int flags,
   for (int k = 0; k < 4; ++k) L[F_IMP + k] = imp[k];
 
   // Friction limits scale with the solved normal impulses.
-  float ar[4];
+  R ar[4];
   for (int k = 0; k < 4; ++k) ar[k] = act[k] * imp[k];
-  float limit = L[F_LIMIT];
-  float tangent_limit = (ar[0] + ar[1] + ar[2] + ar[3]) * limit;
-  float tw_sum = 0.0f;
+  R limit = L[F_LIMIT];
+  R tangent_limit = (ar[0] + ar[1] + ar[2] + ar[3]) * limit;
+  R tw_sum = R(0);
   for (int k = 0; k < 4; ++k) tw_sum = tw_sum + ar[k] * L[F_TWD + k];
-  float twist_limit = tw_sum * limit;
+  R twist_limit = tw_sum * limit;
 
   // Coupled 2-D tangent solve (contact_constraint_element.rs:161-203).
-  V3 tan1 = L.v(F_TAN1);
-  V3 t2 = cross(dir1, tan1);
-  float trhs0 = use_bias ? L[F_TRHS] : 0.0f, trhs1 = use_bias ? L[F_TRHS + 1] : 0.0f;
-  V3 ttd1_0 = L.v(F_TTD1), ttd1_1 = L.v(F_TTD1 + 3);
-  V3 ttd2_0 = L.v(F_TTD2), ttd2_1 = L.v(F_TTD2 + 3);
-  float d0 = dot(tan1, v1) + dot(ttd1_0, w1) - dot(tan1, v2) + dot(ttd2_0, w2) + trhs0;
-  float d1 = dot(t2, v1) + dot(ttd1_1, w1) - dot(t2, v2) + dot(ttd2_1, w2) + trhs1;
-  float d00 = d0 * d0, d11 = d1 * d1, d01 = d0 * d1;
-  float denom = d00 * L[F_TANR] + d11 * L[F_TANR + 1] + d01 * L[F_TANR + 2];
-  float inv_lhs = (d00 + d11) / (fabsf(denom) < 1e-12f ? 1e-12f : denom);
-  float ti0 = L[F_TIMP], ti1 = L[F_TIMP + 1];
-  float nt0 = ti0 - inv_lhs * d0;
-  float nt1 = ti1 - inv_lhs * d1;
-  float t_norm = sqrtf(nt0 * nt0 + nt1 * nt1);
-  float scale = t_norm > tangent_limit ? tangent_limit / fmaxf(t_norm, 1e-12f) : 1.0f;
-  float dl0 = nt0 * scale - ti0, dl1 = nt1 * scale - ti1;
+  V3<R> tan1 = L.v(F_TAN1);
+  V3<R> t2 = cross(dir1, tan1);
+  R trhs0 = use_bias ? L[F_TRHS] : R(0), trhs1 = use_bias ? L[F_TRHS + 1] : R(0);
+  V3<R> ttd1_0 = L.v(F_TTD1), ttd1_1 = L.v(F_TTD1 + 3);
+  V3<R> ttd2_0 = L.v(F_TTD2), ttd2_1 = L.v(F_TTD2 + 3);
+  R d0 = dot(tan1, v1) + dot(ttd1_0, w1) - dot(tan1, v2) + dot(ttd2_0, w2) + trhs0;
+  R d1 = dot(t2, v1) + dot(ttd1_1, w1) - dot(t2, v2) + dot(ttd2_1, w2) + trhs1;
+  R d00 = d0 * d0, d11 = d1 * d1, d01 = d0 * d1;
+  R denom = d00 * L[F_TANR] + d11 * L[F_TANR + 1] + d01 * L[F_TANR + 2];
+  R inv_lhs = (d00 + d11) / (mabs(denom) < Eps<R>::tiny() ? Eps<R>::tiny() : denom);
+  R ti0 = L[F_TIMP], ti1 = L[F_TIMP + 1];
+  R nt0 = ti0 - inv_lhs * d0;
+  R nt1 = ti1 - inv_lhs * d1;
+  R t_norm = msqrt(nt0 * nt0 + nt1 * nt1);
+  R scale = t_norm > tangent_limit ? tangent_limit / mmax(t_norm, Eps<R>::tiny()) : R(1);
+  R dl0 = nt0 * scale - ti0, dl1 = nt1 * scale - ti1;
   L[F_TIMP] = ti0 + dl0;
   L[F_TIMP + 1] = ti1 + dl1;
-  V3 dvt = tan1 * dl0 + t2 * dl1;
+  V3<R> dvt = tan1 * dl0 + t2 * dl1;
   v1 = v1 + dvt * im1;
   v2 = v2 - dvt * im2;
   w1 = w1 + ii_mul(ii1, ttd1_0) * dl0 + ii_mul(ii1, ttd1_1) * dl1;
   w2 = w2 + ii_mul(ii2, ttd2_0) * dl0 + ii_mul(ii2, ttd2_1) * dl1;
 
   // Twist (only with >= 2 points), clamped to the twist limit.
-  float npts = act[0] + act[1] + act[2] + act[3];
-  float has_twist = npts > 1.5f ? 1.0f : 0.0f;
-  float tw = L[F_TWIMP];
-  float new_tw = fminf(fmaxf(tw - L[F_TWR] * dot(dir1, w1 - w2), -twist_limit), twist_limit);
-  float dl_tw = (new_tw - tw) * has_twist;
+  R npts = act[0] + act[1] + act[2] + act[3];
+  R has_twist = npts > R(1.5) ? R(1) : R(0);
+  R tw = L[F_TWIMP];
+  R new_tw = mmin(mmax(tw - L[F_TWR] * dot(dir1, w1 - w2), -twist_limit), twist_limit);
+  R dl_tw = (new_tw - tw) * has_twist;
   L[F_TWIMP] = tw + dl_tw;
   w1 = w1 + ii_mul(ii1, dir1) * dl_tw;
   w2 = w2 + ii_mul(ii2, -dir1) * dl_tw;
@@ -459,7 +521,20 @@ struct WarpGroup {
   __device__ static void sync() { __syncwarp(); }
 };
 
-constexpr int kFoldScenes = kFoldThreads / WarpGroup::kSize;  // scenes per folded block
+// 4-byte words of one R.
+template <class R>
+constexpr int kWords = sizeof(R) / 4;
+// Scenes per folded block: as many as fill the float block's shared words,
+// so 8 at float and 4 at double (a scene's slice holds about as many lanes).
+template <class R>
+constexpr int kFoldScenes = 8 / kWords<R>;
+template <class R>
+constexpr int kFoldBlockThreads = kFoldScenes<R> * WarpGroup::kSize;
+// Resident blocks of contact_sweep_kernel an SM: two at float; at double,
+// one, so that a scene keeps ~190 lanes on chip (two would keep ~80, and a
+// pile's 100-180 valid lanes would spill to the global scratch).
+template <class R>
+constexpr int kBlocksPerSM = sizeof(R) == 4 ? 2 : 1;
 // Lanes a folded scene holds on chip at most: one per thread of its warp.
 constexpr int kFoldMaxCapacity = 32;
 // Shared memory of an SM, what each resident block reserves of it, and the
@@ -474,20 +549,42 @@ __device__ __forceinline__ int bucket(int color, int max_colors) {
   return color >= 0 && color < max_colors ? color : max_colors;
 }
 
-// Shared words of one scene before its lanes: body table, mover flags,
-// endpoint-list offsets, conflict flags, bucket starts and counts, and the
-// per-warp bucket counts of the compaction; rounded up to 16 bytes.
+// Shared words of one scene before its lanes: body table (kWords<R> words
+// a value), mover flags, endpoint-list offsets, conflict flags, bucket
+// starts and counts, and the per-warp bucket counts of the compaction;
+// rounded up to 16 bytes.
+template <class R>
 __host__ __device__ inline int scene_fixed_words(int n1, int max_colors, int warps) {
   const int nb = max_colors + 1;
-  int words = BR_ROWS * n1 + n1 + (n1 + 1) + max_colors + (nb + 1) + nb + warps * nb;
+  int words = kWords<R> * BR_ROWS * n1 + n1 + (n1 + 1) + max_colors + (nb + 1) + nb + warps * nb;
   return (words + 3) / 4 * 4;
 }
 
+// The words after `lanes` compacted lanes' info words and endpoint-list
+// entries that bring their fields to a whole R: none at float.
+template <class R>
+__host__ __device__ inline int lane_pad(int lanes) {
+  return sizeof(R) == 4 ? 0 : ((IF + 2) * lanes) & 1;
+}
+
+// 4-byte words of `lanes` compacted lanes' storage on chip: their int
+// words, the pad, then LF fields a lane.
+template <class R>
+__host__ __device__ inline int lanes_words(int lanes) {
+  return (IF + 2) * lanes + lane_pad<R>(lanes) + kWords<R> * LF * lanes;
+}
+
+// R a lane of a scene's global scratch takes, its int words rounded up:
+// the scene's K lanes fit kLaneReals<R> * K of them.
+template <class R>
+constexpr int kLaneReals = sizeof(R) == 4 ? kLaneWords : LF + (IF + 2 + 1) / 2;
+
 // One scene's inputs and shared tables.
+template <class R>
 struct Scene {
-  const float* mf;   // packed float rows [MR_ROWS, K]
+  const R* mf;       // packed float rows [MR_ROWS, K]
   const int* mi;     // packed int rows [4, K]
-  Table T;
+  Table<R> T;
   int* s_move;
   int* s_off;        // [n1 + 1] endpoint-list offsets
   int* s_conflict;   // [max_colors] self-conflicting colors
@@ -500,30 +597,31 @@ struct Scene {
 // Everything after the scene's valid lanes are counted: compaction, lists,
 // generation, the substep loop and the valid lanes' outputs.  Room for
 // `lanes` compacted lanes at `store`: their info words, [2 * lanes]
-// endpoint-list entries, then their fields.  kOnChip says whether `store` is
-// the scene's shared memory past its fixed words (a lane's words together:
-// [lanes, IF] and [lanes, LF]) or its slice of the global scratch (field-
-// major: [IF, lanes] and [LF, lanes]); the arithmetic is the same code.
-template <class G, bool kOnChip>
-__device__ __forceinline__ void solve_lanes(const Scene& S, float* store, int lanes,
-                                            float* __restrict__ oi, const Params& p) {
+// endpoint-list entries, then (at an R boundary) their fields.  kOnChip
+// says whether `store` is the scene's shared memory past its fixed words (a
+// lane's words together: [lanes, IF] and [lanes, LF]) or its slice of the
+// global scratch (field-major: [IF, lanes] and [LF, lanes]); the arithmetic
+// is the same code.
+template <class G, bool kOnChip, class R>
+__device__ __forceinline__ void solve_lanes(const Scene<R>& S, R* store, int lanes,
+                                            R* __restrict__ oi, const Params<R>& p) {
   constexpr int NT = G::kSize;
   const int tid = G::rank(), warp = tid >> 5, wl = tid & 31;
   const int K = S.K, n1 = S.n1, nv = S.nv, nb = S.nb;
   const int n = n1 - 1;  // sentinel column
-  const Table& T = S.T;
+  const Table<R>& T = S.T;
   const int* mi = S.mi;
   int* const info_words = reinterpret_cast<int*>(store);
   int* const csr = info_words + IF * lanes;
-  float* const state = reinterpret_cast<float*>(csr + 2 * lanes);
+  R* const state = reinterpret_cast<R*>(csr + 2 * lanes + lane_pad<R>(lanes));
   auto info = [&](int pos, int w) -> int& {
     return info_words[kOnChip ? pos * IF + w : w * lanes + pos];
   };
   auto lane = [&](int pos) {
     if constexpr (kOnChip)
-      return Lane<true>{state + pos * LF, 1};
+      return Lane<R, true>{state + pos * LF, 1};
     else
-      return Lane<false>{state + pos, lanes};
+      return Lane<R, false>{state + pos, lanes};
   };
 
   // Compaction, color-major: the valid lanes of color bucket c take
@@ -616,7 +714,7 @@ __device__ __forceinline__ void solve_lanes(const Scene& S, float* store, int la
     const int lo = color >= 0 ? S.s_cstart[color] : 0;
     const int hi = color >= 0 ? S.s_cstart[color + 1] : nv;
     for (int j = tid; j < n; j += NT) {
-      V3 dv = mk(0.0f, 0.0f, 0.0f), dw = mk(0.0f, 0.0f, 0.0f);
+      V3<R> dv = mk(R(0), R(0), R(0)), dw = mk(R(0), R(0), R(0));
       for (int a = S.s_off[j]; a < S.s_off[j + 1]; ++a) {
         const int e = csr[a], pos = e >> 1, ep = e & 1;
         if (pos < lo || pos >= hi) continue;
@@ -637,7 +735,7 @@ __device__ __forceinline__ void solve_lanes(const Scene& S, float* store, int la
         const int flags = info(pos, I_FLAGS);
         const int i1 = info(pos, I_B1), i2 = info(pos, I_B2);
         const auto L = lane(pos);
-        V3 d[4];
+        V3<R> d[4];
         solve_lane(L, i1, i2, flags, T, use_bias, p.cfm_factor, d);
         if (conflict) {
           for (int q = 0; q < 4; ++q) L.set(F_DELTA + 3 * q, d[q]);
@@ -672,17 +770,17 @@ __device__ __forceinline__ void solve_lanes(const Scene& S, float* store, int la
     // integrate_poses, masked to movers (pallas_sweep.py:88-99, 221-225).
     for (int j = tid; j < n1; j += NT) {
       if (!S.s_move[j]) continue;
-      V3 v = T.v(BR_VLIN, j), w = T.v(BR_VANG, j);
+      V3<R> v = T.v(BR_VLIN, j), w = T.v(BR_VANG, j);
       T.add(BR_COM, j, v * p.dt_sub);
-      Q q = T.q(BR_ROT, j);
-      float h = p.dt_sub * 0.5f;
-      float hx = w.x * h, hy = w.y * h, hz = w.z * h;
-      float rx = q.x + hx * q.w + hy * q.z - hz * q.y;
-      float ry = q.y - hx * q.z + hy * q.w + hz * q.x;
-      float rz = q.z + hx * q.y - hy * q.x + hz * q.w;
-      float rw = q.w - hx * q.x - hy * q.y - hz * q.z;
-      float n2 = rx * rx + ry * ry + rz * rz + rw * rw;
-      float inv = 1.0f / sqrtf(fmaxf(n2, 1e-24f));
+      Q<R> q = T.q(BR_ROT, j);
+      R h = p.dt_sub * R(0.5);
+      R hx = w.x * h, hy = w.y * h, hz = w.z * h;
+      R rx = q.x + hx * q.w + hy * q.z - hz * q.y;
+      R ry = q.y - hx * q.z + hy * q.w + hz * q.x;
+      R rz = q.z + hx * q.y - hy * q.x + hz * q.w;
+      R rw = q.w - hx * q.x - hy * q.y - hz * q.z;
+      R n2 = rx * rx + ry * ry + rz * rz + rw * rw;
+      R inv = R(1) / msqrt(mmax(n2, Eps<R>::norm2()));
       T.at(BR_ROT, j) = rx * inv;
       T.at(BR_ROT + 1, j) = ry * inv;
       T.at(BR_ROT + 2, j) = rz * inv;
@@ -713,20 +811,20 @@ __device__ __forceinline__ void solve_lanes(const Scene& S, float* store, int la
 // Solve scene `b` with the threads of group G, its tables in `smem` and room
 // there for `cap` compacted lanes.  `scratch` (may be null when cap >= K)
 // holds a scene's lanes when it has more than `cap` valid ones.
-template <class G>
+template <class G, class R>
 __device__ __forceinline__ void solve_scene(
-    int b, float* smem, const float* __restrict__ man_f, const int* __restrict__ man_i,
-    const float* __restrict__ bodies_in, const int* __restrict__ move_in,
-    const int* __restrict__ ncol_in, float* __restrict__ out_body,
-    float* __restrict__ out_imp, float* __restrict__ scratch, int K, int n1, int cap,
-    const Params& p) {
+    int b, R* smem, const R* __restrict__ man_f, const int* __restrict__ man_i,
+    const R* __restrict__ bodies_in, const int* __restrict__ move_in,
+    const int* __restrict__ ncol_in, R* __restrict__ out_body,
+    R* __restrict__ out_imp, R* __restrict__ scratch, int K, int n1, int cap,
+    const Params<R>& p) {
   constexpr int NT = G::kSize;
   const int tid = G::rank();
   const int mc = p.max_colors, nb = mc + 1;
-  Scene S;
+  Scene<R> S;
   S.mf = man_f + (size_t)b * MR_ROWS * K;
   S.mi = man_i + (size_t)b * 4 * K;
-  S.T = Table{smem};
+  S.T = Table<R>{smem};
   S.s_move = reinterpret_cast<int*>(smem + BR_ROWS * n1);
   S.s_off = S.s_move + n1;
   S.s_conflict = S.s_off + n1 + 1;
@@ -739,7 +837,7 @@ __device__ __forceinline__ void solve_scene(
   S.ncol = min(ncol_in[b], mc);
 
   // The body table, transposed to a body's rows together.
-  const float* bin = bodies_in + (size_t)b * BR_ROWS * n1;
+  const R* bin = bodies_in + (size_t)b * BR_ROWS * n1;
   for (int i = tid; i < BR_ROWS * n1; i += NT) {
     const int r = i / n1;
     smem[(i - r * n1) * BR_ROWS + r] = bin[i];
@@ -768,27 +866,28 @@ __device__ __forceinline__ void solve_scene(
   G::sync();
   const int nv = S.s_cstart[nb];
   S.nv = nv;
-  float* oi = out_imp + (size_t)b * 14 * K;
+  R* oi = out_imp + (size_t)b * 14 * K;
   if (nv <= cap)
-    solve_lanes<G, true>(S, smem + scene_fixed_words(n1, mc, NT / 32), cap, oi, p);
+    solve_lanes<G, true>(S, smem + scene_fixed_words<R>(n1, mc, NT / 32) / kWords<R>, cap, oi,
+                         p);
   else
-    solve_lanes<G, false>(S, scratch + (size_t)b * kLaneWords * K, K, oi, p);
+    solve_lanes<G, false>(S, scratch + (size_t)b * kLaneReals<R> * K, K, oi, p);
 
   // Unsolved lanes: generation sets their impulses from the warmstart, each
   // substep accumulates and decays them, no pass touches them.
   for (int k = tid; k < K; k += NT) {
     const int flags = S.mi[IR_FLAGS * K + k];
     if (flags & 1) continue;
-    const float* mf = S.mf + k;
+    const R* mf = S.mf + k;
     for (int q = 0; q < 4; ++q) {
-      float imp = mf[(MR_WSN + q) * K] * ((flags >> (3 + q)) & 1 ? 1.0f : 0.0f), acc = 0.0f;
+      R imp = mf[(MR_WSN + q) * K] * ((flags >> (3 + q)) & 1 ? R(1) : R(0)), acc = R(0);
       for (int s = 0; s < p.n_sub; ++s) { acc = acc + imp; imp = imp * p.warmstart_coeff; }
       oi[q * K + k] = imp;
       oi[(4 + q) * K + k] = acc;
     }
     for (int q = 0; q < 3; ++q) {
       // Rows 8-9 / 10-11 are tangent impulse / accumulator, 12 / 13 twist.
-      float imp = q < 2 ? mf[(MR_WST + q) * K] : mf[MR_WSTW * K], acc = 0.0f;
+      R imp = q < 2 ? mf[(MR_WST + q) * K] : mf[MR_WSTW * K], acc = R(0);
       for (int s = 0; s < p.n_sub; ++s) { acc = acc + imp; imp = imp * p.warmstart_coeff; }
       oi[(q < 2 ? 8 + q : 12) * K + k] = imp;
       oi[(q < 2 ? 10 + q : 13) * K + k] = acc;
@@ -796,99 +895,118 @@ __device__ __forceinline__ void solve_scene(
   }
   G::sync();
 
-  float* ob = out_body + (size_t)b * 13 * n1;
+  R* ob = out_body + (size_t)b * 13 * n1;
   for (int i = tid; i < 13 * n1; i += NT) {
     const int r = i / n1;
     ob[i] = smem[(i - r * n1) * BR_ROWS + r];
   }
 }
 
-// One block per scene; two blocks share an SM.
-__global__ void __launch_bounds__(kBlockThreads, 2)
+// One block per scene; kBlocksPerSM<R> blocks share an SM.  The float and
+// double kernels are overloads of one name.
+__global__ void __launch_bounds__(kBlockThreads, kBlocksPerSM<float>)
 contact_sweep_kernel(const float* __restrict__ man_f, const int* __restrict__ man_i,
                      const float* __restrict__ bodies_in, const int* __restrict__ move_in,
                      const int* __restrict__ ncol_in, float* __restrict__ out_body,
                      float* __restrict__ out_imp, float* __restrict__ scratch, int K,
-                     int n1, int cap, Params p) {
+                     int n1, int cap, Params<float> p) {
   extern __shared__ float smem[];
   solve_scene<BlockGroup>(blockIdx.x, smem, man_f, man_i, bodies_in, move_in, ncol_in,
                           out_body, out_imp, scratch, K, n1, cap, p);
 }
 
-// kFoldScenes scenes per block, one warp each, in shared-memory slices of
-// `slice` floats; two blocks share an SM.  A warp without a scene leaves at
+__global__ void __launch_bounds__(kBlockThreads, kBlocksPerSM<double>)
+contact_sweep_kernel(const double* __restrict__ man_f, const int* __restrict__ man_i,
+                     const double* __restrict__ bodies_in, const int* __restrict__ move_in,
+                     const int* __restrict__ ncol_in, double* __restrict__ out_body,
+                     double* __restrict__ out_imp, double* __restrict__ scratch, int K,
+                     int n1, int cap, Params<double> p) {
+  extern __shared__ double smem_f64[];
+  solve_scene<BlockGroup>(blockIdx.x, smem_f64, man_f, man_i, bodies_in, move_in, ncol_in,
+                          out_body, out_imp, scratch, K, n1, cap, p);
+}
+
+// kFoldScenes<R> scenes per block, one warp each, in shared-memory slices of
+// `slice` R; two blocks share an SM.  A warp without a scene leaves at
 // once: no block-wide barrier follows, so no warp ever waits for another.
-__global__ void __launch_bounds__(kFoldThreads, 2)
+__global__ void __launch_bounds__(kFoldBlockThreads<float>, 2)
 contact_sweep_folded_kernel(const float* __restrict__ man_f, const int* __restrict__ man_i,
                             const float* __restrict__ bodies_in,
                             const int* __restrict__ move_in, const int* __restrict__ ncol_in,
                             float* __restrict__ out_body, float* __restrict__ out_imp,
                             float* __restrict__ scratch, int B, int K, int n1, int cap,
-                            int slice, Params p) {
+                            int slice, Params<float> p) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x / WarpGroup::kSize;
-  const int b = blockIdx.x * kFoldScenes + warp;
+  const int b = blockIdx.x * kFoldScenes<float> + warp;
   if (b >= B) return;
   solve_scene<WarpGroup>(b, smem + (size_t)warp * slice, man_f, man_i, bodies_in, move_in,
                          ncol_in, out_body, out_imp, scratch, K, n1, cap, p);
 }
 
-int fixed_words(bool folded, int n1, int max_colors) {
-  return scene_fixed_words(n1, max_colors, folded ? 1 : kBlockThreads / 32);
+__global__ void __launch_bounds__(kFoldBlockThreads<double>, 2)
+contact_sweep_folded_kernel(const double* __restrict__ man_f, const int* __restrict__ man_i,
+                            const double* __restrict__ bodies_in,
+                            const int* __restrict__ move_in, const int* __restrict__ ncol_in,
+                            double* __restrict__ out_body, double* __restrict__ out_imp,
+                            double* __restrict__ scratch, int B, int K, int n1, int cap,
+                            int slice, Params<double> p) {
+  extern __shared__ double smem_f64[];
+  const int warp = threadIdx.x / WarpGroup::kSize;
+  const int b = blockIdx.x * kFoldScenes<double> + warp;
+  if (b >= B) return;
+  solve_scene<WarpGroup>(b, smem_f64 + (size_t)warp * slice, man_f, man_i, bodies_in,
+                         move_in, ncol_in, out_body, out_imp, scratch, K, n1, cap, p);
 }
 
-// Lanes one scene holds on chip, from the shapes alone: as many as let two
-// blocks share an SM (the block kernel takes a whole block's maximum where
-// two do not fit), and a folded scene at most a warp's width.
+template <class R>
+int fixed_words(bool folded, int n1, int max_colors) {
+  return scene_fixed_words<R>(n1, max_colors, folded ? 1 : kBlockThreads / 32);
+}
+
+// Lanes one scene holds on chip, from the shapes alone: as many as let
+// kBlocksPerSM<R> blocks share an SM (the block kernel takes a whole
+// block's maximum where they do not fit), and a folded scene at most a
+// warp's width.
+template <class R>
 int capacity(bool folded, int K, int n1, int max_colors) {
-  const int fixed = fixed_words(folded, n1, max_colors);
-  const int half_sm = (kSmemPerSM / 2 - kSmemReserved) / 4;
-  int words = (folded ? half_sm / kFoldScenes : half_sm) - fixed;
-  if (!folded && words < kLaneWords) words = kSmemPerBlockMax / 4 - fixed;
-  int cap = words > 0 ? words / kLaneWords : 0;
+  const int fixed = fixed_words<R>(folded, n1, max_colors);
+  const int lane = kWords<R> * LF + IF + 2;
+  const int share = (kSmemPerSM / (folded ? 2 : kBlocksPerSM<R>) - kSmemReserved) / 4;
+  int words = (folded ? share / kFoldScenes<R> : share) - fixed;
+  if (!folded && words < lane) words = kSmemPerBlockMax / 4 - fixed;
+  // An odd lane count pads its int words to a whole R.
+  int cap = words > 0 ? (words - (kWords<R> - 1)) / lane : 0;
   if (folded && cap > kFoldMaxCapacity) cap = kFoldMaxCapacity;
   return cap < K ? cap : K;
 }
 
 // One scene's shared words, rounded up to 16 bytes.
+template <class R>
 int scene_words(bool folded, int K, int n1, int max_colors) {
-  int words = fixed_words(folded, n1, max_colors) +
-              kLaneWords * capacity(folded, K, n1, max_colors);
+  int words = fixed_words<R>(folded, n1, max_colors) +
+              lanes_words<R>(capacity<R>(folded, K, n1, max_colors));
   return (words + 3) / 4 * 4;
 }
 
+template <class R>
 size_t smem_bytes(bool folded, int K, int n1, int max_colors) {
-  return sizeof(float) * (size_t)(folded ? kFoldScenes : 1) *
-         scene_words(folded, K, n1, max_colors);
+  return 4 * (size_t)(folded ? kFoldScenes<R> : 1) * scene_words<R>(folded, K, n1, max_colors);
 }
 
+template <class R>
 const void* kernel_fn(bool folded) {
-  return folded ? (const void*)contact_sweep_folded_kernel : (const void*)contact_sweep_kernel;
+  void (*block)(const R*, const int*, const R*, const int*, const int*, R*, R*, R*, int, int,
+                int, Params<R>) = contact_sweep_kernel;
+  void (*fold)(const R*, const int*, const R*, const int*, const int*, R*, R*, R*, int, int,
+               int, int, int, Params<R>) = contact_sweep_folded_kernel;
+  return folded ? (const void*)fold : (const void*)block;
 }
 
-}  // namespace
-
-extern "C" {
-
-int contact_sweep_lane_words() { return kLaneWords; }
-int contact_sweep_body_rows() { return BR_ROWS; }
-int contact_sweep_man_rows() { return MR_ROWS; }
-
-int contact_sweep_capacity(int folded, int K, int n1, int max_colors) {
-  return capacity(folded != 0, K, n1, max_colors);
-}
-
-size_t contact_sweep_smem_bytes(int folded, int K, int n1, int max_colors) {
-  return smem_bytes(folded != 0, K, n1, max_colors);
-}
-
-// The kernel's resources at this shape: out[0] registers a thread, out[1]
-// local (spill) bytes a thread, out[2] dynamic shared bytes a block, out[3]
-// resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-// Returns a CUDA error code (0 on success).
-int contact_sweep_kernel_info(int folded, int K, int n1, int max_colors, int* out) {
-  const void* fn = kernel_fn(folded != 0);
-  size_t smem = smem_bytes(folded != 0, K, n1, max_colors);
+template <class R>
+int kernel_info(bool folded, int K, int n1, int max_colors, int* out) {
+  const void* fn = kernel_fn<R>(folded);
+  size_t smem = smem_bytes<R>(folded, K, n1, max_colors);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return (int)err;
@@ -896,7 +1014,7 @@ int contact_sweep_kernel_info(int folded, int K, int n1, int max_colors, int* ou
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, fn, folded ? kFoldThreads : kBlockThreads, smem);
+      &blocks, fn, folded ? kFoldBlockThreads<R> : kBlockThreads, smem);
   if (err != cudaSuccess) return (int)err;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
@@ -905,9 +1023,65 @@ int contact_sweep_kernel_info(int folded, int K, int n1, int max_colors, int* ou
   return 0;
 }
 
+template <class R>
+int launch(bool fold, const R* man_f, const int* man_i, const R* bodies_in, const int* move,
+           const int* ncol, R* out_body, R* out_imp, R* scratch, int B, int K, int n1,
+           const Params<R>& p, void* stream) {
+  const int cap = capacity<R>(fold, K, n1, p.max_colors);
+  size_t smem = smem_bytes<R>(fold, K, n1, p.max_colors);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel_fn<R>(fold), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (fold) {
+    int grid = (B + kFoldScenes<R> - 1) / kFoldScenes<R>;
+    contact_sweep_folded_kernel<<<grid, kFoldBlockThreads<R>, smem, s>>>(
+        man_f, man_i, bodies_in, move, ncol, out_body, out_imp, scratch, B, K, n1, cap,
+        scene_words<R>(true, K, n1, p.max_colors) / kWords<R>, p);
+  } else {
+    contact_sweep_kernel<<<B, kBlockThreads, smem, s>>>(
+        man_f, man_i, bodies_in, move, ncol, out_body, out_imp, scratch, K, n1, cap, p);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int contact_sweep_body_rows() { return BR_ROWS; }
+int contact_sweep_man_rows() { return MR_ROWS; }
+
+// The entries below take `f64`: 0 for the float kernels, 1 for the double
+// ones.
+
+// 4-byte words of one scene's global scratch: [B, this] words in all.
+int contact_sweep_scratch_words(int f64, int K) {
+  return f64 ? kWords<double> * kLaneReals<double> * K : kWords<float> * kLaneReals<float> * K;
+}
+
+int contact_sweep_capacity(int f64, int folded, int K, int n1, int max_colors) {
+  return f64 ? capacity<double>(folded != 0, K, n1, max_colors)
+             : capacity<float>(folded != 0, K, n1, max_colors);
+}
+
+size_t contact_sweep_smem_bytes(int f64, int folded, int K, int n1, int max_colors) {
+  return f64 ? smem_bytes<double>(folded != 0, K, n1, max_colors)
+             : smem_bytes<float>(folded != 0, K, n1, max_colors);
+}
+
+// The kernel's resources at this shape: out[0] registers a thread, out[1]
+// local (spill) bytes a thread, out[2] dynamic shared bytes a block, out[3]
+// resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+// Returns a CUDA error code (0 on success).
+int contact_sweep_kernel_info(int f64, int folded, int K, int n1, int max_colors, int* out) {
+  return f64 ? kernel_info<double>(folded != 0, K, n1, max_colors, out)
+             : kernel_info<float>(folded != 0, K, n1, max_colors, out);
+}
+
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  `scratch`
-// holds [B, contact_sweep_lane_words(), K] words when the capacity is below
-// K, and may be null otherwise.
+// holds [B, contact_sweep_scratch_words(0, K)] words when the capacity is
+// below K, and may be null otherwise.
 int contact_sweep_launch(int folded, const float* man_f, const int* man_i,
                          const float* bodies_in, const int* move, const int* ncol,
                          float* out_body, float* out_imp, float* scratch, int B, int K,
@@ -916,26 +1090,28 @@ int contact_sweep_launch(int folded, const float* man_f, const int* man_i,
                          float erp_inv_dt, float cfm_factor, float allowed_lin_err,
                          float max_corrective_velocity, float warmstart_coeff,
                          void* stream) {
-  Params p{dt_sub, inv_dt_sub, erp_inv_dt, cfm_factor, allowed_lin_err,
-           max_corrective_velocity, warmstart_coeff, n_sub, pgs_iters, stab_iters,
-           max_colors};
-  const bool fold = folded != 0;
-  const int cap = capacity(fold, K, n1, max_colors);
-  size_t smem = smem_bytes(fold, K, n1, max_colors);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel_fn(fold), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (fold) {
-    int grid = (B + kFoldScenes - 1) / kFoldScenes;
-    contact_sweep_folded_kernel<<<grid, kFoldThreads, smem, s>>>(
-        man_f, man_i, bodies_in, move, ncol, out_body, out_imp, scratch, B, K, n1, cap,
-        scene_words(true, K, n1, max_colors), p);
-  } else {
-    contact_sweep_kernel<<<B, kBlockThreads, smem, s>>>(
-        man_f, man_i, bodies_in, move, ncol, out_body, out_imp, scratch, K, n1, cap, p);
-  }
-  return (int)cudaGetLastError();
+  Params<float> p{dt_sub, inv_dt_sub, erp_inv_dt, cfm_factor, allowed_lin_err,
+                  max_corrective_velocity, warmstart_coeff, n_sub, pgs_iters, stab_iters,
+                  max_colors};
+  return launch<float>(folded != 0, man_f, man_i, bodies_in, move, ncol, out_body, out_imp,
+                       scratch, B, K, n1, p, stream);
+}
+
+// The same at double: every float input, output and scalar a double, the
+// scratch [B, contact_sweep_scratch_words(1, K)] words.
+int contact_sweep_launch_f64(int folded, const double* man_f, const int* man_i,
+                             const double* bodies_in, const int* move, const int* ncol,
+                             double* out_body, double* out_imp, double* scratch, int B,
+                             int K, int n1, int n_sub, int pgs_iters, int stab_iters,
+                             int max_colors, double dt_sub, double inv_dt_sub,
+                             double erp_inv_dt, double cfm_factor, double allowed_lin_err,
+                             double max_corrective_velocity, double warmstart_coeff,
+                             void* stream) {
+  Params<double> p{dt_sub, inv_dt_sub, erp_inv_dt, cfm_factor, allowed_lin_err,
+                   max_corrective_velocity, warmstart_coeff, n_sub, pgs_iters, stab_iters,
+                   max_colors};
+  return launch<double>(folded != 0, man_f, man_i, bodies_in, move, ncol, out_body, out_imp,
+                        scratch, B, K, n1, p, stream);
 }
 
 }  // extern "C"

@@ -9,11 +9,14 @@ the two: a CUDA input either launches a kernel or raises.
 
 Which kernel is a fixed rule on the shape: scenes of at most
 `FOLD_MAX_LANES` solver lanes go to `contact_sweep_folded_kernel` (8 scenes
-per block, one warp each), larger ones to `contact_sweep_kernel` (a block per
-scene).  The two compute the same function bit for bit.  Each solves a
-scene's valid lanes only, with their state in shared memory up to a
-capacity the library computes from the shapes (`ContactSweepKernel.capacity`);
-a scene with more valid lanes keeps them in a global scratch buffer.
+per block at float32, 4 at float64, one warp each), larger ones to
+`contact_sweep_kernel` (a block per scene).  The two compute the same
+function bit for bit.  Each solves a scene's valid lanes only, with their
+state in shared memory up to a capacity the library computes from the
+shapes (`ContactSweepKernel.capacity`); a scene with more valid lanes keeps
+them in a global scratch buffer.  Both kernels come in float32 and float64:
+the inputs' dtype picks them, and a float64 solve computes and stores every
+number in float64.
 
 The kernel library is built with nvcc for sm_90a at first use, into
 ``build/rapier_tpu_torch/`` beside the package, and bound with ctypes.
@@ -31,6 +34,7 @@ from pathlib import Path
 import torch
 
 from rapier_tpu_torch.dynamics.solver import contact_constraints as cc
+from rapier_tpu_torch.utils import counters
 
 _SRC = Path(__file__).resolve().parents[2] / "csrc" / "contact_sweep.cu"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "rapier_tpu_torch"
@@ -39,6 +43,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 MAN_ROWS = 32        # packed float manifold rows (ManRow in the source)
 BODY_ROWS = 31       # packed body-table rows (BodyRow in the source)
+BLOCK_WARPS = 4      # warps of contact_sweep_kernel's block
 FOLD_MAX_LANES = 128  # solver lanes up to which a scene takes the folded kernel
 
 
@@ -53,6 +58,31 @@ def vmem_feasible(p_lanes: int, n1: int) -> bool:
     kernel solves."""
     est = (p_lanes * (2 * n1 + 4 * D_MAN + 700)) * 4
     return est < 10 * 2**20
+
+
+# ---------------------------------------------------------------------------
+# The gate's shared-memory rule, from the shapes without the library: the
+# fixed words of ``csrc/contact_sweep.cu``'s `capacity` (4-byte words).
+# ---------------------------------------------------------------------------
+
+
+def _fixed_words(folded: bool, n1: int, max_colors: int, f64: bool) -> int:
+    """A scene's shared words before its lanes: body table and int tables."""
+    nb = max_colors + 1
+    warps = 1 if folded else BLOCK_WARPS
+    fixed = ((2 if f64 else 1) * BODY_ROWS * n1 + n1 + (n1 + 1) + max_colors + (nb + 1) + nb
+             + warps * nb)
+    return -(-fixed // 4) * 4
+
+
+def kernel_fits(k: int, n1: int, max_colors: int, f64: bool = False) -> bool:
+    """Whether the body tables and fixed words of the scenes a block of the
+    kernel that K lanes take (`FOLD_MAX_LANES`; the folded kernel holds 8
+    scenes a block at float32, 4 at float64) fit a block's shared memory;
+    their lanes always do, on chip or in the global scratch."""
+    folded = k <= FOLD_MAX_LANES
+    scenes = (4 if f64 else 8) if folded else 1
+    return 4 * scenes * _fixed_words(folded, n1, max_colors, f64) <= SMEM_LIMIT
 
 
 # ---------------------------------------------------------------------------
@@ -127,8 +157,8 @@ class ContactSweepKernel:
     """ctypes binding of ``csrc/contact_sweep.cu``.  `launches` counts the
     launches of `contact_sweep_kernel` made through `launch`,
     `launches_folded` those of `contact_sweep_folded_kernel` made through
-    `launch_folded`; `build_log` holds nvcc's register and shared-memory
-    report of the last build."""
+    `launch_folded`, at either precision; `build_log` holds nvcc's register
+    and shared-memory report of the last build."""
 
     def __init__(self):
         self.launches = 0
@@ -160,54 +190,60 @@ class ContactSweepKernel:
                 raise RuntimeError(f"nvcc failed:\n{self.build_log}")
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        p, i, f, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
         lib.contact_sweep_launch.argtypes = [i] + [p] * 8 + [i] * 7 + [f] * 7 + [p]
         lib.contact_sweep_launch.restype = ctypes.c_int
-        lib.contact_sweep_capacity.argtypes = [i] * 4
+        lib.contact_sweep_launch_f64.argtypes = [i] + [p] * 8 + [i] * 7 + [d] * 7 + [p]
+        lib.contact_sweep_launch_f64.restype = ctypes.c_int
+        lib.contact_sweep_capacity.argtypes = [i] * 5
         lib.contact_sweep_capacity.restype = ctypes.c_int
-        lib.contact_sweep_smem_bytes.argtypes = [i] * 4
+        lib.contact_sweep_smem_bytes.argtypes = [i] * 5
         lib.contact_sweep_smem_bytes.restype = ctypes.c_size_t
-        lib.contact_sweep_kernel_info.argtypes = [i] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        lib.contact_sweep_scratch_words.argtypes = [i] * 2
+        lib.contact_sweep_scratch_words.restype = ctypes.c_int
+        lib.contact_sweep_kernel_info.argtypes = [i] * 5 + [ctypes.POINTER(ctypes.c_int)]
         lib.contact_sweep_kernel_info.restype = ctypes.c_int
-        for name in ("contact_sweep_lane_words", "contact_sweep_body_rows",
-                     "contact_sweep_man_rows"):
+        for name in ("contact_sweep_body_rows", "contact_sweep_man_rows"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
         self._lib = lib
         return lib
 
-    def capacity(self, folded: bool, k: int, n1: int, max_colors: int) -> int:
-        """Valid lanes a scene of K lanes and N+1 body columns holds on chip
-        in the folded (or the block) kernel; a scene with more keeps them in
-        the global scratch."""
-        return self.build().contact_sweep_capacity(int(folded), k, n1, max_colors)
+    def capacity(self, folded: bool, k: int, n1: int, max_colors: int,
+                 f64: bool = False) -> int:
+        """The library's `capacity`: valid lanes a scene of K lanes and N+1
+        body columns holds on chip in the folded (or the block) kernel at
+        float32 (or float64)."""
+        return self.build().contact_sweep_capacity(int(f64), int(folded), k, n1, max_colors)
 
-    def storage(self, folded: bool, man_i, n1: int, max_colors: int):
+    def storage(self, folded: bool, man_i, n1: int, max_colors: int, f64: bool = False):
         """Per scene of the packed int rows `man_i` ``[B, 4, K]``: its valid
         lanes (flag bit 0), and whether the kernel holds them on chip (at
         most `capacity` of them) or in the global scratch."""
         valid = (man_i[:, 3] & 1).sum(-1)
-        return valid, valid <= self.capacity(folded, man_i.shape[-1], n1, max_colors)
+        return valid, valid <= self.capacity(folded, man_i.shape[-1], n1, max_colors, f64)
 
-    def info(self, folded: bool, k: int, n1: int, max_colors: int) -> dict:
+    def info(self, folded: bool, k: int, n1: int, max_colors: int, f64: bool = False) -> dict:
         """The kernel's resources at this shape, from the CUDA runtime:
         registers and local (spill) bytes a thread, dynamic shared bytes a
         block, resident blocks an SM, and the on-chip lane capacity."""
         out = (ctypes.c_int * 4)()
-        err = self.build().contact_sweep_kernel_info(int(folded), k, n1, max_colors, out)
+        err = self.build().contact_sweep_kernel_info(int(f64), int(folded), k, n1, max_colors,
+                                                     out)
         if err != 0:
             raise RuntimeError(f"contact_sweep: kernel info failed: CUDA error {err}")
         return dict(registers=out[0], spill_bytes=out[1], smem_bytes=out[2],
                     blocks_per_sm=out[3],
-                    capacity=self.capacity(folded, k, n1, max_colors))
+                    capacity=self.capacity(folded, k, n1, max_colors, f64))
 
     def launch(self, man_f, man_i, bodies_in, move, ncol, *, n_sub, pgs_iters,
                stab_iters, max_colors, scalars):
         """Run `contact_sweep_kernel` (a block per scene) on PyTorch's current
-        stream.  Inputs: man_f ``[B, 32, K]`` f32, man_i ``[B, 4, K]`` i32
-        (b1, b2, color, flags), bodies_in ``[B, 31, N+1]`` f32, move
-        ``[B, N+1]`` i32, ncol ``[B]`` i32.  Returns (bodies ``[B, 13, N+1]``,
-        impulse block ``[B, 14, K]``)."""
+        stream.  Inputs: man_f ``[B, 32, K]`` float32 or float64, man_i
+        ``[B, 4, K]`` i32 (b1, b2, color, flags), bodies_in ``[B, 31, N+1]``
+        of man_f's dtype, move ``[B, N+1]`` i32, ncol ``[B]`` i32.  Returns
+        (bodies ``[B, 13, N+1]``, impulse block ``[B, 14, K]``) of man_f's
+        dtype; a float64 call passes its scalars as doubles."""
         out = self._run(False, man_f, man_i, bodies_in, move, ncol, n_sub=n_sub,
                         pgs_iters=pgs_iters, stab_iters=stab_iters,
                         max_colors=max_colors, scalars=scalars)
@@ -216,8 +252,9 @@ class ContactSweepKernel:
 
     def launch_folded(self, man_f, man_i, bodies_in, move, ncol, *, n_sub,
                       pgs_iters, stab_iters, max_colors, scalars):
-        """Run `contact_sweep_folded_kernel` (8 scenes per block, a warp
-        each); the same inputs and outputs as `launch`."""
+        """Run `contact_sweep_folded_kernel` (8 scenes per block at float32,
+        4 at float64, a warp each); the same inputs and outputs as
+        `launch`."""
         out = self._run(True, man_f, man_i, bodies_in, move, ncol, n_sub=n_sub,
                         pgs_iters=pgs_iters, stab_iters=stab_iters,
                         max_colors=max_colors, scalars=scalars)
@@ -228,10 +265,14 @@ class ContactSweepKernel:
              pgs_iters, stab_iters, max_colors, scalars):
         bsz, _, k = man_f.shape
         n1 = bodies_in.shape[-1]
+        real = man_f.dtype
+        if real not in (torch.float32, torch.float64):
+            raise ValueError(f"contact_sweep: expected float32 or float64 inputs, got {real}")
+        f64 = real == torch.float64
         checks = (
-            (man_f, torch.float32, (bsz, MAN_ROWS, k)),
+            (man_f, real, (bsz, MAN_ROWS, k)),
             (man_i, torch.int32, (bsz, 4, k)),
-            (bodies_in, torch.float32, (bsz, BODY_ROWS, n1)),
+            (bodies_in, real, (bsz, BODY_ROWS, n1)),
             (move, torch.int32, (bsz, n1)),
             (ncol, torch.int32, (bsz,)),
         )
@@ -245,22 +286,23 @@ class ContactSweepKernel:
         if (lib.contact_sweep_man_rows(), lib.contact_sweep_body_rows()) != (
                 MAN_ROWS, BODY_ROWS):
             raise RuntimeError("contact_sweep: library layout does not match the wrapper")
-        smem = lib.contact_sweep_smem_bytes(int(folded), k, n1, max_colors)
+        smem = lib.contact_sweep_smem_bytes(int(f64), int(folded), k, n1, max_colors)
         if smem > SMEM_LIMIT:
             raise ValueError(
                 f"contact_sweep: {n1 - 1} bodies need {smem} bytes of shared "
                 f"memory per block, above the {SMEM_LIMIT} a block can use")
         dev = man_f.device
-        out_body = torch.empty((bsz, 13, n1), dtype=torch.float32, device=dev)
-        out_imp = torch.empty((bsz, 14, k), dtype=torch.float32, device=dev)
+        out_body = torch.empty((bsz, 13, n1), dtype=real, device=dev)
+        out_imp = torch.empty((bsz, 14, k), dtype=real, device=dev)
         # The global scratch only where a scene can have more valid lanes
         # than the kernel holds on chip.
         scratch = None
-        if lib.contact_sweep_capacity(int(folded), k, n1, max_colors) < k:
-            scratch = torch.empty((bsz, lib.contact_sweep_lane_words(), k),
+        if lib.contact_sweep_capacity(int(f64), int(folded), k, n1, max_colors) < k:
+            scratch = torch.empty((bsz, lib.contact_sweep_scratch_words(int(f64), k)),
                                   dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.contact_sweep_launch(
+        entry = lib.contact_sweep_launch_f64 if f64 else lib.contact_sweep_launch
+        err = entry(
             int(folded), man_f.data_ptr(), man_i.data_ptr(), bodies_in.data_ptr(),
             move.data_ptr(), ncol.data_ptr(), out_body.data_ptr(),
             out_imp.data_ptr(), None if scratch is None else scratch.data_ptr(),
@@ -277,13 +319,19 @@ KERNEL = ContactSweepKernel()
 def _pack(sb, *, b1, b2, valid, color, num_colors, normal, point,
           point_active, dist, friction, restitution, prev_impulse, ws_n, ws_t,
           ws_tw, dv_inc, dw_inc, move_mask, dyn1, dyn2):
-    """The kernel's packed inputs from the reference's logical arrays."""
+    """The kernel's packed inputs from the reference's logical arrays, at
+    the solver bodies' float dtype (every float input must have it)."""
     bsz, k = b1.shape
     n1 = sb.v_lin.shape[-1]
+    floats = (normal, point, dist, friction, restitution, prev_impulse, ws_n, ws_t, ws_tw,
+              dv_inc, dw_inc, *sb)
+    if any(t.dtype != sb.v_lin.dtype for t in floats):
+        raise ValueError(f"contact_sweep: every float input must be {sb.v_lin.dtype}, got "
+                         f"{sorted({str(t.dtype) for t in floats})}")
     man_f = torch.cat([
         normal, point.reshape(bsz, 12, k), dist, friction.unsqueeze(1),
         restitution.unsqueeze(1), prev_impulse, ws_n, ws_t, ws_tw.unsqueeze(1),
-    ], dim=1).float().contiguous()
+    ], dim=1).contiguous()
     flags = (valid.int() | (dyn1.int() << 1) | (dyn2.int() << 2))
     for kk in range(4):
         flags = flags | (point_active[:, kk].int() << (3 + kk))
@@ -291,9 +339,22 @@ def _pack(sb, *, b1, b2, valid, color, num_colors, normal, point,
     bodies_in = torch.cat([
         sb.v_lin, sb.v_ang, sb.com, sb.rot, sb.im, sb.ii.reshape(bsz, 9, n1),
         dv_inc, dw_inc,
-    ], dim=1).float().contiguous()
+    ], dim=1).contiguous()
     return (man_f, man_i, bodies_in, move_mask.int().contiguous(),
             num_colors.int().contiguous())
+
+
+def _count_storage(packed, max_colors: int):
+    """A launch's counters on `_pack`'s inputs: `sweep_lanes`, the valid
+    lanes it solves, and `sweep_onchip`, those of scenes the kernel holds on
+    chip (`KERNEL.storage`, the library's capacity at the launch's kernel
+    and dtype)."""
+    man_f, man_i, bodies_in = packed[:3]
+    n_valid, on_chip = KERNEL.storage(man_i.shape[-1] <= FOLD_MAX_LANES, man_i,
+                                      bodies_in.shape[-1], max_colors,
+                                      man_f.dtype == torch.float64)
+    counters.count("sweep_lanes", n_valid.sum())
+    counters.count("sweep_onchip", torch.where(on_chip, n_valid, 0).sum())
 
 
 def solve_from_manifolds(sb: cc.SolverBodies, *, b1, b2, valid, color,
@@ -311,7 +372,9 @@ def solve_from_manifolds(sb: cc.SolverBodies, *, b1, b2, valid, color,
     impulse_acc(4), tan(2), tan_acc(2), twist, twist_acc).
 
     On the card, K <= FOLD_MAX_LANES launches the scene-folded kernel and a
-    larger K the block-per-scene kernel; on the CPU, `solve_plain`."""
+    larger K the block-per-scene kernel, at the solver bodies' dtype
+    (float32 or float64); on the CPU, `solve_plain`.  Under
+    `counters.recording()` a launch counts its storage (`_count_storage`)."""
     if dyn1 is None:
         dyn1 = torch.zeros_like(valid)
     if dyn2 is None:
@@ -333,8 +396,11 @@ def solve_from_manifolds(sb: cc.SolverBodies, *, b1, b2, valid, color,
     if device.type != "cuda":
         raise ValueError(f"contact_sweep: unsupported device {device}")
     launch = KERNEL.launch_folded if b1.shape[-1] <= FOLD_MAX_LANES else KERNEL.launch
+    packed = _pack(sb, **lanes)
+    if counters.is_recording():
+        _count_storage(packed, max_colors)
     out_body, imp = launch(
-        *_pack(sb, **lanes), n_sub=n_sub, pgs_iters=pgs_iters,
+        *packed, n_sub=n_sub, pgs_iters=pgs_iters,
         stab_iters=stab_iters, max_colors=max_colors,
         scalars=(dt_sub, inv_dt_sub, erp_inv_dt, cfm_factor, allowed_lin_err,
                  max_corrective_velocity, warmstart_coeff))

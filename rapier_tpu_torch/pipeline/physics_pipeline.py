@@ -29,9 +29,10 @@ halfspace kernels and the convex hulls (the `hulls` slot).  User hooks
 (`pipeline/hooks.py`) apply after the narrow phase and before the warmstart
 join, as the reference's do (:291-327); they do not change the solve path, so
 a hooked scene takes the kernel where the gate picks it.  A float64 scene
-(`precision.set_precision("f64")`) runs every phase in float64 on the
-blocked or masked solve; it rounds through float32 where the reference does
-(ROADMAP R31).
+(`precision.set_precision("f64")`) runs every phase in float64 and takes the
+kernel's float64 build where a float32 scene of its shapes takes the kernel;
+it rounds through float32 where the reference does (ROADMAP R31), on every
+route.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from rapier_tpu_torch.dynamics import multibody as mbmod
@@ -53,6 +55,7 @@ from rapier_tpu_torch.dynamics.solver.coloring import (
     solve_caps,
 )
 from rapier_tpu_torch.dynamics.solver.contact_sweep import (
+    kernel_fits,
     solve_from_manifolds,
     vmem_feasible,
 )
@@ -188,8 +191,11 @@ def solve_path(state: SceneState, params: SimParams) -> str:
     reference's Pallas path), "blocked" (the blocked solve, above the dense
     routing limit) or "masked" (the masked color sweep, and every scene
     with impulse joints or the Coulomb friction model).  A float64 scene
-    never takes the kernel, whatever solver_backend says: the kernels are
-    float32, as the reference's Mosaic kernels are (:557)."""
+    takes the kernel's float64 build where a float32 scene of its shapes
+    takes the kernel, and where that build's body tables and fixed words fit
+    a block's shared memory (`kernel_fits`); the reference's gate sends
+    every float64 scene to its masked or blocked solve (:557), whose result
+    the kernel's computes."""
     coulomb = params.friction_model == int(FrictionModel.COULOMB)
     if coulomb != (state.contacts.warmstart_tangent_impulse.dim() == 4):
         raise ValueError("the contact cache's tangent layout does not match the friction "
@@ -198,11 +204,14 @@ def solve_path(state: SceneState, params: SimParams) -> str:
         return "masked"
     n = state.bodies.body_type.shape[-1]
     p_lanes = state.contacts.max_pairs
+    cap = params.max_solver_pairs
+    k_lanes = cap if 0 < cap < p_lanes else p_lanes
+    f64 = state.bodies.pos.dtype == torch.float64
     # "auto" takes the kernel, as the reference does on its TPU; the kernel
     # has no 2x2 block solve.
-    f64 = state.bodies.pos.dtype == torch.float64
-    if (params.solver_backend != "jax" and not params.block_solver_2x2 and not f64
-            and vmem_feasible(p_lanes, n + 1)):
+    if (params.solver_backend != "jax" and not params.block_solver_2x2
+            and vmem_feasible(p_lanes, n + 1)
+            and (not f64 or kernel_fits(k_lanes, n + 1, params.max_colors, f64=True))):
         return "kernel"
     return "blocked" if p_lanes * (n + 1) > DENSE_ROUTE_ELEMS else "masked"
 
@@ -238,6 +247,21 @@ def _scatter_back(imp, src, kvalid, default):
     return full.scatter(-1, tgt, imp)[..., :p_lanes]
 
 
+# Route elements (pair lanes x solver lanes) up to which the reference
+# compacts by a float32 matmul (:811-832, :899-913).
+_F32_ROUTE_ELEMS = 1 << 20
+
+
+def _f32_rounding(f32_route: bool):
+    """What the compaction does to a routed tensor: where the reference
+    routes by its float32 matmul, a float tensor rounds through float32
+    (ROADMAP R31: at f64 its lanes and the impulses routed back; at f32 a
+    no-op); anything else passes as it is."""
+    def rounded(x):
+        return x.float().to(x.dtype) if f32_route and x.is_floating_point() else x
+    return rounded
+
+
 def _impulse_block(c):
     """``[B, 10 + 2T, K]``: the normal impulses and their accumulators, the T
     tangent rows of each (2, or 8 under the Coulomb model), the twist impulse
@@ -255,8 +279,11 @@ def _solve_kernel(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_n
                   ws_t, ws_tw):
     """The contact-sweep kernel's path (physics_pipeline.py:568-663): the
     touching lanes compacted to max_solver_pairs, Luby colors, the kernel.
-    Returns (sb, impulse block ``[B, 14, P]``, solver_overflow ``[B]``,
-    None: no joint rows)."""
+    At float64 the compaction rounds the routed floats and the impulses
+    routed back through float32 where `_solve_masked` does, and the kernel
+    takes the constraints' float32 `cfm_factor` (ROADMAP R31; each a no-op
+    at float32).  Returns (sb, impulse block ``[B, 14, P]``, solver_overflow
+    ``[B]``, None: no joint rows)."""
     n = bodies.body_type.shape[-1]
     sent = n
     si = vs.substep_inputs(bodies, sb, active, params)
@@ -267,17 +294,18 @@ def _solve_kernel(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_n
         valid=man.solver_pair, dyn1=dyn1, dyn2=dyn2, normal=man.normal,
         point=man.point, point_active=man.point_active, dist=man.dist,
         friction=man.friction, restitution=man.restitution,
-        prev_impulse=prev_imp, ws_n=ws_n * man.point_active.float(),
+        prev_impulse=prev_imp, ws_n=ws_n * man.point_active.to(ws_n.dtype),
         ws_t=ws_t, ws_tw=ws_tw)
     cap = params.max_solver_pairs
     compact = 0 < cap < p_lanes
+    rounded = _f32_rounding(compact and p_lanes * cap <= _F32_ROUTE_ELEMS)
     with span("compaction"):
         if compact:
             # Stream-compact the touching lanes: the solve then works K =
             # cap lanes.  Overflowing lanes are dropped for this step and
             # counted.
             src, kvalid, solver_overflow = compact_indices(man.solver_pair, cap)
-            lanes = {k: gather_lanes(v, src, kvalid) for k, v in lanes.items()}
+            lanes = {k: rounded(gather_lanes(v, src, kvalid)) for k, v in lanes.items()}
             lanes["valid"] = kvalid
             b1s = gather_lanes(b1s, src, kvalid, fill=sent)
             b2s = gather_lanes(b2s, src, kvalid, fill=sent)
@@ -292,7 +320,7 @@ def _solve_kernel(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_n
             sb, b1=b1s, b2=b2s, color=color, num_colors=num_colors,
             dv_inc=si["dv_inc"], dw_inc=si["dw_inc"], move_mask=si["move_mask"],
             dt_sub=si["dt_sub"], inv_dt_sub=si["inv_dt_sub"],
-            erp_inv_dt=si["erp_inv_dt"], cfm_factor=si["cfm_factor"],
+            erp_inv_dt=si["erp_inv_dt"], cfm_factor=float(np.float32(si["cfm_factor"])),
             allowed_lin_err=float(params.allowed_linear_error()),
             max_corrective_velocity=float(params.max_corrective_velocity()),
             warmstart_coeff=float(params.warmstart_coefficient),
@@ -300,7 +328,7 @@ def _solve_kernel(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_n
             stab_iters=params.num_internal_stabilization_iterations,
             max_colors=params.max_colors, **lanes)
     if compact:
-        imp = _scatter_back(imp, src, kvalid, _unsolved(man, ws_n, ws_t, ws_tw))
+        imp = _scatter_back(rounded(imp), src, kvalid, _unsolved(man, ws_n, ws_t, ws_tw))
     return sb, imp, solver_overflow, None
 
 
@@ -392,13 +420,7 @@ def _solve_masked(bodies, sb, active, params, *, man, dyn1, dyn2, prev_imp, ws_n
     compact = not coulomb and 0 < cap < p_lanes
     fields = ("body1", "body2", "rel_dominance", "solver_pair", "normal", "point",
               "point_active", "dist", "friction", "restitution")
-    # Where the route matrix is small the reference compacts by a float32
-    # matmul (:811-832, :899-913): at f64 the routed floats, and the impulses
-    # routed back, round through float32 (ROADMAP R31; at f32 a no-op).
-    f32_route = compact and p_lanes * cap <= 1 << 20
-
-    def rounded(x):
-        return x.float().to(x.dtype) if f32_route and x.is_floating_point() else x
+    rounded = _f32_rounding(compact and p_lanes * cap <= _F32_ROUTE_ELEMS)
 
     with span("compaction"):
         if compact:

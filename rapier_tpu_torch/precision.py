@@ -10,9 +10,11 @@ precision a process, set before the world is built.
 
 Nothing else reads it: the step and every other function take their dtype
 from the state's tensors, so a float32 world built before the switch keeps
-stepping at float32.  An f64 scene never takes the contact-sweep kernel
-(`pipeline.physics_pipeline.solve_path`): the kernels are float32, as the
-reference's Mosaic kernels are.
+stepping at float32.  An f64 scene takes the contact-sweep kernel's float64
+build where a float32 scene of its shapes takes the kernel
+(`pipeline.physics_pipeline.solve_path`); the reference's Mosaic kernels
+are float32 only, so its f64 scene takes the masked solve, whose result the
+float64 kernel computes.
 """
 
 from __future__ import annotations

@@ -900,3 +900,31 @@ def trajectory_gap(a, b, fields):
                                        - np.asarray(y[f], np.float64)), initial=0.0))
                    for x, y in zip(a, b))
             for f in fields}
+
+
+# The f64 parity rule (tests/test_torch_precision.py): each step's gap within
+# F64_WITNESS_FACTOR times the witness's largest gap at that step, or
+# F64_ULPS float64 ulps of the field's largest magnitude (of the largest
+# contact impulse, for the impulses), whichever is larger.
+F64_WITNESS_FACTOR = 16.0
+F64_ULPS = 64
+
+
+def f64_compare(ref, port, witness, fields, what):
+    """Each step's port gap to `ref` within the f64 parity rule, the witness
+    being `ref`'s own run from a start 1 ulp away."""
+    for t, (r, p, w) in enumerate(zip(ref, port, witness)):
+        for f in fields:
+            rv = np.asarray(r[f], np.float64)
+            pv = np.asarray(p[f], np.float64)
+            if f in ("contacts.pair_key", "contacts.touching"):
+                assert np.array_equal(rv, pv), f"{what} step {t + 1} {f}"
+                continue
+            wgap = float(np.max(np.abs(rv - np.asarray(w[f], np.float64)), initial=0.0))
+            group = [f"contacts.{g}" for g in CONTACT_IMPULSES] \
+                if f.removeprefix("contacts.") in CONTACT_IMPULSES else [f]
+            scale = max(float(np.max(np.abs(np.asarray(r[g], np.float64)), initial=0.0))
+                        for g in group)
+            tol = max(F64_WITNESS_FACTOR * wgap, F64_ULPS * np.finfo(np.float64).eps * scale)
+            gap = float(np.max(np.abs(rv - pv), initial=0.0))
+            assert gap <= tol, f"{what} step {t + 1} {f}: {gap:.3e} > {tol:.3e}"

@@ -213,7 +213,8 @@ def test_masked_pass_counter_at_f64(monkeypatch):
     try:
         w = stack_world(3, device="cpu")
         state = replicate_scene(from_numpy(w.build(), "cpu"), 2)
-        params = w.params
+        # solver_backend="jax": the masked solve at any precision.
+        params = w.params.replace(solver_backend="jax")
         assert pp.solve_path(state, params) == "masked"
         for _ in range(2):
             state, _ = pp.step(state, params)
@@ -239,6 +240,64 @@ def test_masked_pass_counter_at_f64(monkeypatch):
     assert got["masked_attempted"] == color.numel() * int(num_colors.max()) * sweeps
     where = {rec.spans[i][0] for i, name, _ in rec.counts}
     assert where == {"color_passes"}
+
+
+@pytest.mark.parametrize("kind", ["f32", "f64"])
+def test_sweep_counters_count_the_lanes_on_chip(monkeypatch, kind):
+    """The kernel's counters: on the CPU the plain version solves and counts
+    nothing; a launch's counters (`_count_storage`) read the kernel's
+    storage of the step's own packed lanes, `sweep_lanes` the valid lanes and
+    `sweep_onchip` those of scenes within the library's capacity (stubbed
+    here to the smaller scene's lane count, so that one scene fits and the
+    other does not), asked at the launch's kernel, shape and dtype."""
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.pipeline import physics_pipeline as pp
+    from rapier_tpu_torch.types import tree_map
+
+    state, params = _bench()
+    state = tree_map(lambda x: x.double() if kind == "f64" and x.is_floating_point()
+                     else x.clone(), state)
+    # Scene 1's first dynamic body leaves the pile: that scene has fewer lanes.
+    for x in (state.bodies.pos, state.bodies.next_pos):
+        x[1, 1, 1] += 5.0
+    assert pp.solve_path(state, params) == "kernel"
+    seen = []
+    solve = pp.solve_from_manifolds
+
+    def kept(sb, **kw):
+        seen.append((sb, kw))
+        return solve(sb, **kw)
+
+    monkeypatch.setattr(pp, "solve_from_manifolds", kept)
+    with counters.recording() as rec:
+        pp.step(state, params)
+    assert not {name for _, name, _ in rec.counts} & {"sweep_lanes", "sweep_onchip"}
+    ((sb, kw),) = seen
+    per_scene = kw["valid"].sum(-1)
+    lo, hi = sorted(int(v) for v in per_scene)
+    assert 0 < lo < hi
+    asked = []
+
+    def capacity(folded, k, n1, max_colors, f64=False):
+        asked.append((folded, k, n1, max_colors, f64))
+        return lo
+
+    monkeypatch.setattr(cs.KERNEL, "capacity", capacity)
+    scalars = ("dt_sub", "inv_dt_sub", "erp_inv_dt", "cfm_factor", "allowed_lin_err",
+               "max_corrective_velocity", "warmstart_coeff", "n_sub", "pgs_iters",
+               "stab_iters", "max_colors")
+    packed = cs._pack(sb, **{k: v for k, v in kw.items() if k not in scalars})
+    assert packed[0].dtype == sb.v_lin.dtype
+    with counters.recording() as rec:
+        with counters.span("sweep"):
+            cs._count_storage(packed, kw["max_colors"])
+    got = {name: v for _, name, v in rec.counts}
+    assert got == {"sweep_lanes": lo + hi, "sweep_onchip": lo}
+    # The block kernel's capacity at the solve's shape and dtype.
+    assert asked == [(False, params.max_solver_pairs, state.bodies.pos.shape[1] + 1,
+                      params.max_colors, kind == "f64")]
+    where = {rec.spans[i][0] for i, _, _ in rec.counts}
+    assert where == {"sweep"}
 
 
 @pytest.mark.parametrize("name", ["stage", "span"])

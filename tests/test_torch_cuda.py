@@ -7,9 +7,12 @@ card:
 
 The kernels are held against the plain PyTorch version on the same CUDA
 inputs: body tables to 1e-4 and the impulse block to 1e-3 (atol; the plain
-version's scatter-adds use atomics, so its summation order varies).  The
-scene-folded kernel and the block-per-scene kernel run the same per-scene
-code and must agree bit for bit.  This file imports no JAX, so it runs
+version's scatter-adds use atomics, so its summation order varies).  Their
+float64 builds are held to the plain version at float64 on the CPU by the
+f64 parity rule: within 16 times the gap of a run whose velocities start 1
+ulp higher, or 64 float64 ulps of the largest value, the larger.  The scene-folded
+kernel and the block-per-scene kernel run the same per-scene code and must
+agree bit for bit, at either precision.  This file imports no JAX, so it runs
 where only PyTorch is installed.
 """
 
@@ -255,6 +258,128 @@ def test_kernel_refuses_scenes_beyond_shared_memory(device):
             torch.zeros(b, n1, dtype=torch.int32, device=device),
             torch.zeros(b, dtype=torch.int32, device=device),
             n_sub=4, pgs_iters=1, stab_iters=1, max_colors=16, scalars=(0.0,) * 7)
+
+
+F64_ULPS = 64
+F64_WITNESS_FACTOR = 16.0
+
+
+def _at_f64(inp):
+    """A capture of solve inputs with every float tensor and table at
+    float64."""
+    out = {k: (v.double() if torch.is_tensor(v) and v.is_floating_point() else v)
+           for k, v in inp.items() if k != "sb"}
+    out["sb"] = type(inp["sb"])(*(x.double() for x in inp["sb"]))
+    return out
+
+
+def _plain_f64(sb, inp, nudge=False):
+    """The plain version on the CPU (whose scatter-adds keep lane order):
+    the body rows the kernels return and the impulse block.  With `nudge`,
+    every nonzero velocity starts 1 ulp higher (the witness)."""
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+
+    sb = type(sb)(*(x.cpu() for x in sb))
+    if nudge:
+        up = torch.tensor(np.inf, dtype=torch.float64)
+        sb = sb._replace(**{f: torch.where(getattr(sb, f) != 0,
+                                           torch.nextafter(getattr(sb, f), up), getattr(sb, f))
+                            for f in ("v_lin", "v_ang")})
+    out, imp = cs.solve_plain(sb, **{k: (v.cpu() if torch.is_tensor(v) else v)
+                                     for k, v in inp.items()})
+    return torch.cat([out.v_lin, out.v_ang, out.com, out.rot], dim=1), imp
+
+
+def _f64_close(got, want, witness, what):
+    """`got` within F64_WITNESS_FACTOR times the witness's largest gap to
+    `want`, or F64_ULPS float64 ulps of `want`'s largest magnitude, the
+    larger (the f64 parity rule of tests/test_torch_precision.py)."""
+    wgap = float((witness - want).abs().max())
+    tol = max(F64_WITNESS_FACTOR * wgap,
+              F64_ULPS * torch.finfo(torch.float64).eps * float(want.abs().max()))
+    err = float((got - want).abs().max())
+    assert err <= tol, (what, err, tol)
+
+
+@pytest.mark.parametrize("tiles", [1, 4])
+def test_f64_kernels_match_plain(solve_inputs, tiles):
+    """The float64 builds of both kernels on the capture at float64, its
+    scenes on chip and in the global scratch (`_mixed_storage`): each holds
+    to the plain version at float64 by the f64 parity rule (`_f64_close`;
+    the kernels add a body's summed warmstart deltas, the reference's route
+    order, where the plain version adds them one by one, so the two part by
+    tens of ulps), and the two agree bit for bit."""
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+
+    sb, inp, packed, kw = _packed(_at_f64(_mixed_storage(solve_inputs, tiles)))
+    assert packed[0].dtype == packed[2].dtype == torch.float64
+    n1 = sb.v_lin.shape[-1]
+    plain, imp_p = _plain_f64(sb, inp)
+    wit, imp_w = _plain_f64(sb, inp, nudge=True)
+    rows = [3, 3, 3, 4]
+    outs, stored = [], []
+    for folded, fn in ((True, cs.KERNEL.launch_folded), (False, cs.KERNEL.launch)):
+        out_body, imp = fn(*packed, **kw)
+        torch.cuda.synchronize()
+        assert out_body.dtype == imp.dtype == torch.float64
+        for name, a, b, w in zip(sb._fields, out_body.cpu().split(rows, dim=1),
+                                 plain.split(rows, dim=1), wit.split(rows, dim=1)):
+            _f64_close(a, b, w, (folded, name))
+        _f64_close(imp.cpu(), imp_p, imp_w, (folded, "impulses"))
+        outs.append((out_body, imp))
+        n_valid, on_chip = cs.KERNEL.storage(folded, packed[1], n1, kw["max_colors"], f64=True)
+        assert torch.equal(n_valid, inp["valid"].sum(-1))
+        stored.append(on_chip.int().tolist())
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert stored[0] == [1] * 4 + [0] * 4          # folded: both storages
+    assert stored[1] == [1] * 4 + [int(tiles == 1)] * 4  # block: past it once K is wide
+
+
+def test_kernel_fits_matches_the_library(device):
+    """`contact_sweep.kernel_fits` (the gate's rule, computed without the
+    library) agrees with the library's shared bytes at both precisions, and
+    the float64 block kernel runs at its bench shape."""
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+
+    lib = cs.KERNEL.build()
+    for f64 in (False, True):
+        for k in (32, 128, 256, 640):
+            for n1 in (18, 29, 102, 300, 700, 1281):
+                for mc in (8, 16, 24):
+                    smem = lib.contact_sweep_smem_bytes(int(f64), int(k <= cs.FOLD_MAX_LANES), k,
+                                                        n1, mc)
+                    assert cs.kernel_fits(k, n1, mc, f64) == (smem <= cs.SMEM_LIMIT), \
+                        (f64, k, n1, mc)
+    info = cs.KERNEL.info(False, 256, 102, 16, f64=True)
+    assert info["blocks_per_sm"] >= 1 and info["smem_bytes"] <= cs.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("kind", ["f32", "f64"])
+@pytest.mark.parametrize("tiles", [1, 4])
+def test_sweep_counters_on_the_card(solve_inputs, tiles, kind):
+    """A recorded launch counts `sweep_lanes`, every valid lane, and
+    `sweep_onchip`, the lanes of scenes 0-3 (`_mixed_storage`: they fit on
+    chip in the folded kernel at K 128 and in the block kernel at K 512,
+    scenes 4-7 fit in neither), at either precision."""
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.utils import counters
+
+    inp = _mixed_storage(solve_inputs, tiles)
+    if kind == "f64":
+        inp = _at_f64(inp)
+    inp = dict(inp)
+    sb = inp.pop("sb")
+    counts = cs.KERNEL.launches, cs.KERNEL.launches_folded
+    with counters.recording() as rec:
+        cs.solve_from_manifolds(sb, **inp)
+        torch.cuda.synchronize()
+    assert (cs.KERNEL.launches - counts[0], cs.KERNEL.launches_folded - counts[1]) == \
+        ((0, 1) if tiles == 1 else (1, 0))
+    per_scene = inp["valid"].sum(-1)
+    got = {name: v for _, name, v in rec.counts}
+    assert got == {"sweep_lanes": int(per_scene.sum()),
+                   "sweep_onchip": int(per_scene[:4].sum())}
 
 
 @pytest.mark.parametrize("path", ["blocked", "masked"])
@@ -505,15 +630,16 @@ def _f64_bench(device):
 
 
 def test_f64_step_on_the_card(device):
-    """An f64 batch on the card takes the masked sweep (no contact-kernel
-    launch) and stays float64; 45 steps, then 10 more agree with the CPU
-    within 1e-9 in position and 1e-8 in velocity."""
+    """An f64 batch on the card takes the kernel's float64 build, one
+    `contact_sweep_kernel` launch a step, and stays float64; 45 steps, then
+    10 more agree with the CPU within 1e-9 in position and 1e-8 in
+    velocity."""
     from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
     from rapier_tpu_torch.pipeline import physics_pipeline as pp
     from rapier_tpu_torch.types import tree_map
 
     state, params = _f64_bench(device)
-    assert pp.solve_path(state, params) == "masked"
+    assert pp.solve_path(state, params) == "kernel"
     cs.KERNEL.launches = cs.KERNEL.launches_folded = 0
     for _ in range(45):
         state, _ = pp.step(state, params)
@@ -521,7 +647,7 @@ def test_f64_step_on_the_card(device):
     for _ in range(10):
         state, _ = pp.step(state, params)
         cpu, _ = pp.step(cpu, params)
-    assert cs.KERNEL.launches == 0 and cs.KERNEL.launches_folded == 0
+    assert cs.KERNEL.launches == 55 and cs.KERNEL.launches_folded == 0
     assert state.bodies.pos.dtype == torch.float64
     assert int(cpu.contacts.touching.sum()) > 0
     assert float((state.bodies.pos.cpu() - cpu.bodies.pos).abs().max()) <= 1e-9

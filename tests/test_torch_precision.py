@@ -1,10 +1,11 @@
 """The f64 axis (`rapier_tpu_torch.precision`) against the reference's.
 
 Tolerances:
-- f64 parity: at each step, every compared field of the port within
-  WITNESS_FACTOR times the largest gap of the reference's own 1-ulp witness
-  (the reference at f64 from the same state with one body's height 1 ulp
-  higher) at that step, or F64_ULPS float64 ulps of the field's largest
+- f64 parity (`test_torch_common.f64_compare`): at each step, every
+  compared field of the port within F64_WITNESS_FACTOR (16) times the
+  largest gap of the reference's own 1-ulp witness (the reference at f64
+  from the same state with one body's height 1 ulp higher) at that step,
+  or F64_ULPS (64) float64 ulps of the field's largest
   magnitude (of the largest contact impulse, for the impulses), whichever
   is larger.  The witness gaps here are ~1e-16 to
   ~1e-6 (the far pyramid's landing amplifies them), far below float32's
@@ -27,8 +28,6 @@ from rapier_tpu_torch import precision
 from rapier_tpu_torch.pipeline.physics_pipeline import solve_path, step
 from rapier_tpu_torch.types import from_numpy
 
-WITNESS_FACTOR = 16.0
-F64_ULPS = 64
 BENCH_SETTLE = 45      # the bottom layer lands after ~38 steps
 BENCH_STEPS = 10
 FAR_SETTLE = 30        # the bottom row lands at ~21 steps
@@ -89,22 +88,22 @@ def _float_leaves(state):
     return out
 
 
-def test_every_scene_family_steps_at_f64(f64, monkeypatch):
-    """Each scene family built at f64 steps once on the CPU with every
-    floating leaf of the state and of the events float64, off the kernel
-    route (its solve raises if reached)."""
-    import rapier_tpu_torch.pipeline.physics_pipeline as pp
-
-    def refuse(*a, **k):
-        raise AssertionError("an f64 step reached the contact-sweep solve")
-
-    monkeypatch.setattr(pp, "solve_from_manifolds", refuse)
+def test_every_scene_family_steps_at_f64(f64):
+    """Each scene family built at f64 takes the solve route its float32
+    build takes (the contact-sweep kernel's float64 build where the float32
+    one would run) and steps once on the CPU with every floating leaf of the
+    state and of the events float64."""
     for name, make in _families().items():
+        precision.set_precision("f32")
+        r32 = make()
+        w32 = r32[0] if isinstance(r32, tuple) else r32
+        w32.build()
+        precision.set_precision("f64")
         r = make()
         w = r[0] if isinstance(r, tuple) else r
         w.build()
         assert w.params.dt.dtype == np.float64, name
-        assert solve_path(w.state, w.params) != "kernel", name
+        assert solve_path(w.state, w.params) == solve_path(w32.state, w32.params), name
         w.step(1)
         bad = {k: v for k, v in _float_leaves(w.state).items() if v != torch.float64}
         bad.update({f"events.{k}": v.dtype for k, v in w.last_events._asdict().items()
@@ -114,13 +113,18 @@ def test_every_scene_family_steps_at_f64(f64, monkeypatch):
 
 
 def test_the_gate_routes_f64_off_the_kernel(f64):
-    """solve_path: an f64 scene takes the masked or blocked solve by the
-    size rule of a float32 scene under solver_backend="jax", whatever the
-    backend; the float32 routes are unchanged."""
+    """solve_path: an f64 scene takes the route a float32 scene of its
+    shapes takes, at every backend and size rule (the kernel's float64
+    build where the float32 kernel would run), except off the kernel where
+    the float64 body table and fixed words do not fit a block's shared
+    memory: such a scene keeps the masked solve.  A float32 world built
+    before the switch keeps stepping at float32."""
     import dataclasses
 
     import rapier_tpu_torch.pipeline.physics_pipeline as pp
-    from rapier_tpu_torch.types import tree_map
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.scenes import replicate_scene
+    from rapier_tpu_torch.types import empty_scene, tree_map
 
     start = tp.settled_batch()
     s32 = from_numpy(start)
@@ -130,17 +134,29 @@ def test_the_gate_routes_f64_off_the_kernel(f64):
     for backend in ("auto", "pallas", "jax"):
         params = base.replace(solver_backend=backend)
         assert solve_path(s32, params) == ("masked" if backend == "jax" else "kernel")
-        assert solve_path(s64, params) == "masked"
-        assert solve_path(s64, params) == solve_path(s32, params.replace(solver_backend="jax"))
+        assert solve_path(s64, params) == solve_path(s32, params), backend
     limit = pp.DENSE_ROUTE_ELEMS
     try:
         pp.DENSE_ROUTE_ELEMS = 0
-        for backend in ("auto", "pallas"):
+        for backend in ("auto", "pallas", "jax"):
             params = base.replace(solver_backend=backend)
-            assert solve_path(s32, params) == "kernel"
-            assert solve_path(s64, params) == "blocked"
+            assert solve_path(s32, params) == ("blocked" if backend == "jax" else "kernel")
+            assert solve_path(s64, params) == solve_path(s32, params), backend
     finally:
         pp.DENSE_ROUTE_ELEMS = limit
+    # 1,199 bodies at K = 256: the float32 tables fit a block, the float64
+    # ones do not.
+    n1, k = 1200, 256
+    assert cs.kernel_fits(k, n1, base.max_colors) and not cs.kernel_fits(k, n1, base.max_colors,
+                                                                         f64=True)
+    params = base.replace(max_solver_pairs=0)
+    wide = {}
+    for kind in ("f32", "f64"):
+        precision.set_precision(kind)
+        wide[kind] = from_numpy(replicate_scene(empty_scene(n1 - 1, 8, k), 1))
+    assert wide["f64"].bodies.pos.dtype == torch.float64
+    assert solve_path(wide["f32"], params) == "kernel"
+    assert solve_path(wide["f64"], params) == "masked"
     # A float32 world built before the switch keeps stepping at float32.
     precision.set_precision("f32")
     from rapier_tpu_torch.scenes import stack_world
@@ -220,30 +236,13 @@ def test_world_api_and_queries_at_f64(f64, tmp_path):
     assert all(v == torch.float64 for v in _float_leaves(w.state).values())
 
 
-def _compare(ref, port, witness, fields, what):
-    """Each step's port gap within the witness bound (module docstring)."""
-    for t, (r, p, w) in enumerate(zip(ref, port, witness)):
-        for f in fields:
-            rv = np.asarray(r[f], np.float64)
-            pv = np.asarray(p[f], np.float64)
-            if f in ("contacts.pair_key", "contacts.touching"):
-                assert np.array_equal(rv, pv), f"{what} step {t + 1} {f}"
-                continue
-            wgap = float(np.max(np.abs(rv - np.asarray(w[f], np.float64)), initial=0.0))
-            group = [f"contacts.{g}" for g in tp.CONTACT_IMPULSES] \
-                if f.removeprefix("contacts.") in tp.CONTACT_IMPULSES else [f]
-            scale = max(float(np.max(np.abs(np.asarray(r[g], np.float64)), initial=0.0))
-                        for g in group)
-            tol = max(WITNESS_FACTOR * wgap, F64_ULPS * np.finfo(np.float64).eps * scale)
-            gap = float(np.max(np.abs(rv - pv), initial=0.0))
-            assert gap <= tol, f"{what} step {t + 1} {f}: {gap:.3e} > {tol:.3e}"
-
-
 def test_bench_matches_the_reference_at_f64(f64, tmp_path):
     """The bench scene at 2 layers of 3 x 3 (the bench's max_pairs 512 and
-    max_solver_pairs 256: the masked route with its float32 lane routing,
-    R31): built at f64 as the reference builds it, settled 45 steps by the
-    port, then 10 steps in both packages."""
+    max_solver_pairs 256): the port's kernel route at f64 (on the CPU its
+    plain version, with the masked route's float32 lane routing, R31)
+    against the reference's masked route at f64.  Built at f64 as the
+    reference builds it, settled 45 steps by the port, then 10 steps in
+    both packages."""
     from rapier_tpu_torch.scenes import mixed_primitives_world, replicate_scene
 
     w = mixed_primitives_world(2, 3, max_pairs=512, device="cpu")
@@ -262,8 +261,9 @@ def test_bench_matches_the_reference_at_f64(f64, tmp_path):
     for k, v in out["built_params"].items():
         if hasattr(w.params, k):
             assert np.array_equal(np.asarray(getattr(w.params, k)), v), k
+    assert solve_path(state, w.params) == "kernel"
     port, _ = tp.port_f64_rollout(state, w.params, BENCH_STEPS)
-    _compare(out["reference"], port, out["witness"], tp.F64_FIELDS, "bench")
+    tp.f64_compare(out["reference"], port, out["witness"], tp.F64_FIELDS, "bench")
 
 
 def test_far_pyramid_matches_the_reference_at_f64(f64, tmp_path):
@@ -279,7 +279,7 @@ def test_far_pyramid_matches_the_reference_at_f64(f64, tmp_path):
     out = tp.reference_f64(tmp_path, state=state, params=w.params, steps=FAR_STEPS,
                            witness=(0, 1, 1))
     port, _ = tp.port_f64_rollout(state, w.params, FAR_STEPS)
-    _compare(out["reference"], port, out["witness"], tp.F64_FIELDS, "far pyramid")
+    tp.f64_compare(out["reference"], port, out["witness"], tp.F64_FIELDS, "far pyramid")
     assert int(np.sum(out["reference"][-1]["contacts.touching"])) > 0
 
 

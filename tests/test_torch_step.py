@@ -170,19 +170,30 @@ def test_step_refuses_what_is_not_ported(change, what):
         port_step(state, params)
 
 
-def test_step_refuses_f64():
-    """A float64 batch never takes the kernel route, even under
-    solver_backend="pallas" (the reference's gate, physics_pipeline.py:557):
-    it steps on the masked sweep and stays float64."""
-    from rapier_tpu_torch.pipeline.physics_pipeline import solve_path
+def test_step_refuses_f64(monkeypatch):
+    """A float64 batch takes the kernel route where its float32 batch does
+    (solver_backend="pallas", the parity shape), through the kernel's
+    float64 build (on the CPU its plain version, here watched): it steps
+    with one solve of float64 inputs and stays float64."""
+    from rapier_tpu_torch.dynamics.solver import contact_sweep as cs
+    from rapier_tpu_torch.pipeline import physics_pipeline as pp
     from rapier_tpu_torch.types import tree_map
 
     state = tree_map(lambda x: x.double() if x.is_floating_point() else x,
                      from_numpy(tp.settled_batch()))
     params = tp.port_params()
     assert params.solver_backend == "pallas"
-    assert solve_path(state, params) == "masked"
+    assert pp.solve_path(state, params) == "kernel"
+    assert pp.solve_path(from_numpy(tp.settled_batch()), params) == "kernel"
+    seen = []
+
+    def watched(sb, **kw):
+        seen.append(sb.v_lin.dtype)
+        return cs.solve_from_manifolds(sb, **kw)
+
+    monkeypatch.setattr(pp, "solve_from_manifolds", watched)
     s, _ = port_step(state, params)
+    assert seen == [torch.float64]
     assert s.bodies.pos.dtype == torch.float64 and bool(torch.isfinite(s.bodies.pos).all())
 
 
