@@ -133,7 +133,7 @@ def phase(run: dict) -> dict | None:
             # No episode ends inside the phase: offset 1, an episode longer
             # than it.
             loop = bench_run.Loop(state, run["params"], [1] * run["scenes"],
-                                  tr["steps"] + 2, step)
+                                  tr["steps"] + 2, step, run.get("actions"))
             rec = record(loop, tr["steps"])
             if rec is not None:
                 rec.update(analyse(rec))
@@ -337,10 +337,12 @@ def main(argv=None) -> int:
     files = bench_run.cell_files(bench, args.workload)
     config, traffic = files["config"], files["traffic"]
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    state, params, _ = bench_run.build_batch(config, traffic, args.seed, "cuda")
+    state, params, _, robot = bench_run.build_batch(config, traffic, args.seed, "cuda")
     scenes, episode = config["scenes"], traffic["episode_steps"]
+    actions = (None if robot is None
+               else bench_run.Actions(robot, traffic["actions"], args.seed, scenes))
     loop = bench_run.Loop(state, params, bench_run.episode_offsets(args.seed, scenes, episode),
-                          episode, step)
+                          episode, step, actions)
     for _ in range(episode):
         loop()
     torch.cuda.synchronize()

@@ -13,8 +13,12 @@ package), with imports made relative:
     pipeline/physics_pipeline.py (cut down to `step.py`: the contacts-only
     step on the masked sweep).
 
-`counters.py` (a no-op stage marker) and `masses.py` (the shapes' mass
+`counters.py` (a no-op stage marker), `masses.py` (the shapes' mass
 properties, with which each configuration's plain layout, `configs/<name>.py`,
-checks the program's built scene) are the benchmark's own.  Nothing here imports the port, the JAX package or JAX; the harness's
+checks the program's built scene) and `params.py` (the SimParams the harness
+steps this reference under) are the benchmark's own.  The harness reads the
+package through `step.step`, `types.tree_map` and `params.sim_params`; a
+configuration that needs another reference names its own package of those
+three modules (`"reference"` in `configs/<name>.json`).  Nothing here imports the port, the JAX package or JAX; the harness's
 tests check that in a fresh interpreter.
 """

@@ -10,21 +10,25 @@ traffic (`traffic/<traffic>.json`), its correctness limits
 by name.  One run, in a new process:
 
 1. set-up: the configuration's scene built by the port's own builder, its
-   dynamic bodies' start positions jittered from the seed, replicated to the
+   free bodies and free-rooted articulations moved in the ground plane from
+   the seed (an articulation whole, by its root's offset), replicated to the
    batch on the card; the start checked against the plain layout; then
    `episode_steps` warm-up steps of the loop below, after which every scene
    has reset once and the scenes' ages are spread evenly over an episode;
 2. the window: for `--seconds`, an RL user's loop over the whole batch:
    reset the scenes whose episode ended (a masked copy of each scene's own
-   start state into every leaf), `physics_pipeline.step`, synchronise, read
-   the step's overflow counters;  every `check_every` steps a sample of
-   scenes (drawn from the seed) is kept before and after its step;
+   start state into every leaf), with the traffic's `actions` write the
+   policy's actuator targets every `every` steps, `physics_pipeline.step`,
+   synchronise, read the step's overflow counters;  every `check_every`
+   steps a sample of scenes (drawn from the seed) is kept before and after
+   its step;
 3. with `--trace 1`: `trace_steps` more steps of the loop under
    torch.profiler (the card's activity only), then `stage_steps` with the
    port's stage markers on;
-4. the check: the program's state freed, the plain reference
-   (`reference/step.py`) steps every kept scene from the program's state
-   before its step, and each number compared is printed beside its limit;
+4. the check: the program's state freed, the configuration's plain
+   reference (the package `reference` names, `reference/` by default)
+   steps every kept scene from the program's state before its step, and
+   each number compared is printed beside its limit;
 5. one JSON line: correct, attempted (env-steps), failed (env-steps of
    scenes that overflowed the broad phase or the solver, met an unsupported
    pair or left a non-finite pose or velocity), metrics, device.
@@ -171,9 +175,33 @@ def episode_offsets(seed: int, scenes: int, episode: int):
 
 
 def jitter(seed: int, scenes: int, bodies: int, amplitude: float):
-    """Uniform offsets in [-amplitude, amplitude] of each scene's bodies'
-    x and z: ``[scenes, bodies, 2]`` float64."""
+    """Uniform offsets in [-amplitude, amplitude] of each scene's bodies in
+    the two ground-plane axes: ``[scenes, bodies, 2]`` float64."""
     return (rng(seed, 2).random((scenes, bodies, 2)) * 2.0 - 1.0) * amplitude
+
+
+def ground_axes(gravity) -> tuple:
+    """The two axes orthogonal to gravity's largest component, in order
+    (x and z under -Y gravity, x and y under -Z)."""
+    import numpy as np
+
+    up = int(np.argmax(np.abs(np.asarray(gravity, np.float64))))
+    return tuple(a for a in range(3) if a != up)
+
+
+def start_offsets(seed: int, scenes: int, movable, root, amplitude: float):
+    """Each scene's start offsets: (the bodies that move, in index order;
+    their offsets ``[scenes, moved, 2]`` in `ground_axes`, float64).
+    `jitter` draws a column for each movable body; a body takes the column
+    of its articulation's root (`root`: the root body of each body, itself
+    for a free body), so an articulation moves whole, and it moves where
+    its root is movable."""
+    import numpy as np
+
+    movable, root = np.asarray(movable, bool), np.asarray(root)
+    column = np.cumsum(movable) - 1
+    moved = np.flatnonzero(movable[root])
+    return moved, jitter(seed, scenes, int(movable.sum()), amplitude)[:, column[root[moved]]]
 
 
 def check_schedule(seed: int, scenes: int, traffic: dict):
@@ -193,40 +221,163 @@ def check_schedule(seed: int, scenes: int, traffic: dict):
 # Set-up.
 # ---------------------------------------------------------------------------
 
+class Actuators:
+    """A robot's actuators, resolved once at build time from the builder's
+    handles (`MjcfRobotHandles`, kept as `handles`).  `writes`: for each
+    target tensor of the articulation table, as `apply_controls` writes it
+    (`motor_target_pos` for a position actuator, `motor_target_vel` for a
+    motor or velocity one), its actuators' columns (a slice) and their
+    (tree, link, axis) slots (index tensors).  `mid`, `half`, `gear`: each
+    actuator's control range, the middle and half-range of its joint's
+    limits for a position actuator on a limited joint, else 0 and 1, and
+    its gear."""
+
+    def __init__(self, handles, world, one, device):
+        import math
+
+        import torch
+
+        mb = one.multibodies
+        groups = {}
+        for a in handles.actuators:
+            if a.joint not in handles.joints:
+                continue
+            if not handles.use_multibody:
+                raise ValueError("the harness drives the actuators of multibody joints only")
+            tree, link = handles._mb_slot(world, a.joint)
+            axis = handles.joint_axis[a.joint]
+            lo, hi = float(mb.limit_min[tree, link, axis]), float(mb.limit_max[tree, link, axis])
+            limited = a.kind == "position" and math.isfinite(lo) and math.isfinite(hi)
+            field = "motor_target_pos" if a.kind == "position" else "motor_target_vel"
+            groups.setdefault(field, []).append(
+                ((tree, link, axis), ((lo + hi) / 2, (hi - lo) / 2) if limited else (0.0, 1.0),
+                 a.gear))
+        self.handles, self.writes, ranges, gears = handles, [], [], []
+        for field, acts in groups.items():
+            slots = zip(*(slot for slot, _, _ in acts))
+            self.writes.append((field, slice(len(ranges), len(ranges) + len(acts)),
+                                tuple(torch.tensor(x, device=device) for x in slots)))
+            ranges += [r for _, r, _ in acts]
+            gears += [g for _, _, g in acts]
+        dtype = mb.motor_target_pos.dtype
+        self.mid = torch.tensor([m for m, _ in ranges], dtype=dtype, device=device)
+        self.half = torch.tensor([h for _, h in ranges], dtype=dtype, device=device)
+        self.gear = torch.tensor(gears, dtype=dtype, device=device)
+
+
+class Actions:
+    """The policy's actions (a traffic's `"actions": {"every": k, "scale":
+    s}`): a draw u ~ U[-1, 1] ``[scenes, actuators]`` from a generator on
+    the state's device, seeded from the seed's stream 5, and each
+    actuator's target (mid + u s half) gear written into the batch's
+    articulation table."""
+
+    def __init__(self, actuators: Actuators, spec: dict, seed: int, scenes: int):
+        import torch
+
+        self.every, self.actuators = int(spec["every"]), actuators
+        self.width = actuators.half * float(spec["scale"])
+        self.shape = (scenes, len(actuators.gear))
+        self.generator = torch.Generator(device=actuators.gear.device)
+        self.generator.manual_seed(int(rng(seed, 5).integers(2**63)))
+
+    def draw(self):
+        import torch
+
+        u = torch.empty(self.shape, dtype=self.width.dtype, device=self.width.device)
+        return u.uniform_(-1.0, 1.0, generator=self.generator)
+
+    def targets(self, u):
+        import torch
+
+        return torch.addcmul(self.actuators.mid, u, self.width).mul_(self.actuators.gear)
+
+    def __call__(self, state):
+        """A new draw's targets, written in place: one indexed write a
+        target tensor (the loop's reset has just made every leaf anew)."""
+        ctrl = self.targets(self.draw())
+        for field, cols, index in self.actuators.writes:
+            getattr(state.multibodies, field)[(slice(None),) + index] = ctrl[:, cols]
+
+
+def articulation_roots(one):
+    """Each body's articulation root (its tree's link 0, itself off a tree)
+    and whether it moves with the start jitter (a dynamic free body, or a
+    link of a tree whose root is free), from a one-scene state."""
+    import numpy as np
+
+    from rapier_tpu_torch.types import BodyType
+
+    b = one.bodies
+    root = np.arange(b.pos.shape[0])
+    movable = (b.body_type == int(BodyType.DYNAMIC)).cpu().numpy() & ~b.mb_link.cpu().numpy()
+    mb = one.multibodies
+    if mb is not None:
+        free = (mb.locked_axes[:, 0] == 0).cpu().numpy()
+        for tree, links in enumerate(mb.link_body.cpu().numpy()):
+            links = links[links >= 0]
+            root[links] = links[0]
+            movable[links] = free[tree]
+    return movable, root
+
+
 def build_batch(config: dict, traffic: dict, seed: int, device: str):
-    """The configuration's scene from the port's builder, jittered from the
-    seed and replicated to `config["scenes"]` on `device`.  Returns (state,
-    params, the one-scene state before jitter)."""
+    """The configuration's scene from the port's builder, moved in the ground
+    plane from the seed (`start_offsets`) and replicated to
+    `config["scenes"]` on `device`.  Returns (state, params, the one-scene
+    state before the offsets, and where the traffic has `actions` the
+    `Actuators` of the handles the builder returns with the world, else
+    None)."""
     import torch
 
     from rapier_tpu_torch import precision, scenes
-    from rapier_tpu_torch.types import BodyType, from_numpy
+    from rapier_tpu_torch.types import from_numpy
 
     precision.set_precision(traffic["precision"])
     built = getattr(scenes, config["builder"])(
         **{k: config[k] for k in config["builder_args"]},
         max_pairs=config["max_pairs"], device=device)
-    world = built[0] if isinstance(built, tuple) else built
+    world, handles = built if isinstance(built, tuple) else (built, None)
     world.params = world.params.replace(max_solver_pairs=config["max_solver_pairs"])
     one = from_numpy(world.build(), device)
+    actuators = None
+    if "actions" in traffic:
+        if not hasattr(handles, "actuators"):
+            raise ValueError(f"{config['builder']} returns no robot's handles to act on")
+        actuators = Actuators(handles, world, one, device)
     state = scenes.replicate_scene(one, config["scenes"])
-    dyn = (one.bodies.body_type == int(BodyType.DYNAMIC)).nonzero().flatten()
-    amp = traffic["jitter_rad"] * config["rad"]
-    jit = torch.as_tensor(jitter(seed, config["scenes"], len(dyn), amp), device=device)
+    movable, root = articulation_roots(one)
+    moved, off = start_offsets(seed, config["scenes"], movable, root,
+                               traffic["jitter_rad"] * config["rad"])
+    axes = ground_axes(world.params.gravity)
+    idx, jit = torch.as_tensor(moved, device=device), torch.as_tensor(off, device=device)
     pos = state.bodies.pos.clone()
-    pos[:, dyn, 0] += jit[..., 0].to(pos.dtype)
-    pos[:, dyn, 2] += jit[..., 1].to(pos.dtype)
     nxt = state.bodies.next_pos.clone()
-    nxt[:, dyn, 0] += jit[..., 0].to(pos.dtype)
-    nxt[:, dyn, 2] += jit[..., 1].to(pos.dtype)
+    for k, axis in enumerate(axes):
+        pos[:, idx, axis] += jit[..., k].to(pos.dtype)
+        nxt[:, idx, axis] += jit[..., k].to(pos.dtype)
     state = dataclasses.replace(state, bodies=dataclasses.replace(
         state.bodies, pos=pos, next_pos=nxt))
-    return state, world.params, one
+    if one.multibodies is not None:
+        # A free root's coordinates carry its world position, so they move
+        # with its body (a moved root is a free one: `articulation_roots`).
+        col = {int(body): i for i, body in enumerate(moved)}
+        roots = one.multibodies.link_body[:, 0].tolist()
+        trees = [t for t, r in enumerate(roots) if r in col]
+        if trees:
+            q = state.multibodies.q.clone()
+            cols = [col[roots[t]] for t in trees]
+            for k, axis in enumerate(axes):
+                q[:, trees, 0, axis] += jit[:, cols, k].to(q.dtype)
+            state = dataclasses.replace(state, multibodies=state.multibodies.replace(q=q))
+    return state, world.params, one, actuators
 
 
-def start_readings(state, layout_bodies, seed, config, traffic, idx):
+def start_readings(state, layout_bodies, seed, config, traffic, idx, gravity):
     """The program's built scenes `idx` (`state`: their rows, before any step) against the plain
-    layout with the seed's jitter.  start_pos_gap_m: the largest gap of a
+    layout with the seed's offsets (`start_offsets` in the ground plane of
+    `gravity`: a layout body's `articulation` names its tree's root body,
+    and it moves where that root is dynamic).  start_pos_gap_m: the largest gap of a
     body's start position.  start_shape_gap: the largest relative gap of a
     dynamic body's mass or inertia tensor (over its largest principal
     inertia) or of a collider's shape parameters (the layout's rounded to
@@ -239,12 +390,14 @@ def start_readings(state, layout_bodies, seed, config, traffic, idx):
     n = len(layout_bodies)
     dyn_ids = [i for i, lb in enumerate(layout_bodies) if lb["dynamic"]]
     fixed = [i for i, lb in enumerate(layout_bodies) if not lb["dynamic"]]
-    amp = traffic["jitter_rad"] * config["rad"]
-    jit = jitter(seed, config["scenes"], len(dyn_ids), amp)[idx]
+    root = [lb.get("articulation", i) for i, lb in enumerate(layout_bodies)]
+    movable = [layout_bodies[r]["dynamic"] for r in root]
+    moved, jit = start_offsets(seed, config["scenes"], movable, root,
+                               traffic["jitter_rad"] * config["rad"])
     want_pos = np.tile(np.array([lb["pos"] for lb in layout_bodies], np.float64),
                        (len(idx), 1, 1))
-    want_pos[:, dyn_ids, 0] += jit[..., 0]
-    want_pos[:, dyn_ids, 2] += jit[..., 1]
+    for k, axis in enumerate(ground_axes(gravity)):
+        want_pos[:, moved, axis] += jit[idx, :, k]
     got = lambda x: x.double().cpu().numpy()     # noqa: E731
     pos_gap = float(np.abs(got(b.pos)[:, :n] - want_pos).max())
 
@@ -288,16 +441,19 @@ def start_readings(state, layout_bodies, seed, config, traffic, idx):
 # ---------------------------------------------------------------------------
 
 class Loop:
-    """The RL user's loop over the batch: reset, step, synchronise, read the
-    step's failure counters.  `spans` (when a list) receives (label, start
-    ns, end ns) of each part on the host's monotonic clock."""
+    """The RL user's loop over the batch: reset, write the policy's actions
+    (every `actions.every` steps, where the traffic has them), step,
+    synchronise, read the step's failure counters.  `spans` (when a list)
+    receives (label, start ns, end ns) of each part on the host's monotonic
+    clock."""
 
-    def __init__(self, state, params, offsets, episode, step_fn):
+    def __init__(self, state, params, offsets, episode, step_fn, actions=None):
         import torch
 
         self.state, self.init, self.params = state, state, params
         self.offsets = torch.as_tensor(offsets, device=state.bodies.pos.device)
         self.episode, self.step_fn, self.t = episode, step_fn, 0
+        self.actions = actions
         self.spans = None
         self.failures = dict.fromkeys(FAILURE_KINDS, 0)
 
@@ -327,6 +483,9 @@ class Loop:
 
         with self._span("reset"):
             self.reset()
+        if self.actions is not None and self.t % self.actions.every == 0:
+            with self._span("actions"):
+                self.actions(self.state)
         before = rows(self.state, keep) if keep is not None else None
         with self._span("step"):
             new, events = self.step_fn(self.state, self.params)
@@ -439,29 +598,45 @@ def staged_steps(loop, steps: int) -> dict:
 # The check.
 # ---------------------------------------------------------------------------
 
-def to_reference(state):
+def reference_package(config: dict, base: Path = HERE):
+    """The configuration's plain reference: the package under the
+    benchmark's directory `base` that its `reference` key names
+    (`reference/` where it has none), as the package's three modules:
+    `step` (`step(state, params)` -> (new state, events)), `types`
+    (`tree_map(fn, state)`: a state of the program as the package's own,
+    with every optional part its types carry) and `params`
+    (`sim_params(config, state, dtype, world_params)`: its SimParams)."""
+    import importlib
+    import types
+    import zlib
+
+    name = config.get("reference", "reference")
+    base = Path(base).resolve()
+    if base == HERE:
+        pkg = f"port_bench.{name}"
+    else:
+        # A benchmark directory elsewhere (a test's): its package by path.
+        pkg = f"port_bench_{zlib.crc32(str(base).encode()):08x}_{name}"
+        if pkg not in sys.modules:
+            spec = importlib.util.spec_from_file_location(
+                pkg, base / name / "__init__.py", submodule_search_locations=[str(base / name)])
+            sys.modules[pkg] = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(sys.modules[pkg])
+    return types.SimpleNamespace(**{m: importlib.import_module(f"{pkg}.{m}")
+                                    for m in ("step", "types", "params")})
+
+
+def to_reference(state, ref=None):
     """The kept rows as the reference's own state type (fields read by
     name)."""
-    from port_bench.reference import types as rt
-
-    return rt.tree_map(lambda x: x, state)
+    return (ref or reference_package({})).types.tree_map(lambda x: x, state)
 
 
-def reference_params(config: dict, state, dtype: str):
-    """The reference's SimParams: its defaults at `dtype`, the
-    configuration's solver cap, and the shape census worked out from the
-    state's colliders."""
-    from collections import Counter
-
-    from port_bench.reference import precision as rp
-    from port_bench.reference import types as rt
-
-    rp.set_precision(dtype)
-    c = state.colliders
-    census = Counter(int(t) for t, p in zip(c.shape_type[0].tolist(), c.parent[0].tolist())
-                     if p >= 0)
-    return rt.SimParams(max_solver_pairs=config["max_solver_pairs"],
-                        shape_types_present=tuple(sorted(census.items())))
+def reference_params(config: dict, state, dtype: str, world_params=None, base: Path = HERE):
+    """The reference's SimParams at `dtype` for the reference's `state`, from
+    the configuration and the world's own params (the package's
+    `sim_params`)."""
+    return reference_package(config, base).params.sim_params(config, state, dtype, world_params)
 
 
 def gaps(got, want) -> dict:
@@ -519,14 +694,17 @@ def lower_precision(state, dtype):
     return zip_map(cast, state)
 
 
-def reference_step(config, before, dtype):
-    from port_bench.reference.step import step as ref_step
+def reference_step(config, before, dtype, world_params=None, base: Path = HERE):
+    """The configuration's reference stepped once from the program's
+    `before` at `dtype`."""
+    ref = reference_package(config, base)
+    ref_state = to_reference(before, ref)
+    return ref.step.step(ref_state, ref.params.sim_params(config, ref_state, dtype,
+                                                          world_params))[0]
 
-    ref_state = to_reference(before)
-    return ref_step(ref_state, reference_params(config, ref_state, dtype))[0]
 
-
-def control_readings(config, before, want, precision: str) -> dict:
+def control_readings(config, before, want, precision: str, world_params=None,
+                     base: Path = HERE) -> dict:
     """The control: the reference put in the program's place one precision
     below the configuration's (f64 cells: float32; float32 cells: the state
     held in bfloat16, the step computed in float32, its results stored in
@@ -535,31 +713,35 @@ def control_readings(config, before, want, precision: str) -> dict:
 
     out = {}
     if precision == "f64":
-        got = reference_step(config, lower_precision(before, "f32"), "f32")
+        got = reference_step(config, lower_precision(before, "f32"), "f32", world_params,
+                             base)
         out["f32"] = gaps(zip_map(lambda x: x.double() if x.is_floating_point() else x, got),
                           want)
     else:
-        got = reference_step(config, lower_precision(before, "bf16"), "f32")
+        got = reference_step(config, lower_precision(before, "bf16"), "f32", world_params,
+                             base)
         out["bf16"] = gaps(lower_precision(got, "bf16"), want)
         if before.bodies.pos.is_cuda:
             prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
             torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
             try:
-                out["tf32"] = gaps(reference_step(config, before, "f32"), want)
+                out["tf32"] = gaps(reference_step(config, before, "f32", world_params, base),
+                                   want)
             finally:
                 torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
     return out
 
 
-def check(config, traffic, kept, control=False) -> dict:
+def check(config, traffic, kept, control=False, world_params=None, base: Path = HERE) -> dict:
     """The program's kept steps against the reference's steps from the same
     states (and, with `control`, the control's)."""
     before = concat([k[0] for k in kept])
     after = concat([k[1] for k in kept])
-    want = reference_step(config, before, traffic["precision"])
+    want = reference_step(config, before, traffic["precision"], world_params, base)
     out = dict(program=gaps(after, want), samples=int(before.bodies.pos.shape[0]))
     if control:
-        out["control"] = control_readings(config, before, want, traffic["precision"])
+        out["control"] = control_readings(config, before, want, traffic["precision"],
+                                          world_params, base)
     return out
 
 
@@ -586,19 +768,21 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, trace: bool,
     torch.backends.cudnn.allow_tf32 = False
     on_card = device.startswith("cuda")
 
-    state, params, _ = build_batch(config, traffic, seed, device)
+    state, params, _, robot = build_batch(config, traffic, seed, device)
     scenes, episode = config["scenes"], traffic["episode_steps"]
+    actions = None if robot is None else Actions(robot, traffic["actions"], seed, scenes)
     layout = files["layout"].layout(**{k: config[k] for k in config["builder_args"]})
     start_idx = rng(seed, 4).choice(scenes, size=min(traffic["check_scenes"], scenes),
                                     replace=False)
     readings = start_readings(rows(state, start_idx), layout, seed, config, traffic,
-                              start_idx)
+                              start_idx, params.gravity)
     low = "f32" if traffic["precision"] == "f64" else "bf16"
     start_control = start_readings(lower_precision(rows(state, start_idx), low), layout, seed,
-                                   config, traffic, start_idx) if control else None
+                                   config, traffic, start_idx,
+                                   params.gravity) if control else None
 
     loop = Loop(state, params, episode_offsets(seed, scenes, episode), episode,
-                step_fn or port_step)
+                step_fn or port_step, actions)
     # The last warm-up step keeps scenes as the window's checked steps do,
     # so that the window launches no kernel for the first time.
     for i in range(episode):
@@ -634,7 +818,7 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, trace: bool,
     sleeping = int(loop.state.bodies.sleeping.sum())
 
     record = dict(scenes=scenes, steps=n, window_s=window_s, step_s=step_s, setup_s=setup_s,
-                  window_peak_bytes=window_peak, params=params)
+                  window_peak_bytes=window_peak, params=params, actions=actions)
     if trace:
         if not on_card:
             raise RuntimeError("a traced run records the card")
@@ -671,7 +855,8 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, trace: bool,
     numbers = dict(readings)
     found = dict(samples=0)
     if kept:
-        found = check(config, traffic, kept, control=control)
+        found = check(config, traffic, kept, control=control, world_params=params,
+                      base=root / bench["paths"][0])
         numbers.update(found["program"])
         if control:
             found["control"][low].update(start_control)

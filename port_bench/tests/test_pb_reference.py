@@ -20,7 +20,7 @@ def advance(cell, bench, overrides, settle, compare=3, seed=2**35 + 3):
 
     files = run.cell_files(bench, cell)
     cfg = dict(files["config"], **overrides)
-    state, params, _ = run.build_batch(cfg, files["traffic"], seed, "cpu")
+    state, params, _, _ = run.build_batch(cfg, files["traffic"], seed, "cpu")
     for _ in range(settle):
         state, _ = step(state, params)
     worst, touching = {}, 0
@@ -58,6 +58,38 @@ def test_primitives3_reaches_gjk_pairs(bench, f32):
     t2 = torch.gather(st, 1, c.collider2.clamp(min=0).long())
     gjk = (t1 == 9) | (t2 == 9) | (t1 == 5) | (t2 == 5)
     assert bool((c.touching & gjk).any())
+
+
+@pytest.mark.parametrize("cell, overrides", [
+    ("mixed_primitives.e150", dict(scenes=1, num_layers=1, grid=2)),
+    ("primitives3.e150", dict(scenes=1, num_layers=1, grid=2)),
+    ("mixed_primitives.e150-f64", dict(scenes=1, num_layers=1, grid=2)),
+])
+def test_the_reference_steps_under_the_worlds_params(bench, f32, cell, overrides):
+    """Every field that the reference's SimParams shares with the world's
+    params holds the same value at the same dtype, but the f64 cells'
+    gravity: the world holds (0, -9.81, 0) in float32, the reference in
+    float64."""
+    import dataclasses
+
+    import numpy as np
+
+    files = run.cell_files(bench, cell)
+    cfg, dtype = dict(files["config"], **overrides), files["traffic"]["precision"]
+    state, params, _, _ = run.build_batch(cfg, files["traffic"], 5, "cpu")
+    ref = run.reference_params(cfg, run.to_reference(state), dtype, params)
+    differ = {}
+    for f in dataclasses.fields(ref):
+        if hasattr(params, f.name):
+            a, b = np.asarray(getattr(params, f.name)), np.asarray(getattr(ref, f.name))
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                differ[f.name] = (a, b)
+    if dtype == "f64":
+        world_g, ref_g = differ.pop("gravity")
+        assert world_g.dtype == np.float32 and ref_g.dtype == np.float64
+        assert np.array_equal(ref_g, [0.0, -9.81, 0.0])
+        assert np.array_equal(world_g, ref_g.astype(np.float32))
+    assert not differ, differ
 
 
 def loaded(code):

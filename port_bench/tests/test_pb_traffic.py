@@ -55,14 +55,14 @@ def test_kept_samples_are_the_seeds():
 def test_the_built_batch_is_jittered_from_the_seed(bench, cell):
     files = run.cell_files(bench, cell)
     cfg = dict(files["config"], scenes=3, num_layers=1, grid=2)
-    s1, _, one = run.build_batch(cfg, files["traffic"], BIG, "cpu")
-    s2, _, _ = run.build_batch(cfg, files["traffic"], BIG, "cpu")
+    s1, params, one, _ = run.build_batch(cfg, files["traffic"], BIG, "cpu")
+    s2, _, _, _ = run.build_batch(cfg, files["traffic"], BIG, "cpu")
     assert (s1.bodies.pos == s2.bodies.pos).all()
     d = (s1.bodies.pos - one.bodies.pos).abs()
     amp = files["traffic"]["jitter_rad"] * cfg["rad"]
     assert d[..., 1].max() == 0 and 0 < d.max() <= amp * (1 + 1e-6)
     assert d[:, 0].max() == 0   # the fixed ground stays
     readings = run.start_readings(run.rows(s1, [0, 2]), files["layout"].layout(1, 2, cfg["rad"]),
-                                  BIG, cfg, files["traffic"], [0, 2])
+                                  BIG, cfg, files["traffic"], [0, 2], params.gravity)
     assert readings["start_pos_gap_m"] < files["limits"]["start_pos_gap_m"]
     assert readings["start_shape_gap"] < files["limits"]["start_shape_gap"]
